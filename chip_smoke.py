@@ -2,24 +2,37 @@
 """GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # from the root of a checkout, on a machine with one card
-    python3 chip_smoke.py --profile  # also trace 8 pipeline steps for the device-busy share
+    python3 chip_smoke.py --profile  # also trace 8 steps of each pipeline for the device-busy share
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
   1. the card's name and power limit, and the build of the kernel library
      from ``src/repro_torch/csrc`` (nvcc, sm_90a);
-  2. every kernel of the pipeline's path against its plain PyTorch version on
-     the card, at the shapes the pipeline gives it (``flow_update`` exact,
-     the matmuls within rtol 1e-5, atol 1e-5 * max|ref|), with times of the
-     kernel, the plain version and one PyTorch library call;
-  3. the streaming pipeline at the paper's 8k flow table (batch 1024, 256
-     drained flows per step, CNN flow model, seeded random weights) for 64
-     steps, with every kernel launch counted;
-  4. the same traffic and weights through the pipeline on the card and on the
-     CPU (plain versions): tracker state and drained rows bit-identical at
-     every step, decisions identical away from near-tied logits; once on
+  2. every kernel of the pipeline's paths against its plain PyTorch version
+     on the card, at the shapes the pipeline gives it (``flow_update`` exact,
+     the f32 matmuls within rtol 1e-5, atol 1e-5 * max|ref|, the int8
+     matmuls ``vpe_mm_q``/``mm_fused_q`` bit for bit under none/relu with
+     per-tensor and per-channel weight scales), with times of the kernel,
+     the plain version and one PyTorch library call;
+  3. the f32 streaming pipeline at the paper's 8k flow table (batch 1024,
+     256 drained flows per step, CNN flow model, seeded random weights) for
+     64 steps, with every kernel launch counted;
+  4. the same traffic and weights through the f32 pipeline on the card and on
+     the CPU (plain versions): tracker state and drained rows bit-identical
+     at every step, decisions identical away from near-tied logits; once on
      ordinary traffic and once on a collision attack that drives the scan
-     fallback.
+     fallback;
+  5. the int8 engine datapath: the port's calibration (full table, every
+     engine layer int8) on the reference's calibration traffic, then the
+     pipeline at the same 8k table for 64 steps, launching only the int8
+     engine kernels;
+  6. the int8 pipeline on the card and on the CPU under the same table for
+     64 steps: tracker state, drained rows and packet logits bit-identical;
+     flow logits bit-identical on every drained row (and, at the end, every
+     live table row) when both engines get the CPU's log1p input, and on
+     those rows whose own log1p input is identical; decisions identical away
+     from near ties; and the pruned table's layers and its int8-vs-f32 decision
+     flips (logged, not asserted).
 
 The second-to-last line is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off everywhere: the reference
@@ -39,6 +52,8 @@ MATMUL_RTOL = 1e-5  # only the order of the f32 sums differs from the plain vers
 NEAR_TIE = 1e-4  # logit gap under which the two devices may decide differently
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8 tensor-core rate
+ACTS = ("none", "relu", "silu", "gelu")
 
 PIPE = dict(table_size=8192, batch_size=1024, max_ready=256)
 TRAFFIC = dict(batch_size=1024, active_flows=4096, table_size=8192, seed=0)
@@ -77,10 +92,10 @@ def time_ms(fn, *, calls: int = 20, reps: int = 5) -> float:
     return statistics.median(samples)
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """Least time (ms) for the work: bytes over the memory rate or operations
-    over the f32 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    over the peak rate of their type (f32 by default), whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -91,7 +106,7 @@ def check_matmuls(torch, engine, plain, shapes, gen) -> dict:
     for i, (name, m, k, n) in enumerate(shapes):
         x = torch.randn(m, k, generator=gen).cuda()
         w = torch.randn(k, n, generator=gen).cuda()
-        for act in (("none", "relu", "silu", "gelu") if i == 0 else ("none",)):
+        for act in (ACTS if i == 0 else ("none",)):
             out, ref = engine(x, w, activation=act), plain(x, w, activation=act)
             torch.cuda.synchronize()
             tol = MATMUL_RTOL * ref.abs().max().item()
@@ -112,6 +127,59 @@ def check_matmuls(torch, engine, plain, shapes, gen) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=by, library_ms=lib_ms,
                 bytes=nbytes, flops=ops)
+
+
+def check_quant_matmuls(torch, engine, plain, shapes, gen) -> dict:
+    """Int8 kernel vs its plain twin on the card at each shape, with a
+    per-tensor and a per-channel weight scale (all four activations at the
+    first shape): bit for bit under none/relu, rtol 1e-5 under silu/gelu.
+    Times use per-channel scales.  The library yardstick is
+    ``torch._int_mm`` on operands quantized beforehand, where cuBLASLt takes
+    the shape (M > 16, K and N multiples of 8); the per-step library time is
+    null unless every shape has one."""
+    from repro_torch.runtime.quant import pick_scale, quantize_i8
+
+    err, ms, plain_ms, lib_ms, bound_ms, ops, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0
+    lib_all = True
+    for i, (name, m, k, n) in enumerate(shapes):
+        x = (torch.randn(m, k, generator=gen) * 3).cuda()
+        w = torch.randn(k, n, generator=gen).cuda()
+        sx = pick_scale(x.abs().max().item())
+        scales = {"tensor": pick_scale(w.abs().max().item()),
+                  "channel": tuple(pick_scale(v) for v in w.abs().amax(0).tolist())}
+        for kind, sw in scales.items():
+            for act in (ACTS if i == 0 else ("none",)):
+                out = engine(x, w, scale_x=sx, scale_w=sw, activation=act)
+                ref = plain(x, w, scale_x=sx, scale_w=sw, activation=act)
+                torch.cuda.synchronize()
+                if act in ("none", "relu"):
+                    ok = torch.equal(out, ref)
+                else:  # exp/tanh differ between the kernel and torch
+                    ok = torch.allclose(out, ref, rtol=MATMUL_RTOL,
+                                        atol=MATMUL_RTOL * ref.abs().max().item())
+                if not ok:
+                    raise AssertionError(f"{engine.__name__} {name} {kind} {act}: max err "
+                                         f"{(out - ref).abs().max().item()}")
+                err = max(err, (out - ref).abs().max().item())
+        sw = scales["channel"]
+        t = time_ms(lambda: engine(x, w, scale_x=sx, scale_w=sw))
+        tp = time_ms(lambda: plain(x, w, scale_x=sx, scale_w=sw))
+        tl = None
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            xq, wq = quantize_i8(x, sx), quantize_i8(w, sw)
+            tl = time_ms(lambda: torch._int_mm(xq, wq))
+        lib_all = lib_all and tl is not None
+        work_bytes, work_ops = 4 * (m * k + k * n + m * n), 2 * m * k * n
+        b, _ = bound(work_bytes, work_ops, INT8_OPS_PER_S)
+        lib = f"{tl:.5f} ms" if tl is not None else "none (shape not taken by cuBLASLt)"
+        log(f"  {engine.__name__} {name} ({m},{k},{n}): kernel {t:.5f} ms, plain {tp:.5f} ms, "
+            f"torch._int_mm {lib}, bound {b:.6f} ms")
+        ms, plain_ms, bound_ms = ms + t, plain_ms + tp, bound_ms + b
+        lib_ms += tl or 0.0
+        ops, nbytes = ops + work_ops, nbytes + work_bytes
+    _, by = bound(nbytes, ops, INT8_OPS_PER_S)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=lib_ms if lib_all else None, bytes=nbytes, flops=ops)
 
 
 def check_flow_update(torch, ff, gen) -> dict:
@@ -153,14 +221,22 @@ def make_batches(TrafficConfig, TrafficGenerator, cfg: dict, steps: int, device)
     return [gen.next_batch() for _ in range(steps)]
 
 
-def compare_runs(torch, ft, fx, pipes, batches, label: str) -> tuple[int, int]:
+def compare_runs(torch, ft, fx, pipes, batches, label: str, *, exact_logits: bool = False
+                 ) -> tuple[int, int, int]:
     """Drive the card and CPU pipelines over the same batches.  Returns the
-    count of near-tied decisions (CPU logit gap under NEAR_TIE) and how many
-    of them came out differently; any other difference fails."""
+    count of near-tied decisions (CPU logit gap under NEAR_TIE), how many of
+    them came out differently, and (with ``exact_logits``) how many drained
+    rows had a flow-model input that differs between the devices.  With
+    ``exact_logits`` (the int8 path) the packet logits must be bit-identical;
+    so must the flow logits of every drained row when both devices' engines
+    are given the CPU's flow-model input, and, with each device's own input,
+    on every drained row whose input is identical; any other difference
+    fails."""
     gpu, cpu = pipes
-    near = flipped = 0
+    near = flipped = prep_differs = 0
     for step, batch in enumerate(batches):
-        out_g = gpu.step(ft.PacketBatch(*(a.cuda() for a in batch)))
+        batch_g = ft.PacketBatch(*(a.cuda() for a in batch))
+        out_g = gpu.step(batch_g)
         out_c = cpu.step(batch)
         for name, a, b in zip(ft.TrackerState._fields, gpu.state, cpu.state):
             if not torch.equal(a.cpu(), b):
@@ -172,8 +248,24 @@ def compare_runs(torch, ft, fx, pipes, batches, label: str) -> tuple[int, int]:
                                           fx.packet_meta_features(batch))
         pkt_tie = (pkt_logits[:, 1] - pkt_logits[:, 0]).abs() < NEAR_TIE
         pkt_diff = out_g.pkt_actions.cpu() != out_c.pkt_actions
-        flow_logits = cpu.flow_engine.fn(cpu.flow_engine.params,
-                                         cpu.flow_engine.prep(out_c.drained.series, None))
+        flow_x = cpu.flow_engine.prep(out_c.drained.series, None)
+        flow_logits = cpu.flow_engine.fn(cpu.flow_engine.params, flow_x)
+        if exact_logits:
+            pkt_logits_g = gpu.packet_engine.fn(gpu.packet_engine.params,
+                                                fx.packet_meta_features(batch_g))
+            if not torch.equal(pkt_logits_g.cpu(), pkt_logits):
+                raise AssertionError(f"{label} step {step}: int8 packet logits differ")
+            flow_x_g = gpu.flow_engine.prep(out_g.drained.series, None)
+            flow_logits_g = gpu.flow_engine.fn(gpu.flow_engine.params, flow_x_g).cpu()
+            same = (flow_x_g.cpu() == flow_x).all(dim=1) & out_c.drained.mask
+            prep_differs += int((out_c.drained.mask & ~same).sum())
+            if not torch.equal(flow_logits_g[same], flow_logits[same]):
+                raise AssertionError(f"{label} step {step}: int8 flow logits differ on rows "
+                                     "whose input is bit-identical")
+            shared = gpu.flow_engine.fn(gpu.flow_engine.params, flow_x.cuda()).cpu()
+            if not torch.equal(shared, flow_logits):
+                raise AssertionError(f"{label} step {step}: int8 flow logits differ on the "
+                                     "CPU's flow-model input")
         top2 = flow_logits.topk(2, dim=-1).values
         flow_tie = ((top2[:, 0] - top2[:, 1]) < NEAR_TIE) & out_c.drained.mask
         flow_diff = (out_g.flow_cls.cpu() != out_c.flow_cls) & out_c.drained.mask
@@ -185,7 +277,45 @@ def compare_runs(torch, ft, fx, pipes, batches, label: str) -> tuple[int, int]:
         flipped += int(pkt_diff.sum()) + int(flow_diff.sum())
     if not flipped and gpu.rules.rules != cpu.rules.rules:
         raise AssertionError(f"{label}: rule tables differ with identical decisions")
-    return near, flipped
+    return near, flipped, prep_differs
+
+
+def drive_pipeline(kernels, record_routes, pipe, batches, *, quantized: bool):
+    """Warm up, check one step's placement (the reference's; every layer int8
+    when ``quantized``), then run the batches with the launch counts set to 0
+    just before and read just after.  Returns ``(counts, stats)``."""
+    pipe.warmup()
+    with record_routes() as routes:
+        pipe.step(batches[0])
+    placement = [(r.name, r.m, r.k, r.n, r.route.path, r.quantized) for r in routes]
+    log("  placement: " + ", ".join(f"{n}({m},{k},{nn})->{p}{'/int8' if q else ''}"
+                                    for n, m, k, nn, p, q in placement))
+    expected = [(f"pkt/w{i}", "vpe") for i in range(4)] + [("flow/conv1", "vpe")] + [
+        (f"flow/{n}", "arype") for n in ("conv2", "conv3", "fc", "linear")]
+    if [(n, p) for n, _, _, _, p, _ in placement] != expected:
+        raise AssertionError(f"placement {placement} is not the reference's {expected}")
+    if any(q != quantized for *_, q in placement):
+        raise AssertionError(f"placement {placement}: every layer should be "
+                             f"{'int8' if quantized else 'f32'}")
+    pipe.reset()
+    kernels.reset_launches()
+    stats = pipe.run(batches, steps=len(batches))
+    counts = kernels.launches()
+    log(f"  {stats.pkt_per_s:.1f} pkt/s, {stats.flow_per_s:.1f} flow/s, step {stats.step_us:.1f} us "
+        f"(p50 {stats.p50_us:.1f}, p99 {stats.p99_us:.1f}), host {stats.host_us:.1f} us, "
+        f"device {stats.device_us:.1f} us")
+    log(f"  new flows {stats.new_flows}, evicted {stats.evicted}, flows drained {stats.flows}, "
+        f"steps with collision fallback {stats.fallback_steps}")
+    log(f"  launches in {len(batches)} steps: {counts}")
+    steps = len(batches)
+    vpe, arype = ("vpe_mm_q", "mm_fused_q") if quantized else ("vpe_mm", "mm_fused")
+    want = dict.fromkeys(counts, 0)
+    want.update({"flow_update": steps, vpe: 5 * steps, arype: 4 * steps})
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}: expected {want}")
+    if stats.flows == 0 or stats.steps != steps:
+        raise AssertionError("the pipeline drained no flows")
+    return counts, stats
 
 
 def profile_steps(torch, pipe, batches, step_us: float) -> None:
@@ -230,11 +360,17 @@ def main() -> int:
     from repro_torch.core import flow_tracker as ft
     from repro_torch.data.traffic import TrafficConfig, TrafficGenerator
     from repro_torch.kernels import build
-    from repro_torch.kernels.arype_matmul.ops import arype_matmul, mm_fused
+    from repro_torch.kernels.arype_matmul.ops import (
+        arype_matmul,
+        arype_matmul_q,
+        mm_fused,
+        mm_fused_q,
+    )
     from repro_torch.kernels.flow_features import ops as ff
-    from repro_torch.kernels.vpe_smallmm.ops import vpe_matmul, vpe_mm
+    from repro_torch.kernels.vpe_smallmm.ops import vpe_matmul, vpe_matmul_q, vpe_mm, vpe_mm_q
+    from repro_torch.launch.calibrate import calibrate_quant_scales, quant_divergence_report
     from repro_torch.models.paper_models import init_paper_model
-    from repro_torch.runtime import record_routes
+    from repro_torch.runtime import RuntimeConfig, record_routes
     from repro_torch.serving import OctopusPipeline, PipelineConfig
 
     # -- 1. device and build
@@ -255,60 +391,93 @@ def main() -> int:
         "flow_update": check_flow_update(torch, ff, gen),
         "vpe_mm": check_matmuls(torch, vpe_matmul, vpe_mm, VPE_SHAPES, gen),
         "mm_fused": check_matmuls(torch, arype_matmul, mm_fused, ARYPE_SHAPES, gen),
+        "vpe_mm_q": check_quant_matmuls(torch, vpe_matmul_q, vpe_mm_q, VPE_SHAPES, gen),
+        "mm_fused_q": check_quant_matmuls(torch, arype_matmul_q, mm_fused_q, ARYPE_SHAPES, gen),
     }
 
-    # -- 3. the pipeline on the card
-    log("[pipeline] 8k table, batch 1024, 256 drained flows/step, CNN, 64 steps")
+    # -- 3. the f32 pipeline on the card
+    log("[pipeline] f32, 8k table, batch 1024, 256 drained flows/step, CNN, 64 steps")
     mlp = init_paper_model("mlp", torch.Generator().manual_seed(1), device="cpu")
     cnn = init_paper_model("cnn", torch.Generator().manual_seed(2), device="cpu")
     batches = make_batches(TrafficConfig, TrafficGenerator, TRAFFIC, 64, "cuda")
     pipe = OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE))
-    pipe.warmup()
-    with record_routes() as routes:
-        pipe.step(batches[0])
-    placement = [(r.name, r.m, r.k, r.n, r.route.path) for r in routes]
-    log("  placement: " + ", ".join(f"{n}({m},{k},{nn})->{p}" for n, m, k, nn, p in placement))
-    expected = [(f"pkt/w{i}", "vpe") for i in range(4)] + [("flow/conv1", "vpe")] + [
-        (f"flow/{n}", "arype") for n in ("conv2", "conv3", "fc", "linear")]
-    if [(n, p) for n, _, _, _, p in placement] != expected:
-        raise AssertionError(f"placement {placement} is not the reference's {expected}")
-    pipe.reset()
-    kernels.reset_launches()
-    stats = pipe.run(batches, steps=64)
-    counts = kernels.launches()
-    log(f"  {stats.pkt_per_s:.1f} pkt/s, {stats.flow_per_s:.1f} flow/s, step {stats.step_us:.1f} us "
-        f"(p50 {stats.p50_us:.1f}, p99 {stats.p99_us:.1f}), host {stats.host_us:.1f} us, "
-        f"device {stats.device_us:.1f} us")
-    log(f"  new flows {stats.new_flows}, evicted {stats.evicted}, flows drained {stats.flows}, "
-        f"steps with collision fallback {stats.fallback_steps}")
-    log(f"  launches in 64 steps: {counts}")
-    if counts != {"flow_update": 64, "vpe_mm": 5 * 64, "mm_fused": 4 * 64}:
-        raise AssertionError(f"launch counts {counts}: expected 1, 5 and 4 per step")
-    if stats.flows == 0 or stats.steps != 64:
-        raise AssertionError("the pipeline drained no flows")
+    counts, stats = drive_pipeline(kernels, record_routes, pipe, batches, quantized=False)
     if "--profile" in sys.argv[1:]:
         profile_steps(torch, pipe, batches[:8], stats.step_us)
 
-    # -- 4. card vs CPU
+    # -- 4. card vs CPU, f32
     for label, cfg, steps in (("ordinary", TRAFFIC, 16), ("collision attack", ATTACK, 8)):
-        log(f"[card vs cpu] {label} traffic, {steps} steps")
-        batches = make_batches(TrafficConfig, TrafficGenerator, cfg, steps, "cpu")
+        log(f"[card vs cpu] f32, {label} traffic, {steps} steps")
+        cpu_batches = make_batches(TrafficConfig, TrafficGenerator, cfg, steps, "cpu")
         pipes = (OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE)),
                  OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), device="cpu"))
-        near, flipped = compare_runs(torch, ft, fx, pipes, batches, label)
+        near, flipped, _ = compare_runs(torch, ft, fx, pipes, cpu_batches, label)
         fb = pipes[0].stats.fallback_steps
         log(f"  tracker state and drained rows bit-identical over {steps} steps; decisions "
             f"identical except {flipped} of {near} near ties; collision-fallback steps {fb}")
         if label == "collision attack" and fb != steps:
             raise AssertionError(f"the attack took the fallback on {fb} of {steps} steps")
 
-    # -- 5. records
-    source = {"flow_update": "src/repro_torch/csrc/flow_update.cu",
-              "vpe_mm": "src/repro_torch/csrc/vpe_mm.cu",
-              "mm_fused": "src/repro_torch/csrc/mm_fused.cu"}
+    # -- 5. the int8 pipeline on the card
+    t0 = time.perf_counter()
+    table = calibrate_quant_scales(mlp, cnn, max_flip_rate=None)
+    log(f"[int8] full table {table.fingerprint} ({len(table.entries)} layers: "
+        f"{', '.join(table.names())}) calibrated on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    int8 = RuntimeConfig(quantize=True, quant_scales=table)
+    log("[pipeline] int8, 8k table, batch 1024, 256 drained flows/step, CNN, 64 steps")
+    pipe = OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), config=int8)
+    q_counts, q_stats = drive_pipeline(kernels, record_routes, pipe, batches, quantized=True)
+    if "--profile" in sys.argv[1:]:
+        profile_steps(torch, pipe, batches[:8], q_stats.step_us)
+    counts.update({name: q_counts[name] for name in ("vpe_mm_q", "mm_fused_q")})
+
+    # -- 6. card vs CPU, int8; 64 steps, since flows first drain after ~20
+    steps = 64
+    log(f"[card vs cpu] int8, ordinary traffic, {steps} steps")
+    cpu_batches = make_batches(TrafficConfig, TrafficGenerator, TRAFFIC, steps, "cpu")
+    pipes = (OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), config=int8),
+             OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), config=int8, device="cpu"))
+    near, flipped, prep_differs = compare_runs(torch, ft, fx, pipes, cpu_batches, "int8",
+                                               exact_logits=True)
+    drained = pipes[1].stats.flows
+    log(f"  tracker state, drained rows and packet logits bit-identical over {steps} steps; "
+        f"flow logits bit-identical on all {drained} drained rows given the CPU's log1p "
+        f"input, and on the {drained - prep_differs} whose own log1p input is identical "
+        f"({prep_differs} rows differ there: torch's log1p on the card and on the CPU); "
+        f"decisions identical except {flipped} of {near} near ties")
+    # every live table row through the flow engine on both devices, so the
+    # int8 flow path is held at scale even when few flows drained
+    gpu, cpu = pipes
+    live = cpu.state.count > 0
+    x_c = cpu.flow_engine.prep(cpu.state.series[live], None)
+    x_g = gpu.flow_engine.prep(gpu.state.series[live.cuda()], None)
+    same = (x_g.cpu() == x_c).all(dim=1)
+    logits_g = gpu.flow_engine.fn(gpu.flow_engine.params, x_g).cpu()
+    logits_c = cpu.flow_engine.fn(cpu.flow_engine.params, x_c)
+    if not torch.equal(logits_g[same], logits_c[same]):
+        raise AssertionError("int8 flow logits differ on live rows whose input is bit-identical")
+    shared = gpu.flow_engine.fn(gpu.flow_engine.params, x_c.cuda()).cpu()
+    if not torch.equal(shared, logits_c):
+        raise AssertionError("int8 flow logits differ on live rows given the CPU's input")
+    log(f"  int8 flow logits on the {int(live.sum())} live table rows: bit-identical on all "
+        f"of them given the CPU's log1p input, and on the {int(same.sum())} whose own log1p "
+        f"input is identical")
+    t0 = time.perf_counter()
+    pruned = calibrate_quant_scales(mlp, cnn)
+    log(f"[int8] pruned table {pruned.fingerprint} (max_flip_rate 0.01, "
+        f"{time.perf_counter() - t0:.2f} s): {', '.join(pruned.names())}")
+    for name, scales in (("full", table), ("pruned", pruned)):
+        text, _ = quant_divergence_report(scales, mlp, cnn)
+        log(f"  [{name}] " + text.replace("\n", "\n  "))
+
+    # -- 7. records
+    source = {name: f"src/repro_torch/csrc/{name}.cu" for name in results}
     replaces = {"flow_update": "src/repro/kernels/flow_features/flow_features.py:78",
                 "vpe_mm": "src/repro/kernels/vpe_smallmm/vpe_smallmm.py:73",
-                "mm_fused": "src/repro/kernels/arype_matmul/arype_matmul.py:103"}
+                "mm_fused": "src/repro/kernels/arype_matmul/arype_matmul.py:103",
+                "vpe_mm_q": "src/repro/kernels/vpe_smallmm/vpe_smallmm.py:104",
+                "mm_fused_q": "src/repro/kernels/arype_matmul/arype_matmul.py:141"}
     record = [dict(name=name, route="cuda", source=source[name], replaces=replaces[name],
                    launches=counts[name], **r) for name, r in results.items()]
     log(card)

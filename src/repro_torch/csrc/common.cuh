@@ -26,4 +26,13 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
+// Symmetric int8 code of v on scale s, as the reference's quantize_i8:
+// IEEE f32 division (never a reciprocal multiply, never __fdividef), rounding
+// half to even (rintf, as jnp.round; roundf would round half away from
+// zero), then the clip to [-127, 127].
+__device__ __forceinline__ int quantize_code(float v, float s) {
+  const float q = rintf(__fdiv_rn(v, s));
+  return static_cast<int>(fminf(fmaxf(q, -127.f), 127.f));
+}
+
 }  // namespace octo

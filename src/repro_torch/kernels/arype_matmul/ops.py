@@ -1,9 +1,11 @@
-"""The AryPE blocked-matmul engine: the plain PyTorch ``mm_fused`` and the
-wrapper of the CUDA kernel ``csrc/mm_fused.cu``.
+"""The AryPE blocked-matmul engine: the plain PyTorch ``mm_fused`` /
+``mm_fused_q`` and the wrappers of the CUDA kernels ``csrc/mm_fused.cu`` /
+``csrc/mm_fused_q.cu``.
 
-(M, K) @ (K, N) with the f32 accumulator carried across K blocks and the
+(M, K) @ (K, N) with the accumulator carried across K blocks and the
 activation applied once, in the epilogue (the paper's fused collaborative
-aggregation).
+aggregation): in f32, or on int8 codes with an int32 accumulator and a
+per-channel dequant (the paper's fixed-point AryPE).
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import torch
 
 from repro_torch.common.util import ACTIVATIONS, apply_activation
 from repro_torch.kernels.build import CudaKernel, stream_of
-from repro_torch.kernels.vpe_smallmm.ops import check_matmul_operands
+from repro_torch.kernels.vpe_smallmm.ops import check_matmul_operands, check_quant_args, scale_row
+from repro_torch.kernels.vpe_smallmm.ops import vpe_mm_q as mm_fused_q  # one exact int8 twin
 
 BLOCK_K = 128  # the reference kernel's K block
 
@@ -50,4 +53,32 @@ def arype_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none") 
     if m * n:
         MM_FUSED(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
                  ACTIVATIONS[activation], stream_of(x))
+    return out
+
+
+MM_FUSED_Q = CudaKernel("mm_fused_q_launch", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def arype_matmul_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
+                   activation: str = "none") -> torch.Tensor:
+    """Int8 (M, K) @ (K, N) -> (M, N) f32 on the AryPE engine: f32 operands
+    clip-rounded to int8 on the layer's scales (``scale_w`` a float or a
+    per-output-channel tuple), fused int32 accumulation, dequant, activation.
+    On CPU tensors this is the plain :func:`mm_fused_q`; on CUDA tensors one
+    launch of the kernel, which quantizes on load and masks ragged M/N/K."""
+    check_quant_args("arype_matmul_q", x, w, scale_w, activation)
+    if x.device.type == "cpu":
+        return mm_fused_q(x, w, scale_x=scale_x, scale_w=scale_w, activation=activation)
+    if x.device.type != "cuda":
+        raise ValueError(f"arype_matmul_q: no kernel for {x.device}")
+    check_matmul_operands("arype_matmul_q", x, w)
+    (m, k), n = x.shape, w.shape[1]
+    if m >= 64 * 65535:
+        raise ValueError(f"arype_matmul_q: M={m} exceeds the kernel's grid")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m * n:
+        MM_FUSED_Q(x.device, x.data_ptr(), w.data_ptr(), scale_x,
+                   scale_row(scale_w, n, x.device).data_ptr(), out.data_ptr(), m, k, n,
+                   ACTIVATIONS[activation], stream_of(x))
     return out

@@ -1,17 +1,21 @@
-"""The VPE small-matmul engine: the plain PyTorch ``vpe_mm`` and the wrapper
-of the CUDA kernel ``csrc/vpe_mm.cu``.
+"""The VPE small-matmul engine: the plain PyTorch ``vpe_mm`` / ``vpe_mm_q``
+and the wrappers of the CUDA kernels ``csrc/vpe_mm.cu`` / ``csrc/vpe_mm_q.cu``.
 
-Small or skinny (M, K) @ (K, N) products (K*N small) as an f32
-broadcast-multiply and a reduce over K, with a fused activation.
+Small or skinny (M, K) @ (K, N) products (K*N small) as a broadcast-multiply
+and a reduce over K, with a fused activation: in f32, or on int8 codes with
+an int32 sum and a per-channel dequant (the paper's fixed-point SIMDU).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from repro_torch.common.util import ACTIVATIONS, apply_activation
 from repro_torch.kernels.build import CudaKernel, check_cuda, stream_of
+from repro_torch.runtime.quant import I32_MAX_K, dequant_row, quantize_i8
 
 
 def vpe_mm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none") -> torch.Tensor:
@@ -52,4 +56,78 @@ def vpe_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none") ->
     if m * n:
         VPE_MM(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
                ACTIVATIONS[activation], stream_of(x))
+    return out
+
+
+# ------------------------------------------------------------------ int8
+
+
+Q_BLOCK_K = 128  # K block of the plain int8 twin, bounding its (M, K, N) product
+
+
+def vpe_mm_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
+             activation: str = "none") -> torch.Tensor:
+    """Plain twin of both int8 kernels (``vpe_mm_q`` and ``mm_fused_q``):
+    both operands to int8 codes, an exact int32 broadcast-multiply-sum over
+    K blocks (torch has no integer matmul on the card; an integer sum is the
+    same in any order, so one twin serves both engines), the dequant row,
+    the activation."""
+    (m, k), n = x.shape, w.shape[1]
+    xq = quantize_i8(x, scale_x).to(torch.int32)
+    wq = quantize_i8(w, scale_w).to(torch.int32)
+    acc = torch.zeros((m, n), dtype=torch.int32, device=x.device)
+    for k0 in range(0, k, Q_BLOCK_K):
+        blk = slice(k0, k0 + Q_BLOCK_K)
+        acc += (xq[:, blk, None] * wq[None, blk, :]).sum(dim=1, dtype=torch.int32)
+    dq = torch.from_numpy(dequant_row(scale_x, scale_w, n)).to(x.device)
+    return apply_activation(acc.float() * dq, activation)
+
+
+VPE_MM_Q = CudaKernel("vpe_mm_q_launch", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def check_quant_args(name: str, x: torch.Tensor, w: torch.Tensor, scale_w,
+                     activation: str) -> None:
+    """What both int8 engines take, on any device: a known activation, a
+    weight scale per tensor or one per output channel, and a depth whose
+    int32 sum cannot overflow."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"activation must be one of {tuple(ACTIVATIONS)}, got {activation!r}")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"{name}: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    if isinstance(scale_w, tuple) and len(scale_w) != w.shape[1]:
+        raise ValueError(f"{name}: {len(scale_w)} channel scales for N={w.shape[1]}")
+    if w.shape[0] > I32_MAX_K:
+        raise ValueError(f"{name}: K={w.shape[0]} overflows the int32 sum "
+                         f"(K * 127^2 must stay below 2^31)")
+
+
+@functools.lru_cache(maxsize=256)
+def scale_row(scale_w, n: int, device: torch.device) -> torch.Tensor:
+    """The (N,) f32 weight-scale row the int8 kernels read, made once per
+    table entry and device so a step copies nothing to the card."""
+    row = np.broadcast_to(np.asarray(scale_w, np.float32), (n,)).copy()
+    return torch.from_numpy(row).to(device)
+
+
+def vpe_matmul_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
+                 activation: str = "none") -> torch.Tensor:
+    """Int8 (M, K) @ (K, N) -> (M, N) f32 on the VPE engine: f32 operands
+    clip-rounded to int8 on the layer's scales (``scale_w`` a float or a
+    per-output-channel tuple), int32 sum, dequant, activation.  On CPU
+    tensors this is the plain :func:`vpe_mm_q`; on CUDA tensors one launch of
+    the kernel, which quantizes on load and masks the ragged M edge."""
+    check_quant_args("vpe_matmul_q", x, w, scale_w, activation)
+    if x.device.type == "cpu":
+        return vpe_mm_q(x, w, scale_x=scale_x, scale_w=scale_w, activation=activation)
+    if x.device.type != "cuda":
+        raise ValueError(f"vpe_matmul_q: no kernel for {x.device}")
+    check_matmul_operands("vpe_matmul_q", x, w)
+    (m, k), n = x.shape, w.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m * n:
+        VPE_MM_Q(x.device, x.data_ptr(), w.data_ptr(), scale_x,
+                 scale_row(scale_w, n, x.device).data_ptr(), out.data_ptr(), m, k, n,
+                 ACTIVATIONS[activation], stream_of(x))
     return out

@@ -1,0 +1,1 @@
+"""Entry points of the port: int8 scale calibration (``calibrate``)."""

@@ -8,6 +8,9 @@ match the JAX package's plan exactly.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
+
+from repro_torch.runtime.quant import QuantScales
 
 POLICIES = ("collaborative", "arype_only", "vpe_only")
 
@@ -24,6 +27,11 @@ class RuntimeConfig:
     * ``accum_dtype`` — accumulation dtype of both engines ("float32").
     * ``fused_aggregation`` — fuse K-block partial aggregation; False is the
       paper's "wo/ collaborating" ablation, whose kernel is not ported yet.
+    * ``quantize`` — run engine matmuls on int8 operands with int32
+      accumulation, dequantized to f32 before the activation; only layers
+      whose name has an entry in ``quant_scales`` quantize, the rest (and
+      every layer when the table is None) run the f32 path unchanged.
+    * ``quant_scales`` — the per-layer :class:`QuantScales` table.
     """
 
     policy: str = "collaborative"
@@ -33,6 +41,8 @@ class RuntimeConfig:
     vpe_max_elems: int = 1 << 21
     accum_dtype: str = "float32"
     fused_aggregation: bool = True
+    quantize: bool = False
+    quant_scales: Optional[QuantScales] = None
 
     def __post_init__(self):
         if self.policy not in POLICIES:

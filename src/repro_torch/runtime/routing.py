@@ -26,13 +26,15 @@ class Route:
 
 @dataclass(frozen=True)
 class RouteRecord:
-    """One recorded placement decision."""
+    """One recorded placement decision; ``quantized`` marks a matmul that
+    runs the int8 engine path (``quantize`` on and a scale entry for it)."""
 
     name: Optional[str]
     m: int
     k: int
     n: int
     route: Route
+    quantized: bool = False
 
 
 _recorder: ContextVar[Optional[List[RouteRecord]]] = ContextVar("route_recorder", default=None)
@@ -63,6 +65,11 @@ def name_scope(label: str) -> Iterator[None]:
         _name_scope.reset(token)
 
 
+def current_scope() -> str:
+    """The active :func:`name_scope` prefix ("" outside any scope)."""
+    return _name_scope.get()
+
+
 def systolic_utilization(m: int, k: int, n: int, array: int) -> float:
     """The paper's utilization definition (§3.2.3): useful MACs over
     array-slots x stream-cycles.  (10,3)x(3,32) on 32x32 gives 9.3%."""
@@ -80,9 +87,10 @@ def mxu_utilization(m: int, k: int, n: int, tile: int, fill: int) -> float:
 
 
 def route_matmul(m: int, k: int, n: int, *, config: Optional[RuntimeConfig] = None,
-                 name: Optional[str] = None) -> Route:
+                 name: Optional[str] = None, quantized: bool = False) -> Route:
     """Decide the engine for an (m,k)x(k,n) matmul.  Records the decision if a
-    :func:`record_routes` block is active."""
+    :func:`record_routes` block is active; ``quantized`` is what the caller
+    found in the scale table (``router.matmul`` passes it)."""
     cfg = config if config is not None else RuntimeConfig()
     util = mxu_utilization(m, k, n, tile=cfg.mxu_tile, fill=cfg.fill_depth)
     if cfg.policy == "arype_only":
@@ -97,5 +105,5 @@ def route_matmul(m: int, k: int, n: int, *, config: Optional[RuntimeConfig] = No
     if records is not None:
         scope = _name_scope.get()
         scoped = f"{scope}{name}" if name is not None else (scope or None)
-        records.append(RouteRecord(scoped, m, k, n, route))
+        records.append(RouteRecord(scoped, m, k, n, route, quantized))
     return route
