@@ -12,7 +12,9 @@ the two engines:
 Each engine is a hand-written CUDA kernel on the card and its plain PyTorch
 twin on the CPU, chosen by the device of the operands.  With
 ``RuntimeConfig.quantize`` and a scale entry for the layer, the engine runs
-its int8 kernel (``vpe_mm_q`` / ``mm_fused_q``) instead.
+its int8 kernel (``vpe_mm_q`` / ``mm_fused_q``) instead.  On ``meta`` tensors
+(:meth:`repro_torch.runtime.plan.RoutePlan.trace`) the route is recorded and
+nothing runs.
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ __all__ = ["Route", "matmul", "route_matmul"]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, activation: Optional[str] = None,
-           config: Optional[RuntimeConfig] = None, name: Optional[str] = None
-           ) -> torch.Tensor:
+           config: Optional[RuntimeConfig] = None, name: Optional[str] = None,
+           route: Optional[Route] = None) -> torch.Tensor:
     """Routed matmul: x (..., M, K) @ w (K, N) -> (..., M, N) f32.
 
     The batch dimensions fold into M before routing, so the placement sees
@@ -41,17 +43,25 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, activation: Optional[str] = None
     statistics are recorded first (the calibration tap).  With
     ``config.quantize``, a layer ``name`` that has an entry in
     ``config.quant_scales`` runs on int8 operands with int32 accumulation,
-    dequantized to f32 before the activation; other layers stay f32."""
+    dequantized to f32 before the activation; other layers stay f32.
+
+    ``route`` executes a pre-decided :class:`Route` (a plan step) instead of
+    deriving and recording one.  On ``meta`` operands the route is recorded
+    and an empty ``meta`` result returned: no launch, no scale statistics."""
     cfg = config if config is not None else RuntimeConfig()
     *batch, m, k = x.shape
     if w.shape[0] != k:
         raise ValueError(f"matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
     n = w.shape[1]
-    maybe_record(name, x, w)
+    meta = x.device.type == "meta"
+    if not meta:
+        maybe_record(name, x, w)
     qscales = (cfg.quant_scales.lookup(name, current_scope())
                if cfg.quantize and cfg.quant_scales is not None else None)
-    r = route_matmul(math.prod(batch) * m, k, n, config=cfg, name=name,
-                     quantized=qscales is not None)
+    r = route if route is not None else route_matmul(
+        math.prod(batch) * m, k, n, config=cfg, name=name, quantized=qscales is not None)
+    if meta:
+        return torch.empty((*batch, m, n), dtype=torch.float32, device="meta")
     x2, w2, act = x.reshape(-1, k).contiguous(), w.contiguous(), activation or "none"
     if qscales is not None:
         engine = vpe_matmul_q if r.path == "vpe" else arype_matmul_q

@@ -3,8 +3,8 @@
 ``quant_divergence_report``.
 
 Scales come from a seeded :class:`TrafficGenerator` sample pushed through an
-f32 pipeline, so the flow engine sees tracker-shaped inputs (drained and
-ready series rows), and then through both engines under
+f32 pipeline, so the flow engine sees tracker-shaped inputs (the drained and
+ready rows' series or payloads), and then through both engines under
 :func:`repro_torch.runtime.record_scales`.  A greedy pass per decision
 stream then drops the layers whose int8 error flips the most decisions.
 
@@ -14,9 +14,9 @@ stream then drops the layers whose int8 error flips the most decisions.
 
 The parameters are arguments (the reference initialises its own from JAX
 ``PRNGKey``s, which the port cannot replay; ``convert.params_from_numpy``
-carries them over).  The flow model is the CNN; the payload transformer is
-not ported yet.  The reference's crossover sweep (``tau``/``vpe_max_elems``)
-and its CLI are not ported either.
+carries them over), and one call calibrates one flow model, the CNN or the
+payload transformer (the reference takes a list of them).  The reference's
+crossover sweep (``tau``/``vpe_max_elems``) and its CLI are not ported.
 """
 from __future__ import annotations
 
@@ -43,14 +43,8 @@ def traffic_config(table_size: int = 256, seed: int = 7) -> TrafficConfig:
                          table_size=table_size, seed=seed)
 
 
-def _check_flow_model(flow_model: str) -> None:
-    if flow_model != "cnn":
-        raise NotImplementedError(f"flow_model {flow_model!r}: only the cnn flow "
-                                  "model is ported")
-
-
-def _pipeline_config(tcfg: TrafficConfig) -> PipelineConfig:
-    return PipelineConfig(batch_size=tcfg.batch_size, max_ready=8, flow_model="cnn",
+def _pipeline_config(tcfg: TrafficConfig, flow_model: str) -> PipelineConfig:
+    return PipelineConfig(batch_size=tcfg.batch_size, max_ready=8, flow_model=flow_model,
                           table_size=tcfg.table_size)
 
 
@@ -72,14 +66,14 @@ def calibrate_quant_scales(pkt_params: dict, flow_params: dict, *, steps: int = 
     f32 exceeds the target, the layer whose removal leaves the fewest flips
     goes back to f32 (ties go to the earlier layer).  ``None`` returns the
     full table."""
-    _check_flow_model(flow_model)
     dev = resolve_device(device)
     tcfg = traffic if traffic is not None else traffic_config()
     gen = TrafficGenerator(tcfg, device=dev)
     batches = [gen.next_batch() for _ in range(steps)]
     base = RuntimeConfig()
-    pipe = OctopusPipeline(pkt_params, flow_params, _pipeline_config(tcfg),
+    pipe = OctopusPipeline(pkt_params, flow_params, _pipeline_config(tcfg, flow_model),
                            config=base, device=dev)
+    flow_apply = paper_models.FLOW_APPLY[flow_model]
     pkt_params, flow_params = pipe.packet_engine.params, pipe.flow_engine.params
     top_n = pipe.state.series.shape[1]
     rows = []
@@ -92,12 +86,13 @@ def calibrate_quant_scales(pkt_params: dict, flow_params: dict, *, steps: int = 
         if ready.any():
             rows.append(pipe.flow_engine.prep(pipe.state.series, pipe.state.payload)[ready])
     # with no decision rows the sample is one zero row (the scales stay eps-guarded)
-    flow_x = torch.cat(rows) if rows else torch.zeros((1, paper_models.CNN_SEQ), device=dev)
+    flow_x = (torch.cat(rows) if rows
+              else torch.zeros(pipe.flow_engine.abstract_input(1).shape, device=dev))
     pkt_x = torch.cat([packet_meta_features(b) for b in batches])
 
     with record_scales() as rec:
         paper_models.mlp_apply(pkt_params, pkt_x, config=base)
-        paper_models.cnn_apply(flow_params, flow_x, config=base)
+        flow_apply(flow_params, flow_x, config=base)
     full = rec.scales()
     if max_flip_rate is None or not full.entries:
         return full
@@ -130,9 +125,8 @@ def calibrate_quant_scales(pkt_params: dict, flow_params: dict, *, steps: int = 
             paper_models.mlp_apply(pkt_params, pkt_x, config=cfg)))
     if rows:  # the zero-row sample has no decisions to measure against
         dropped |= prune_stream(
-            stream_layers(paper_models.cnn_apply, flow_params, flow_x),
-            lambda cfg: torch.argmax(
-                paper_models.cnn_apply(flow_params, flow_x, config=cfg), dim=-1))
+            stream_layers(flow_apply, flow_params, flow_x),
+            lambda cfg: torch.argmax(flow_apply(flow_params, flow_x, config=cfg), dim=-1))
     return full.subset(tuple(n for n in full.names() if n not in dropped))
 
 
@@ -145,10 +139,9 @@ def quant_divergence_report(scales: QuantScales, pkt_params: dict, flow_params: 
     decision flips (packet allow/deny, flow class on drained rows) and
     whether the tracker state stayed bit-exact, as it must: only engine
     outputs quantize.  Returns ``(report_text, metrics)``."""
-    _check_flow_model(flow_model)
     dev = resolve_device(device)
     tcfg = traffic if traffic is not None else traffic_config()
-    pcfg = _pipeline_config(tcfg)
+    pcfg = _pipeline_config(tcfg, flow_model)
     ref = OctopusPipeline(pkt_params, flow_params, pcfg, config=RuntimeConfig(), device=dev)
     q = OctopusPipeline(pkt_params, flow_params, pcfg,
                         config=RuntimeConfig(quantize=True, quant_scales=scales), device=dev)

@@ -26,7 +26,10 @@ class RuntimeConfig:
     * ``vpe_max_elems`` — VPE-path working-set cap (M*K*N fp32 elements).
     * ``accum_dtype`` — accumulation dtype of both engines ("float32").
     * ``fused_aggregation`` — fuse K-block partial aggregation; False is the
-      paper's "wo/ collaborating" ablation, whose kernel is not ported yet.
+      paper's "wo/ collaborating" ablation: AryPE-placed matmuls of
+      ``collaborative_forward`` and ``cnn_apply`` write their K-block
+      partials to memory and sum them in a second pass (``mm_unfused_partials``),
+      always in f32.
     * ``quantize`` — run engine matmuls on int8 operands with int32
       accumulation, dequantized to f32 before the activation; only layers
       whose name has an entry in ``quant_scales`` quantize, the rest (and
@@ -53,7 +56,3 @@ class RuntimeConfig:
             raise ValueError("mxu_tile, fill_depth and vpe_max_elems must be positive")
         if self.accum_dtype != "float32":
             raise NotImplementedError("the engine kernels accumulate in float32 only")
-        if not self.fused_aggregation:
-            raise NotImplementedError(
-                "fused_aggregation=False needs the mm_unfused_partials kernel, "
-                "which is not ported yet")

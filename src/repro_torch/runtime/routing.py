@@ -27,7 +27,9 @@ class Route:
 @dataclass(frozen=True)
 class RouteRecord:
     """One recorded placement decision; ``quantized`` marks a matmul that
-    runs the int8 engine path (``quantize`` on and a scale entry for it)."""
+    runs the int8 engine path (``quantize`` on and a scale entry for it),
+    ``unfused`` one that runs the AryPE without fused aggregation (K-block
+    partials, then their sum)."""
 
     name: Optional[str]
     m: int
@@ -35,6 +37,7 @@ class RouteRecord:
     n: int
     route: Route
     quantized: bool = False
+    unfused: bool = False
 
 
 _recorder: ContextVar[Optional[List[RouteRecord]]] = ContextVar("route_recorder", default=None)
@@ -87,10 +90,12 @@ def mxu_utilization(m: int, k: int, n: int, tile: int, fill: int) -> float:
 
 
 def route_matmul(m: int, k: int, n: int, *, config: Optional[RuntimeConfig] = None,
-                 name: Optional[str] = None, quantized: bool = False) -> Route:
+                 name: Optional[str] = None, quantized: bool = False,
+                 unfused: bool = False) -> Route:
     """Decide the engine for an (m,k)x(k,n) matmul.  Records the decision if a
     :func:`record_routes` block is active; ``quantized`` is what the caller
-    found in the scale table (``router.matmul`` passes it)."""
+    found in the scale table (``router.matmul`` passes it), ``unfused`` that
+    the caller runs the product unfused should it land on the AryPE."""
     cfg = config if config is not None else RuntimeConfig()
     util = mxu_utilization(m, k, n, tile=cfg.mxu_tile, fill=cfg.fill_depth)
     if cfg.policy == "arype_only":
@@ -105,5 +110,6 @@ def route_matmul(m: int, k: int, n: int, *, config: Optional[RuntimeConfig] = No
     if records is not None:
         scope = _name_scope.get()
         scoped = f"{scope}{name}" if name is not None else (scope or None)
-        records.append(RouteRecord(scoped, m, k, n, route, quantized))
+        records.append(RouteRecord(scoped, m, k, n, route, quantized,
+                                   unfused and route.path == "arype"))
     return route

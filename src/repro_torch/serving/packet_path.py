@@ -1,19 +1,30 @@
 """The model-invoke cores of the two serving paths (paper §2.3 Table 1):
 :class:`PacketEngine` (use-case 1 MLP on per-packet features, the
 latency-critical VPE side) and :class:`FlowEngine` (use-case 2 CNN on drained
-flows' interval series, the throughput AryPE side)."""
+flows' interval series, or use-case 3 transformer on their payload bytes: the
+throughput AryPE side).  Each reports its placement as a :class:`RoutePlan`
+traced on ``meta`` tensors."""
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.models import paper_models
 from repro_torch.runtime.config import RuntimeConfig
+from repro_torch.runtime.plan import RoutePlan
 
-FLOW_MODELS = ("cnn",)  # the payload transformer is not ported yet
+FLOW_MODELS = tuple(paper_models.FLOW_APPLY)  # ("cnn", "transformer")
+
+# The transformer's payload scaling.  The reference divides by 255.0 under
+# jax.jit, where XLA turns the division by a constant into a multiply by its
+# f32 reciprocal; the port multiplies by that reciprocal on every device, so
+# its input equals the reference pipeline's bit for bit (a true division
+# differs in the last bit on 126 of the 256 byte values).
+PAYLOAD_SCALE = float(np.float32(1) / np.float32(255))
 
 
 @dataclass
@@ -66,10 +77,18 @@ class PacketEngine:
     def fn(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         return paper_models.mlp_apply(params, x, config=self.runtime)
 
+    def abstract_input(self, batch: int) -> torch.Tensor:
+        return torch.empty((batch, self.feature_dim), device="meta")
+
+    def route_plan(self, batch: int = 1) -> RoutePlan:
+        """Placement report for a batch of this size (nothing runs)."""
+        return RoutePlan.trace(self.fn, self.params, self.abstract_input(batch),
+                               config=self.runtime)
+
 
 class FlowEngine:
-    """Model-invoke core of the flow path (use-case 2 CNN on interval
-    series)."""
+    """Model-invoke core of the flow path (use-case 2 CNN on interval series,
+    use-case 3 transformer on payload matrices)."""
 
     def __init__(self, params: dict, model: str = "cnn", *,
                  config: Optional[RuntimeConfig] = None):
@@ -80,8 +99,21 @@ class FlowEngine:
         self.runtime = config if config is not None else RuntimeConfig()
 
     def fn(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        return paper_models.cnn_apply(params, x, config=self.runtime)
+        return paper_models.FLOW_APPLY[self.model](params, x, config=self.runtime)
 
     def prep(self, series: torch.Tensor, payload: torch.Tensor) -> torch.Tensor:
-        """Tracker memories -> model input: the log1p interval series."""
-        return torch.log1p(series.float())
+        """Tracker memories -> model input: the log1p interval series for the
+        CNN, the payload bytes scaled to [0, 1] for the transformer."""
+        if self.model == "cnn":
+            return torch.log1p(series.float())
+        return payload.float() * PAYLOAD_SCALE
+
+    def abstract_input(self, flows: int) -> torch.Tensor:
+        shape = ((flows, paper_models.CNN_SEQ) if self.model == "cnn"
+                 else (flows, paper_models.TF_PKTS, paper_models.TF_BYTES))
+        return torch.empty(shape, device="meta")
+
+    def route_plan(self, flows: int) -> RoutePlan:
+        """Placement report for this many flows (nothing runs)."""
+        return RoutePlan.trace(self.fn, self.params, self.abstract_input(flows),
+                               config=self.runtime)

@@ -10,8 +10,8 @@ One continuous loop over packet microbatches — the paper's steps 1 -> 6:
   3. extract  — drain up to ``max_ready`` ready flows (count >= top_n) and
                 recycle their slots (:func:`flow_tracker.drain_ready`)
   4. infer    — per-packet features -> :class:`PacketEngine` (MLP); drained
-                flow series -> :class:`FlowEngine` (CNN), both through the
-                routed ``vpe_mm`` / ``mm_fused`` kernels
+                flow series or payloads -> :class:`FlowEngine` (CNN or
+                transformer), both through the routed engine kernels
   5. decide   — logits -> allow/deny + class ids
   6. feed back — decisions update the switch-facing rule table (host side)
 
@@ -36,6 +36,7 @@ from repro_torch.core import flow_tracker as ft
 from repro_torch.kernels.flow_features.ops import check_program, default_program
 from repro_torch.models import paper_models
 from repro_torch.runtime.config import RuntimeConfig
+from repro_torch.runtime.plan import RoutePlan
 from repro_torch.runtime.routing import name_scope
 from repro_torch.serving.packet_path import FLOW_MODELS, FlowEngine, PacketEngine
 
@@ -78,16 +79,26 @@ class PipelineConfig:
             raise NotImplementedError("scan_len > 1, overlap and cold_size are "
                                       "not ported yet")
         if self.flow_model not in FLOW_MODELS:
-            raise NotImplementedError(f"flow_model must be one of {FLOW_MODELS}, "
-                                      f"got {self.flow_model!r}")
+            raise ValueError(f"flow_model must be one of {FLOW_MODELS}, "
+                             f"got {self.flow_model!r}")
         if self.tracker not in TRACKERS:
             raise ValueError(f"tracker must be one of {TRACKERS}, got {self.tracker!r}")
         if self.batch_size <= 0 or not 0 < self.max_ready <= self.table_size:
             raise ValueError("batch_size and max_ready must be positive "
                              "(max_ready <= table_size)")
-        if self.flow_head.needs_logits and self.top_n != paper_models.CNN_SEQ:
+        # the flow engine reads the tracker memories as they are, so their
+        # depths must be the model's input geometry; a feature-only flow head
+        # runs no model and leaves them free
+        if not self.flow_head.needs_logits:
+            return
+        if self.flow_model == "cnn" and self.top_n != paper_models.CNN_SEQ:
             raise ValueError(f"cnn flow model needs top_n == {paper_models.CNN_SEQ} "
                              f"(got {self.top_n})")
+        if self.flow_model == "transformer" and (
+                self.top_k != paper_models.TF_PKTS or self.pay_bytes != paper_models.TF_BYTES):
+            raise ValueError(
+                f"transformer flow model needs top_k == {paper_models.TF_PKTS} and "
+                f"pay_bytes == {paper_models.TF_BYTES} (got {self.top_k}/{self.pay_bytes})")
 
 
 class PipelineStepOutput(NamedTuple):
@@ -347,3 +358,46 @@ class OctopusPipeline:
         self.state = self._fresh_state()
         self.rules = decisions.RuleTable()
         self.stats = PipelineStats()
+
+    # ------------------------------------------------------------- placement
+    def plan(self) -> RoutePlan:
+        """One RoutePlan over the matmuls the decision heads consume, in step
+        order (the packet engine under the ``pkt/`` name scope, then the flow
+        engine under ``flow/``), traced on ``meta`` tensors: nothing runs.
+        Feature-only heads contribute no matmuls."""
+        use_pkt = self.cfg.pkt_head.needs_logits
+        use_flow = self.cfg.flow_head.needs_logits
+
+        def engines(pkt_params, px, flow_params, fx_):
+            if use_pkt:
+                with name_scope("pkt"):
+                    self.packet_engine.fn(pkt_params, px)
+            if use_flow:
+                with name_scope("flow"):
+                    self.flow_engine.fn(flow_params, fx_)
+
+        return RoutePlan.trace(
+            engines, self.packet_engine.params,
+            self.packet_engine.abstract_input(self.cfg.batch_size),
+            self.flow_engine.params, self.flow_engine.abstract_input(self.cfg.max_ready),
+            config=self.runtime)
+
+    def explain(self) -> str:
+        """Placement report for the step: the combined plan plus the
+        per-engine split (a feature-only head's engine reads as skipped)."""
+        plan = self.plan()
+        pkt = plan.scoped("pkt", strip=True)
+        flow = plan.scoped("flow", strip=True)
+        c = self.cfg
+        head = (f"OctopusPipeline: batch={c.batch_size} max_ready={c.max_ready} "
+                f"flow_model={c.flow_model} table={c.table_size} top_n={c.top_n} "
+                f"tracker={c.tracker} scan_len={c.scan_len}"
+                f" heads={c.pkt_head.name}/{c.flow_head.name}")
+        fmt = lambda p: ", ".join(f"{s.name}->{s.engine}" for s in p.steps)
+        eng = lambda p, on: (f"({len(p)} matmuls): {fmt(p)}" if on
+                             else "skipped (feature-only head)")
+        return "\n".join([
+            head, plan.explain(),
+            f"  packet-engine {eng(pkt, c.pkt_head.needs_logits)}",
+            f"  flow-engine {eng(flow, c.flow_head.needs_logits)}",
+        ])

@@ -13,18 +13,31 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import flow_tracker as ft
+from repro_torch.core.collaborative import collaborative_forward, plan_stack
 from repro_torch.core.feature_extractor import packet_meta_features
 from repro_torch.data.traffic import TrafficConfig, TrafficGenerator
-from repro_torch.kernels.arype_matmul.ops import arype_matmul, arype_matmul_q, mm_fused, mm_fused_q
+from repro_torch.kernels.arype_matmul.ops import (
+    arype_matmul,
+    arype_matmul_q,
+    arype_matmul_unfused,
+    mm_fused,
+    mm_fused_q,
+    mm_unfused,
+    mm_unfused_partials,
+    mm_unfused_partials_plain,
+)
 from repro_torch.kernels.flow_features import ops as ff
 from repro_torch.kernels.vpe_smallmm.ops import vpe_matmul, vpe_matmul_q, vpe_mm, vpe_mm_q
 from repro_torch.launch.calibrate import calibrate_quant_scales
 from repro_torch.models.paper_models import init_paper_model
-from repro_torch.runtime import RuntimeConfig
+from repro_torch.runtime import RuntimeConfig, record_routes
 from repro_torch.runtime.quant import pick_scale
 from repro_torch.serving import OctopusPipeline, PipelineConfig
 
 pytestmark = pytest.mark.cuda
+# the transformer flow engine's AryPE matmuls at 256 drained rows of 15
+# packets: wq/wk/wv, mlp1, mlp2, cls
+TF_SHAPES = [(3840, 16, 64), (3840, 64, 128), (3840, 128, 64), (256, 64, 162)]
 
 
 @pytest.fixture
@@ -37,7 +50,8 @@ def cuda():
 
 @pytest.mark.parametrize("engine,plain", [(vpe_matmul, vpe_mm), (arype_matmul, mm_fused)])
 @pytest.mark.parametrize("m,k,n", [(1, 1, 1), (37, 5, 7), (1024, 6, 12), (5120, 3, 32),
-                                   (2560, 96, 32), (129, 300, 65), (256, 128, 162)])
+                                   (2560, 96, 32), (129, 300, 65), (256, 128, 162)]
+                         + TF_SHAPES)
 @pytest.mark.parametrize("act", ["none", "relu", "silu", "gelu"])
 def test_matmul_kernels_match_plain(cuda, engine, plain, m, k, n, act):
     gen = torch.Generator().manual_seed(m + k + n)
@@ -54,7 +68,8 @@ def test_matmul_kernels_match_plain(cuda, engine, plain, m, k, n, act):
 @pytest.mark.parametrize("engine,plain", [(vpe_matmul_q, vpe_mm_q), (arype_matmul_q, mm_fused_q)])
 @pytest.mark.parametrize("m,k,n", [(1, 1, 1), (37, 5, 7), (1024, 6, 12), (1024, 12, 6),
                                    (1024, 6, 3), (1024, 3, 2), (5120, 3, 32), (2560, 96, 32),
-                                   (1280, 96, 32), (256, 96, 128), (256, 128, 162)])
+                                   (1280, 96, 32), (256, 96, 128), (256, 128, 162)]
+                         + TF_SHAPES)
 @pytest.mark.parametrize("per_channel", [False, True], ids=["tensor", "channel"])
 @pytest.mark.parametrize("act", ["none", "relu", "silu", "gelu"])
 def test_int8_kernels_match_plain(cuda, engine, plain, m, k, n, per_channel, act):
@@ -72,6 +87,112 @@ def test_int8_kernels_match_plain(cuda, engine, plain, m, k, n, per_channel, act
         assert torch.equal(out, ref)
     else:  # the activation's exp/tanh differ between the kernel and torch
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (37, 5, 7), (2560, 96, 32), (1280, 96, 32),
+                                   (1000, 128, 162), (33, 200, 17), (20000, 3, 32)])
+@pytest.mark.parametrize("bk", [32, None])
+@pytest.mark.parametrize("act", ["none", "relu", "silu", "gelu"])
+def test_unfused_kernels_match_plain(cuda, m, k, n, bk, act):
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen).to(cuda)
+    w = torch.randn(k, n, generator=gen).to(cuda)
+    depth = bk or 128
+    before = kernels.launches()
+    partials = mm_unfused_partials(x, w, bk=depth)
+    out = arype_matmul_unfused(x, w, activation=act, bk=bk)
+    after = kernels.launches()
+    # one partials launch each, one sum launch for the whole matmul, nothing else
+    assert after["mm_unfused_partials"] == before["mm_unfused_partials"] + 2
+    assert after["mm_partials_sum"] == before["mm_partials_sum"] + 1
+    assert sum(after.values()) == sum(before.values()) + 3
+    ref = mm_unfused_partials_plain(x, w, bk=depth)
+    assert partials.shape == (-(-k // depth), m, n)
+    torch.testing.assert_close(partials, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+    ref = mm_unfused(x, w, activation=act, bk=depth)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("policy", ["arype_only", "collaborative"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_collaborative_forward_on_card_matches_cpu(cuda, policy, fused):
+    rng = np.random.default_rng(5)
+    x, *ws = (torch.as_tensor(rng.normal(size=s).astype(np.float32))
+              for s in ((1000, 300), (300, 64), (64, 96), (96, 8)))
+    acts = ["relu", "gelu", None]
+    cfg = RuntimeConfig(policy=policy, fused_aggregation=fused)
+    plan = plan_stack(x, ws, config=cfg)
+    engines = [s.engine for s in plan.steps]
+    assert engines == (["arype"] * 3 if policy == "arype_only" else ["arype", "arype", "vpe"])
+    want = collaborative_forward(x, ws, acts, plan=plan)
+    kernels.reset_launches()
+    got = collaborative_forward(x.to(cuda), [w.to(cuda) for w in ws], acts, plan=plan)
+    counts = kernels.launches()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    # an AryPE step: mm_fused, or unfused one partials and one sum launch;
+    # a VPE step (the plan's route through router.matmul): vpe_mm
+    n_arype = engines.count("arype")
+    expect = dict.fromkeys(counts, 0)
+    expect.update(vpe_mm=engines.count("vpe"))
+    if fused:
+        expect["mm_fused"] = n_arype
+    else:
+        expect.update(mm_unfused_partials=n_arype, mm_partials_sum=n_arype)
+    assert counts == expect
+
+
+@pytest.mark.parametrize("flow_model,runtime_kw", [
+    ("transformer", {}), ("transformer", dict(quantize=True)),
+    ("cnn", dict(fused_aggregation=False, vpe_max_elems=1 << 16))],
+    ids=["transformer_f32", "transformer_int8", "cnn_unfused"])
+def test_slice3_pipelines_on_card_match_cpu(cuda, flow_model, runtime_kw):
+    mlp = init_paper_model("mlp", torch.Generator().manual_seed(1), device="cpu")
+    flow = init_paper_model(flow_model, torch.Generator().manual_seed(3), device="cpu")
+    cfg = PipelineConfig(batch_size=256, max_ready=64, table_size=1024, flow_model=flow_model)
+    if runtime_kw.get("quantize"):
+        runtime_kw = dict(runtime_kw, quant_scales=calibrate_quant_scales(
+            mlp, flow, flow_model=flow_model, max_flip_rate=None, device="cpu"))
+    runtime = RuntimeConfig(**runtime_kw)
+    gpu = OctopusPipeline(mlp, flow, cfg, config=runtime)
+    cpu = OctopusPipeline(mlp, flow, cfg, config=runtime, device="cpu")
+    gen = TrafficGenerator(TrafficConfig(batch_size=256, active_flows=64, table_size=1024,
+                                         elephant_fraction=0.5), device="cpu")
+    steps, counts, drained = 12, dict.fromkeys(kernels.launches(), 0), 0
+    for step in range(steps):
+        batch = gen.next_batch()
+        kernels.reset_launches()
+        out_g = gpu.step(ft.PacketBatch(*(a.to(cuda) for a in batch)))
+        counts = {name: counts[name] + n for name, n in kernels.launches().items()}
+        with record_routes() as routes:
+            out_c = cpu.step(batch)
+        for a, b in zip(gpu.state, cpu.state):
+            assert torch.equal(a.cpu(), b)
+        for a, b in zip(out_g.drained, out_c.drained):
+            assert torch.equal(a.cpu(), b)
+        mask = out_c.drained.mask
+        drained += int(mask.sum())
+        x_c = cpu.flow_engine.prep(out_c.drained.series, out_c.drained.payload)
+        if flow_model == "cnn" and mask.any():
+            # torch's log1p differs between the devices: both get the CPU's input
+            want = cpu.flow_engine.fn(cpu.flow_engine.params, x_c)[mask]
+            got = gpu.flow_engine.fn(gpu.flow_engine.params, x_c.to(cuda)).cpu()[mask]
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+        if flow_model == "transformer" and mask.any():
+            x_g = gpu.flow_engine.prep(out_g.drained.series, out_g.drained.payload)
+            assert torch.equal(x_g.cpu(), x_c)  # a multiply by an f32 constant: exact
+            # the devices' exp (softmax) and attention sums differ in the last
+            # bits; int8 re-quantizes the attention output, where such a bit
+            # can move a code by one (see chip_smoke.TF_LOGIT_TOL)
+            tol = 2e-2 if runtime.quantize else 1e-4
+            want = cpu.flow_engine.fn(cpu.flow_engine.params, x_c)[mask]
+            got = gpu.flow_engine.fn(gpu.flow_engine.params, x_g).cpu()[mask]
+            torch.testing.assert_close(got, want, rtol=0, atol=tol * want.abs().max().item())
+    assert drained > 0
+    want = kernels.matmul_launches(routes, steps)
+    want["flow_update"] += steps
+    assert counts == want
+    if not runtime.fused_aggregation:
+        assert counts["mm_unfused_partials"] > 0
 
 
 @pytest.mark.parametrize("segments", ["spread", "colliding"])

@@ -127,12 +127,26 @@ def test_step_records_scoped_placement_and_path_stats_drop_empty_calls():
 
 
 @pytest.mark.parametrize("kw", [dict(scan_len=2), dict(overlap=True), dict(cold_size=64),
-                                dict(flow_model="transformer")])
+                                dict(overlap=True, scan_len=3)])
 def test_pipeline_config_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError):
         PipelineConfig(**kw)
     with pytest.raises(ValueError, match="tracker"):
         PipelineConfig(tracker="pallas")
+
+
+def test_pipeline_config_takes_the_transformer_with_the_reference_checks():
+    cfg = PipelineConfig(flow_model="transformer")
+    assert (cfg.flow_model, cfg.top_k, cfg.pay_bytes) == ("transformer", 15, 16)
+    # the transformer reads payload rows, so the series depth top_n is free
+    assert PipelineConfig(flow_model="transformer", top_n=6).top_n == 6
+    for kw in (dict(top_n=6), dict(flow_model="transformer", top_k=8),
+               dict(flow_model="transformer", pay_bytes=32), dict(flow_model="lstm")):
+        with pytest.raises(ValueError) as ours:
+            PipelineConfig(**kw)
+        with pytest.raises(ValueError) as theirs:
+            JPipelineConfig(**kw)
+        assert str(ours.value) == str(theirs.value)
 
 
 def test_pipeline_without_device_refuses_on_a_host_without_cuda():
@@ -150,6 +164,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import repro_torch.runtime.plan, repro_torch.core.collaborative\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.'))"
         " or m == 'repro']\n"

@@ -83,6 +83,15 @@ def jax_tables():
     return full, pruned
 
 
+@pytest.fixture(scope="module")
+def jax_transformer_tables():
+    """The reference's calibration with the transformer as the flow model,
+    full and pruned."""
+    full = j_calibrate_quant_scales(steps=16, flow_models=("transformer",), max_flip_rate=None)
+    pruned = j_calibrate_quant_scales(steps=16, flow_models=("transformer",))
+    return full, pruned
+
+
 @pytest.mark.parametrize("engine", ["vpe", "arype"])
 @pytest.mark.parametrize("m,k,n", SHAPES)
 @pytest.mark.parametrize("per_channel", [False, True], ids=["tensor", "channel"])
@@ -283,19 +292,26 @@ def test_int8_pipeline_matches_reference(jax_tables, runtime_kw):
     assert pipe.rules.rules == jpipe.rules.rules
 
 
-def test_calibration_matches_reference(jax_tables):
-    jfull, jpruned = jax_tables
+def test_calibration_matches_reference(jax_tables, jax_transformer_tables):
+    """Both flow models: the reference's layer names (the transformer's six
+    bare, looked up under ``flow/``), scales within rtol 1e-6 and the same
+    pruned set."""
     _, mlp = jax_params("mlp", 0)
-    _, cnn = jax_params("cnn", 1)
-    full = calibrate_quant_scales(mlp, cnn, max_flip_rate=None, device="cpu")
-    pruned = calibrate_quant_scales(mlp, cnn, device="cpu")
-    assert full.names() == jfull.names()
-    for (name, sx, sw), (_, jsx, jsw) in zip(full.entries, jfull.entries):
-        np.testing.assert_allclose(sx, jsx, rtol=1e-6, err_msg=name)
-        np.testing.assert_allclose(sw, jsw, rtol=1e-6, err_msg=name)
-    assert pruned.names() == jpruned.names()
-    with pytest.raises(NotImplementedError, match="cnn"):
-        calibrate_quant_scales(mlp, cnn, flow_model="transformer", device="cpu")
+    for model, (jfull, jpruned) in (("cnn", jax_tables), ("transformer", jax_transformer_tables)):
+        _, flow = jax_params(model, 1)
+        full = calibrate_quant_scales(mlp, flow, flow_model=model, max_flip_rate=None,
+                                      device="cpu")
+        pruned = calibrate_quant_scales(mlp, flow, flow_model=model, device="cpu")
+        assert full.names() == jfull.names()
+        for (name, sx, sw), (_, jsx, jsw) in zip(full.entries, jfull.entries):
+            np.testing.assert_allclose(sx, jsx, rtol=1e-6, err_msg=name)
+            np.testing.assert_allclose(sw, jsw, rtol=1e-6, err_msg=name)
+        assert pruned.names() == jpruned.names()
+    assert {"wq", "wk", "wv", "mlp1", "mlp2", "cls"} <= set(full.names())
+    assert full.lookup("wq", "flow/") == dict((n, (sx, sw)) for n, sx, sw in full.entries)["wq"]
+    text, metrics = quant_divergence_report(full, mlp, flow, flow_model="transformer",
+                                            device="cpu")
+    assert metrics["tracker_bit_exact"] and "transformer" in text
 
 
 def test_divergence_report_keeps_tracker_exact_and_flips_bounded(jax_tables):
