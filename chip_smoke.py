@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout, on a machine with one card
     python3 chip_smoke.py --profile  # also trace 8 steps of the f32/int8 CNN and transformer
-                                     # pipelines for the device-busy share
+                                     # pipelines and a short LM serve for the device-busy share
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -18,8 +18,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      also at the transformer flow engine's shapes; ``mm_unfused_partials``
      (partials pass and sum pass) also at use-case 2's ``arype_only`` shapes
      for 1000 flows, with the paper's 32-deep K blocks and the reference
-     wrapper's 128-deep ones.  Each pipeline phase checks that its step's
-     matmuls are the shapes checked here;
+     wrapper's 128-deep ones, and its sum pass alone; ``mm_fused`` also at
+     the LM's decode and longest-prefill shapes, per forward beside
+     ``torch.matmul``.  Each pipeline phase and the serve check that their
+     matmuls are the shapes checked here.  ``[flash]``:
+     ``flash_fwd`` against its plain twin in f32 (rtol = atol 2e-5) and bf16
+     (rtol 2^-7, one bf16 step; atol 1e-5) over every mask, ragged Sq/Sk, kv_len < Sk, fully masked rows
+     (exactly 0), GQA and D 8-256, then at the LM phase's prefill shapes,
+     with times of the kernel, the twin and ``scaled_dot_product_attention``;
   3. the f32 streaming pipeline at the paper's 8k flow table (batch 1024,
      256 drained flows per step, CNN flow model, seeded random weights) for
      64 steps, with every kernel launch counted;
@@ -55,7 +61,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      rows bit-identical, flow logits within the stated tolerance, decisions
      identical except near ties, which are counted;
  10. the placement reports (``OctopusPipeline.explain``) of the CNN and the
-     transformer pipelines.
+     transformer pipelines;
+ 11. ``[lm]``: LM serving, qwen3-0.6b at full width and depth in f32 compute
+     with seeded port-initialised weights: ``ServeEngine`` (4 slots, 512
+     cache rows) serves 8 requests of 16-300 prompt tokens and 32 new tokens;
+     every request's tokens equal its single-request greedy run, and the
+     launch counts equal the prediction (197 ``mm_fused`` a forward, 28
+     ``flash_fwd`` a prefill); prefill ms, decode ms a step and tok/s;
+ 12. ``[lm card vs cpu]``: one 160-token request through ``LM.prefill`` and
+     4 ``decode_step``s on the card and on the CPU, logits within
+     ``LM_LOGIT_TOL`` of max|logit|, tokens identical except counted near ties.
 
 The second-to-last line is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off everywhere: the reference
@@ -71,6 +86,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+CARD = "cuda"  # the device of the flash and LM phases
 MATMUL_RTOL = 1e-5  # only the order of the f32 sums differs from the plain version
 NEAR_TIE = 1e-4  # logit gap under which the two devices may decide differently
 # Transformer flow logits, card against CPU, as a share of max|logit|.  f32:
@@ -106,6 +122,34 @@ TABLE6_FLOWS = 1000
 # places on the VPE; K=300 leaves a ragged last 32-deep block
 COLLAB_STACK = [(TABLE6_FLOWS, 300), (300, 64), (64, 96), (96, 8)]
 COLLAB_ACTS = ["relu", "gelu", None]
+# the LM serving path: qwen3-0.6b at full width and depth, f32 compute,
+# port-initialised weights; 8 requests with prompts of 16-300 tokens (some past
+# the 128-row flash block), 32 new tokens each, 4 slots of 512 cache rows
+LM_ARCH = "qwen3-0.6b"
+LM_SERVE = dict(batch_slots=4, cache_len=512)
+LM_REQUESTS, LM_MAX_NEW, LM_PROMPT = 8, 32, (16, 300)
+LM_CPU_PROMPT, LM_CPU_DECODES = 160, 4
+# LM logits, card against CPU, as a share of max|logit|.  The f32 matmuls sum
+# in another order on each device (last bits, ~1e-6 of a value), and 28
+# layers carry that forward; decode then reads the bf16 KV cache, where a
+# last-bit difference in an f32 key or value can round it to the neighbouring
+# bf16 value, a step of 2^-8 of it.  1e-3 leaves room for a few such steps
+# in the attention sums; near ties of the argmax under it are counted.
+LM_LOGIT_TOL = 1e-3
+# flash_fwd against its plain twin, (rtol, atol).  f32: the reference test's
+# 2e-5, for the order of the sums and exp.  bf16: both sides compute in f32
+# and round the output once, so they differ by at most one bf16 step of the
+# value, 2^-7 of it at most, plus the f32 differences near 0 (the worst
+# reading was 3.9e-3, one step at a value in [0.5, 1)).
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0**-7, 1e-5)}
+BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor-core rate
+# (b, hq, hkv, sq, sk, d, mask, window, kv_len): the reference test's sweep
+# (masks, GQA, ragged 300), kv_len < Sk, fully masked rows (local window with
+# kv_len 5: rows 25.. see no key), and D 8 to 256
+FLASH_CASES = [(2, 4, 2, 256, 256, 32, "causal", 0, None), (1, 4, 1, 128, 384, 16, "full", 0, None),
+               (2, 2, 2, 300, 300, 32, "local", 64, None), (1, 8, 4, 256, 512, 64, "causal", 0, None),
+               (1, 2, 2, 64, 64, 128, "local", 16, None), (1, 4, 1, 128, 384, 16, "full", 0, 200),
+               (1, 4, 1, 77, 190, 256, "local", 20, 5), (1, 2, 2, 50, 70, 8, "full", 0, 33)]
 CNN_PLACEMENT = dict([(f"pkt/w{i}", "vpe") for i in range(4)] + [("flow/conv1", "vpe")]
                      + [(f"flow/{n}", "arype") for n in ("conv2", "conv3", "fc", "linear")])
 # at 256 drained rows a step every transformer layer's working set is past the
@@ -470,7 +514,281 @@ def profile_steps(torch, pipe, batches, step_us: float) -> None:
             f"{e.count // len(batches):4d}/step  {e.key[:90]}")
 
 
+def check_partials_sum(torch, arype, gen, bk: int) -> dict:
+    """The unfused matmul's sum pass alone (``partials_sum``) against its
+    plain version at the loop's unfused shapes, within MATMUL_RTOL, with
+    ``torch.sum`` over the partials as the library yardstick."""
+    err, ms, plain_ms, lib_ms, bound_ms, ops, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0
+    for name, m, k, n in UNFUSED_SHAPES:
+        nk = -(-k // bk)
+        parts = torch.randn(nk, m, n, generator=gen).to(CARD)
+        for act in ACTS:
+            out, ref = arype.partials_sum(parts, activation=act), arype.sum_partials(parts, act)
+            torch.cuda.synchronize()
+            tol = MATMUL_RTOL * ref.abs().max().item()
+            if not torch.allclose(out, ref, rtol=MATMUL_RTOL, atol=tol):
+                raise AssertionError(f"partials_sum {name} {act}: max err "
+                                     f"{(out - ref).abs().max().item()} over tol {tol}")
+            err = max(err, (out - ref).abs().max().item())
+        t = time_ms(lambda: arype.partials_sum(parts))
+        tp = time_ms(lambda: arype.sum_partials(parts, "none"))
+        tl = time_ms(lambda: torch.sum(parts, dim=0))
+        work_bytes, work_ops = 4 * (nk * m * n + m * n), (nk - 1) * m * n
+        b, _ = bound(work_bytes, work_ops)
+        log(f"  mm_partials_sum {name} ({nk} partials of ({m},{n})): kernel {t:.5f} ms, plain "
+            f"{tp:.5f} ms, torch.sum {tl:.5f} ms, bound {b:.6f} ms")
+        ms, plain_ms, lib_ms, bound_ms = ms + t, plain_ms + tp, lib_ms + tl, bound_ms + b
+        ops, nbytes = ops + work_ops, nbytes + work_bytes
+    _, by = bound(nbytes, ops)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=lib_ms, bytes=nbytes, flops=ops)
+
+
+def flash_case(torch, fa, gen, case, dtype, *, lm_layout: bool = False) -> dict:
+    """``flash_attention`` against its plain twin on the card for one case
+    (``FLASH_CASES`` layout) within ``FLASH_TOL``; fully masked rows must be
+    exactly 0.  ``lm_layout`` makes q, k, v strided views of (B, S, H, D), as
+    the LM hands them over.  Times the kernel, the plain twin and
+    ``scaled_dot_product_attention`` (the library yardstick: ``is_causal``, or
+    a boolean mask), and computes the bound from the valid (query, key) pairs."""
+    import torch.nn.functional as F
+
+    b, hq, hkv, sq, sk, d, mask, window, kv_len = case
+    dt = getattr(torch, dtype)
+
+    def rand(h, s):
+        shape = (b, s, h, d) if lm_layout else (b, h, s, d)
+        t = torch.randn(*shape, generator=gen).to(CARD, dt)
+        return t.transpose(1, 2) if lm_layout else t
+
+    q, k, v = rand(hq, sq), rand(hkv, sk), rand(hkv, sk)
+    kw = dict(mask=mask, window=window, kv_len=kv_len)
+    out, ref = fa.flash_attention(q, k, v, **kw), fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    rtol, atol = FLASH_TOL[dtype]
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol):
+        raise AssertionError(f"flash_fwd {case} {dtype}: max err {err} over rtol {rtol}, "
+                             f"atol {atol}")
+    valid = fa.valid_pairs(mask, window, sk if kv_len is None else kv_len,
+                           torch.arange(sq, device=CARD)[:, None], torch.arange(sk, device=CARD)[None])
+    dead = ~valid.any(dim=1)
+    if not torch.equal(out[:, :, dead], torch.zeros_like(out[:, :, dead])):
+        raise AssertionError(f"flash_fwd {case} {dtype}: a fully masked row is not exactly 0")
+    t = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+    tp = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), calls=5)
+    sdpa = (dict(is_causal=True) if mask == "causal" and kv_len is None
+            else dict(attn_mask=valid))
+    tl = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=hq != hkv, **sdpa))
+    pairs = int(valid.sum())
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + out.numel())
+    flops = 4 * b * hq * d * pairs
+    bd, by = bound(nbytes, flops, BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S)
+    log(f"  flash_fwd B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} D{d} {mask} w{window} kv_len {kv_len} "
+        f"{dtype}{' (LM layout)' if lm_layout else ''}: max err {err:.3e}, "
+        f"{int(dead.sum())} fully masked rows exact 0; kernel {t:.5f} ms, plain {tp:.5f} ms, "
+        f"sdpa {tl:.5f} ms, bound {bd:.6f} ms ({by})")
+    return dict(max_abs_err=err, ms=t, plain_ms=tp, library_ms=tl, bound_ms=bd, bytes=nbytes,
+                flops=flops)
+
+
+def check_flash(torch, fa, gen, prompt_lens, cfg) -> dict:
+    """Every case of ``FLASH_CASES`` in f32 and bf16, then the LM phase's own
+    prefill shapes (one per prompt length: B = the slots, causal, f32, LM
+    layout).  The record sums one call at each LM shape (one layer's flash
+    calls over the serve run's prefills)."""
+    err = 0.0
+    for case in FLASH_CASES:
+        for dtype in ("float32", "bfloat16"):
+            err = max(err, flash_case(torch, fa, gen, case, dtype)["max_abs_err"])
+    slots, hd = LM_SERVE["batch_slots"], cfg.head_dim
+    rec = dict(max_abs_err=err, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               bytes=0, flops=0)
+    log(f"[flash] the LM's prefill shapes ({LM_ARCH}: {slots} slots, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads} KV heads, D {hd})")
+    for p in prompt_lens:
+        case = (slots, cfg.num_heads, cfg.num_kv_heads, p, p, hd, "causal", 0, None)
+        r = flash_case(torch, fa, gen, case, "float32", lm_layout=True)
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"):
+            rec[key] += r[key]
+    _, rec["bound_by"] = bound(rec["bytes"], rec["flops"])
+    log(f"  over the {len(prompt_lens)} prefill shapes, one call each: kernel {rec['ms']:.5f} ms, "
+        f"plain {rec['plain_ms']:.5f} ms, sdpa {rec['library_ms']:.5f} ms, bound "
+        f"{rec['bound_ms']:.6f} ms; a prefill runs {cfg.num_layers} such calls")
+    return rec
+
+
+def lm_matmul_shapes(cfg, rows: int) -> list:
+    """(name, m, k, n) of one LM forward's routed matmuls over ``rows``
+    token rows: a layer's seven, then the lm head on the last positions."""
+    slots, d, f = LM_SERVE["batch_slots"], cfg.d_model, cfg.d_ff
+    layer = [("wq", d, cfg.q_dim), ("wk", d, cfg.kv_dim), ("wv", d, cfg.kv_dim),
+             ("wo", cfg.q_dim, d), ("wi_gate", d, f), ("wi_up", d, f), ("wo_mlp", f, d)]
+    return ([(name, rows, k, n) for name, k, n in layer]
+            + [("lm_head", slots, d, cfg.padded_vocab)])
+
+
+def check_lm_matmuls(torch, arype, gen, cfg, longest: int) -> None:
+    """``mm_fused`` against its plain twin at the LM's shapes: a decode
+    forward (one row a slot) and the longest prompt's prefill; per forward
+    (28 layers and the head) times of the kernel and ``torch.matmul``."""
+    slots = LM_SERVE["batch_slots"]
+    for label, rows in (("decode", slots), (f"prefill of {longest} tokens", slots * longest)):
+        *layer, head = lm_matmul_shapes(cfg, rows)
+        log(f"[kernels] mm_fused at the {LM_ARCH} {label} shapes")
+        a, b = (check_matmuls(torch, arype.arype_matmul, arype.mm_fused, shapes, gen)
+                for shapes in (layer, [head]))
+        per = {key: cfg.num_layers * a[key] + b[key] for key in ("ms", "library_ms", "bound_ms")}
+        log(f"  per {label} forward ({cfg.num_layers} layers + lm head): kernel {per['ms']:.4f} "
+            f"ms, torch.matmul {per['library_ms']:.4f} ms ({per['ms'] / per['library_ms']:.2f}x), "
+            f"bound {per['bound_ms']:.4f} ms")
+
+
+def greedy_single(torch, model, params, prompt, max_new: int, cache_len: int) -> list:
+    """The single-request greedy reference: batch 1, prefill then decode."""
+    cache = model.init_cache(1, cache_len)
+    v = model.cfg.vocab_size
+    logits, cache = model.prefill(params, {"tokens": torch.as_tensor(prompt[None]).to(CARD)},
+                                  cache)
+    toks = [int(torch.argmax(logits[0, -1, :v]))]
+    for _ in range(max_new - 1):
+        tok = torch.tensor([[toks[-1]]], device=CARD)
+        logits, cache = model.decode_step(params, {"tokens": tok}, cache)
+        toks.append(int(torch.argmax(logits[0, 0, :v])))
+    return toks
+
+
+def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompts) -> dict:
+    """Serve the requests with every launch count at 0 just before and read
+    just after; tokens must equal each request's single-request greedy run,
+    and launches the prediction: 7 routed matmuls a layer plus the lm head a
+    forward, every one on the AryPE at these shapes (``mm_fused``), one
+    forward a prefill and one a decode step (every 4-slot wave of
+    ``LM_MAX_NEW``-token requests takes ``LM_MAX_NEW - 1`` steps), and one
+    ``flash_fwd`` a layer a prefill."""
+    refs = [greedy_single(torch, lm_mod.LM(cfg, device=CARD), params, p, LM_MAX_NEW,
+                          LM_SERVE["cache_len"]) for p in prompts]
+    eng = serving.ServeEngine(cfg, params, serving.ServeConfig(**LM_SERVE), device=CARD)
+    reqs = [serving.Request(rid=i, prompt=p, max_new=LM_MAX_NEW) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    kernels.reset_launches()
+    with record_routes() as routes:
+        done = eng.run_until_drained()
+    counts = kernels.launches()
+    st = eng.stats
+    if len(done) != len(reqs):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
+    for r, ref in zip(reqs, refs):
+        if r.out_tokens != ref:
+            raise AssertionError(f"request {r.rid}: engine {r.out_tokens} != single {ref}")
+    waves = -(-len(reqs) // LM_SERVE["batch_slots"])
+    per_forward = 7 * cfg.num_layers + 1
+    forwards = len(reqs) + waves * (LM_MAX_NEW - 1)
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want["mm_fused"] = per_forward * forwards
+    want["flash_fwd"] = cfg.num_layers * len(reqs)
+    checked = {(k, n) for _, _, k, n in lm_matmul_shapes(cfg, 1)}
+    if {(r.k, r.n) for r in routes} != checked:
+        raise AssertionError(f"the serve's matmuls {sorted({(r.k, r.n) for r in routes})} "
+                             f"are not the checked {sorted(checked)}")
+    recorded = kernels.matmul_launches(routes)
+    recorded["flash_fwd"] = cfg.num_layers * st.prefills
+    if counts != want or recorded != want or st.prefills + st.decode_steps != forwards:
+        raise AssertionError(f"launches {counts}, recorded routes {recorded}, "
+                             f"{st.prefills} prefills + {st.decode_steps} decode steps: "
+                             f"predicted {want} over {forwards} forwards")
+    log(f"  {len(done)}/{len(reqs)} requests done, tokens equal to each one's single-request "
+        f"greedy run; {st.prefills} prefills, {st.decode_steps} decode steps, {st.tokens} tokens")
+    log(f"  prefill {st.prefill_s / st.prefills * 1e3:.3f} ms per admit (4-slot batch, prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))}), decode "
+        f"{st.decode_s / st.decode_steps * 1e3:.3f} ms per step, {st.tok_per_s:.1f} generated tok/s")
+    log(f"  launches {counts} = predicted: {per_forward} mm_fused a forward x {forwards} "
+        f"forwards, {cfg.num_layers} flash_fwd a prefill x {len(reqs)}")
+    return counts
+
+
+def profile_serve(torch, serving, cfg, params, prompts) -> None:
+    """Device-busy share of a short serve run from a torch.profiler trace,
+    against the run's wall time: the host/device split."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = serving.ServeEngine(cfg, params, serving.ServeConfig(**LM_SERVE), device=CARD)
+    for i, p in enumerate(prompts):
+        eng.submit(serving.Request(rid=i, prompt=p, max_new=8))
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    if busy_us == 0:
+        log("[profile] the trace holds no device time: idle share not measured")
+        return
+    log(f"[profile] serve {len(prompts)} requests x 8 tokens: device busy {busy_us:.1f} us of "
+        f"{wall_us:.1f} us traced wall, idle share {1 - busy_us / wall_us:.4f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total:11.1f} us  {e.count:6d} calls  {e.key[:90]}")
+
+
+def lm_card_vs_cpu(torch, lm_mod, cfg, params, rng) -> None:
+    """One request, batch 1: prefill of a ``LM_CPU_PROMPT``-token prompt and
+    ``LM_CPU_DECODES`` decode steps on the card and on the CPU (plain
+    twins), both fed the CPU's greedy tokens.  Logits within LM_LOGIT_TOL of
+    max|logit|; the two argmaxes equal except where the CPU's top two logits
+    are that close (counted)."""
+    cpu_params = _tree_to(params, "cpu")
+    models = (lm_mod.LM(cfg, device=CARD), lm_mod.LM(cfg, device="cpu"))
+    caches = [m.init_cache(1, LM_SERVE["cache_len"]) for m in models]
+    tokens = rng.integers(0, cfg.vocab_size, (1, LM_CPU_PROMPT))
+    worst, ties = 0.0, 0
+    for step in range(1 + LM_CPU_DECODES):
+        run = "prefill" if step == 0 else "decode_step"
+        out = []
+        for i, (m, p) in enumerate(zip(models, (params, cpu_params))):
+            logits, caches[i] = getattr(m, run)(p, {"tokens": torch.as_tensor(tokens).to(m.device)},
+                                                caches[i])
+            out.append(logits[0, -1, :cfg.vocab_size].float().cpu())
+        g, c = out
+        if not (torch.isfinite(g).all() and g.shape == (cfg.vocab_size,)):
+            raise AssertionError(f"{run} {step}: card logits not finite or of shape {g.shape}")
+        scale = c.abs().max().item()
+        rel = (g - c).abs().max().item() / scale
+        worst = max(worst, rel)
+        top2 = c.topk(2).values
+        tie = (top2[0] - top2[1]).item() < LM_LOGIT_TOL * scale
+        if rel > LM_LOGIT_TOL:
+            raise AssertionError(f"{run} {step}: logits differ by {rel:.3e} of max|logit|")
+        if int(g.argmax()) != int(c.argmax()):
+            if not tie:
+                raise AssertionError(f"{run} {step}: tokens {int(g.argmax())} != {int(c.argmax())}")
+            ties += 1
+        log(f"  {run} {step}: max|card - cpu| {rel:.3e} of max|logit| ({scale:.4f}), token "
+            f"card {int(g.argmax())} cpu {int(c.argmax())}")
+        tokens = c.argmax().reshape(1, 1).numpy()
+    log(f"  worst {worst:.3e} of max|logit| (tolerance {LM_LOGIT_TOL}); tokens identical "
+        f"except {ties} near ties")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -501,6 +819,10 @@ def main() -> int:
     from repro_torch.kernels.flow_features import ops as ff
     from repro_torch.kernels.vpe_smallmm.ops import vpe_matmul, vpe_matmul_q, vpe_mm, vpe_mm_q
     from repro_torch.launch.calibrate import calibrate_quant_scales, quant_divergence_report
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import transformer as lm_mod
     from repro_torch.models.paper_models import cnn_apply, init_paper_model
     from repro_torch.runtime import RuntimeConfig, record_routes
     from repro_torch.serving import OctopusPipeline, PipelineConfig
@@ -528,7 +850,15 @@ def main() -> int:
         "mm_fused_q": check_quant_matmuls(torch, arype.arype_matmul_q, arype.mm_fused_q,
                                           ARYPE_SHAPES, gen),
         "mm_unfused_partials": check_unfused(torch, arype, UNFUSED_SHAPES, gen, UNFUSED_BK),
+        "mm_partials_sum": check_partials_sum(torch, arype, gen, UNFUSED_BK),
     }
+    lm_cfg = get_config(LM_ARCH).replace(compute_dtype="float32")
+    lm_rng = np.random.default_rng(0)
+    prompts = [lm_rng.integers(0, lm_cfg.vocab_size, n)
+               for n in lm_rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)]
+    check_lm_matmuls(torch, arype, gen, lm_cfg, max(len(p) for p in prompts))
+    log("[flash] flash_fwd against its plain twin on the card")
+    results["flash_fwd"] = check_flash(torch, fa, gen, [len(p) for p in prompts], lm_cfg)
     log("[kernels] mm_fused and mm_fused_q at the transformer flow engine's shapes")
     for name, engine, plain, check in (
             ("mm_fused", arype.arype_matmul, arype.mm_fused, check_matmuls),
@@ -634,6 +964,7 @@ def main() -> int:
     u_counts, u_stats = drive_pipeline(kernels, record_routes, pipe, batches, cnn_layers,
                                        CNN_PLACEMENT, quantized=False)
     counts["mm_unfused_partials"] = u_counts["mm_unfused_partials"]
+    counts["mm_partials_sum"] = u_counts["mm_partials_sum"]
     log(f"[table 6] cnn_apply at {TABLE6_FLOWS} flows on the card (CUDA events, device ms "
         "a forward)")
     cnn_g = {k: v.cuda() for k, v in cnn.items()}
@@ -739,14 +1070,36 @@ def main() -> int:
         log(f"[plan] {label}")
         log(OctopusPipeline(mlp, params, PipelineConfig(**pcfg)).explain())
 
-    # -- 11. records
+    # -- 11. LM serving: qwen3-0.6b at full width and depth
+    t0 = time.perf_counter()
+    lm_params = lm_mod.LM(lm_cfg, device=CARD).init(torch.Generator(device=CARD).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(lm_params))
+    log(f"[lm] {LM_ARCH}, f32 compute, {n_params} port-initialised parameters (seed 0) in "
+        f"{time.perf_counter() - t0:.2f} s; ServeConfig({LM_SERVE}), {LM_REQUESTS} requests, "
+        f"prompts {sorted(len(p) for p in prompts)}, max_new {LM_MAX_NEW}")
+    counts["flash_fwd"] = serve_lm(torch, kernels, record_routes, lm_mod, serving, lm_cfg,
+                                   lm_params, prompts)["flash_fwd"]
+    if profile:
+        profile_serve(torch, serving, lm_cfg, lm_params, prompts[:4])
+
+    # -- 12. LM card vs CPU
+    log(f"[lm card vs cpu] batch 1, a {LM_CPU_PROMPT}-token prompt, prefill + {LM_CPU_DECODES} "
+        f"decode steps at full depth")
+    lm_card_vs_cpu(torch, lm_mod, lm_cfg, lm_params, lm_rng)
+
+    # -- 13. records
     source = {name: f"src/repro_torch/csrc/{name}.cu" for name in results}
+    source["mm_partials_sum"] = "src/repro_torch/csrc/mm_unfused_partials.cu"
     replaces = {"flow_update": "src/repro/kernels/flow_features/flow_features.py:78",
                 "vpe_mm": "src/repro/kernels/vpe_smallmm/vpe_smallmm.py:73",
                 "mm_fused": "src/repro/kernels/arype_matmul/arype_matmul.py:103",
                 "vpe_mm_q": "src/repro/kernels/vpe_smallmm/vpe_smallmm.py:104",
                 "mm_fused_q": "src/repro/kernels/arype_matmul/arype_matmul.py:141",
-                "mm_unfused_partials": "src/repro/kernels/arype_matmul/arype_matmul.py:170"}
+                "mm_unfused_partials": "src/repro/kernels/arype_matmul/arype_matmul.py:170",
+                # the ablation's second pass, the aggregation of the partials
+                "mm_partials_sum": "src/repro/kernels/arype_matmul/ops.py:105",
+                "flash_fwd": "src/repro/kernels/flash_attention/flash_attention.py:105"}
     record = [dict(name=name, route="cuda", source=source[name], replaces=replaces[name],
                    launches=counts[name], **r) for name, r in results.items()]
     log(card)

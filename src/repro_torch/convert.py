@@ -6,7 +6,10 @@ as dicts of f32 tensors.  Tracker states and packet batches convert leaf by
 leaf in field order, so a reference ``TrackerState`` passes through
 ``[np.asarray(x) for x in state]``.  Int8 scale tables arrive as the
 reference's ``QuantScales.to_dict()`` (also the ``quant_scales`` block of its
-calibration artifact).
+calibration artifact).  An LM's parameter tree and cache arrive as the
+reference's nested dicts with numpy leaves (``jax.tree.map(np.asarray,
+tree)``; a cache's ``AttnCache`` tuples stay tuples) and keep their
+structure, stacked leading axes included.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.common.util import Device, resolve_device
 from repro_torch.core.flow_tracker import PacketBatch, TrackerState
+from repro_torch.models.layers import AttnCache
 from repro_torch.runtime.quant import QuantScales
 
 
@@ -54,3 +58,35 @@ def packet_batch_from_numpy(leaves: Iterable, *, device: Device = None) -> Packe
 def to_numpy(tup) -> tuple[np.ndarray, ...]:
     """A NamedTuple of tensors (state, batch, drain result) as numpy leaves."""
     return tuple(leaf.cpu().numpy() for leaf in tup)
+
+
+def _tensor(leaf, dev: torch.device) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same type; bf16 (ml_dtypes) goes
+    through f32, which holds every bf16 value exactly."""
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def lm_params_from_numpy(tree: Mapping, *, device: Device = None) -> dict:
+    """A reference ``LM.init`` tree seen through numpy as the port's nested
+    dict of tensors, leaf for leaf."""
+    dev = resolve_device(device)
+    return {k: lm_params_from_numpy(v, device=dev) if isinstance(v, Mapping) else _tensor(v, dev)
+            for k, v in tree.items()}
+
+
+def lm_cache_from_numpy(tree: Mapping, *, device: Device = None) -> dict:
+    """A reference LM cache seen through numpy (``blocks``, head/tail layers
+    as ``(k, v, pos)`` tuples, ``lengths``) as the port's cache."""
+    dev = resolve_device(device)
+
+    def conv(v):
+        if isinstance(v, Mapping):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, tuple):
+            return AttnCache(*(_tensor(x, dev) for x in v))
+        return _tensor(v, dev)
+
+    return conv(tree)

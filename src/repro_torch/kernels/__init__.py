@@ -8,13 +8,15 @@ from repro_torch.kernels.arype_matmul.ops import (
     MM_PARTIALS_SUM,
     MM_UNFUSED_PARTIALS,
 )
+from repro_torch.kernels.flash_attention.ops import FLASH_FWD
 from repro_torch.kernels.flow_features.ops import FLOW_UPDATE
 from repro_torch.kernels.vpe_smallmm.ops import VPE_MM, VPE_MM_Q
 
 KERNELS = {"flow_update": FLOW_UPDATE, "vpe_mm": VPE_MM, "mm_fused": MM_FUSED,
            "vpe_mm_q": VPE_MM_Q, "mm_fused_q": MM_FUSED_Q,
            # the unfused ablation's two passes: K-block partials, then their sum
-           "mm_unfused_partials": MM_UNFUSED_PARTIALS, "mm_partials_sum": MM_PARTIALS_SUM}
+           "mm_unfused_partials": MM_UNFUSED_PARTIALS, "mm_partials_sum": MM_PARTIALS_SUM,
+           "flash_fwd": FLASH_FWD}
 
 
 def reset_launches() -> None:

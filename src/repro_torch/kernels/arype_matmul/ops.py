@@ -18,7 +18,7 @@ import torch
 from typing import Optional
 
 from repro_torch.common.util import ACTIVATIONS, apply_activation, ceil_div
-from repro_torch.kernels.build import CudaKernel, stream_of
+from repro_torch.kernels.build import CudaKernel, check_cuda, stream_of
 from repro_torch.kernels.vpe_smallmm.ops import check_matmul_operands, check_quant_args, scale_row
 from repro_torch.kernels.vpe_smallmm.ops import vpe_mm_q as mm_fused_q  # one exact int8 twin
 
@@ -175,9 +175,25 @@ def arype_matmul_unfused(x: torch.Tensor, w: torch.Tensor, *, activation: str = 
     _check_unfused("arype_matmul_unfused", x, w, bk)
     if x.device.type == "cpu":
         return mm_unfused(x, w, activation=activation, bk=bk)
-    partials = _launch_partials(x, w, bk)
-    out = torch.empty(partials.shape[1:], dtype=torch.float32, device=x.device)
+    return partials_sum(_launch_partials(x, w, bk), activation=activation)
+
+
+def partials_sum(partials: torch.Tensor, *, activation: str = "none") -> torch.Tensor:
+    """The unfused matmul's second pass: (L, M, N) f32 partials summed in
+    block order, then the activation.  On CPU tensors this is the plain
+    :func:`sum_partials`; on CUDA tensors one launch of the sum kernel."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"activation must be one of {tuple(ACTIVATIONS)}, got {activation!r}")
+    if partials.dim() != 3 or partials.dtype != torch.float32 or partials.shape[0] == 0:
+        raise ValueError(f"partials_sum: needs (L>0, M, N) float32, got "
+                         f"{tuple(partials.shape)} {partials.dtype}")
+    if partials.device.type == "cpu":
+        return sum_partials(partials, activation)
+    if partials.device.type != "cuda":
+        raise ValueError(f"partials_sum: no kernel for {partials.device}")
+    check_cuda("partials_sum", partials)
+    out = torch.empty(partials.shape[1:], dtype=torch.float32, device=partials.device)
     if out.numel():
-        MM_PARTIALS_SUM(x.device, partials.data_ptr(), out.data_ptr(), out.numel(),
-                        partials.shape[0], ACTIVATIONS[activation], stream_of(x))
+        MM_PARTIALS_SUM(partials.device, partials.data_ptr(), out.data_ptr(), out.numel(),
+                        partials.shape[0], ACTIVATIONS[activation], stream_of(partials))
     return out

@@ -1,0 +1,6 @@
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_attention_plain,
+    flash_fwd,
+    ref_attention,
+)

@@ -1,1 +1,2 @@
-"""Entry points of the port: int8 scale calibration (``calibrate``)."""
+"""Entry points of the port: int8 scale calibration (``calibrate``) and LM
+serving (``serve``)."""

@@ -1,0 +1,200 @@
+"""Transformer layers of the port's LM stack (the reference's
+``models/layers.py``, attention and the dense MLP): norms, RoPE, attention
+(prefill/train through the flash kernel, cached decode, sliding-window ring
+caches) and the SwiGLU MLP.
+
+Every projection goes through the Octopus router (``core/router.matmul``),
+which places it on the VPE or the AryPE engine.  The reference keeps the
+QKV/O projections on XLA's dot even when its kernels are on; the port has no
+such arm, so on the card they run the engine kernels like every other matmul.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common.util import Device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import router
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.spec import ParamSpec
+from repro_torch.runtime import RuntimeConfig
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------- norms, RoPE
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm with the reference's ``(1 + w)`` gain (zero-initialised w)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x (..., S, H, D) rotated over D by positions (..., S): the two halves
+    of D rotate against each other (not interleaved pairs)."""
+    half = x.shape[-1] // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / (theta ** exponent)  # theta as an f32 scalar, as in the reference
+    angles = positions[..., :, None].float() * freqs  # (..., S, half)
+    cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------- attention
+
+
+def attn_specs(cfg: ArchConfig) -> dict:
+    dt = cfg.param_dtype
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    specs = {
+        "ln": ParamSpec((d,), ("embed",), "zeros", dtype=dt),
+        "wq": ParamSpec((d, qd), ("embed", "heads"), "normal", dtype=dt),
+        "wk": ParamSpec((d, kvd), ("embed", "kv_heads"), "normal", dtype=dt),
+        "wv": ParamSpec((d, kvd), ("embed", "kv_heads"), "normal", dtype=dt),
+        "wo": ParamSpec((qd, d), ("heads", "embed"), "normal", dtype=dt),
+    }
+    if cfg.use_qk_norm:
+        specs["q_norm"] = ParamSpec((cfg.head_dim,), (None,), "zeros", dtype=dt)
+        specs["k_norm"] = ParamSpec((cfg.head_dim,), (None,), "zeros", dtype=dt)
+    return specs
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kind: str,
+                   window: int = 0) -> torch.Tensor:
+    """q (B, S, Hq, D) over k, v (B, Sk, Hkv, D) -> (B, S, Hq, D), through the
+    flash kernel (the reference's ``use_pallas`` arm; the port has no other)."""
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          mask=kind, window=window)
+    return out.transpose(1, 2)
+
+
+class AttnCache(NamedTuple):
+    k: torch.Tensor  # (B, C, Hkv, D): C = full length (global) or window (local ring)
+    v: torch.Tensor
+    pos: torch.Tensor  # (B, C) int32 absolute position in each slot (-1 = empty)
+
+
+def init_attn_cache(cfg: ArchConfig, batch: int, cache_len: int, *, kind: str,
+                    device: Device, dtype: torch.dtype = torch.bfloat16) -> AttnCache:
+    """An empty cache.  Its K/V are bf16 whatever the compute type, as the
+    reference's (so decode attends to bf16-rounded keys and values)."""
+    c = min(cache_len, cfg.window_size) if kind == "local" and cfg.window_size else cache_len
+    shape = (batch, c, cfg.num_kv_heads, cfg.head_dim)
+    return AttnCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                     v=torch.zeros(shape, dtype=dtype, device=device),
+                     pos=torch.full((batch, c), -1, dtype=torch.int32, device=device))
+
+
+def cache_write(cache: AttnCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                lengths: torch.Tensor, *, kind: str) -> AttnCache:
+    """Write S_new tokens at per-sample positions lengths..lengths+S_new-1,
+    in place (the reference returns a new cache).  A local cache is a ring
+    indexed by position % C; a global one clamps at C - 1.  Where several
+    tokens land in one slot the last one stays, as in the reference's
+    sequential scatter: a ring keeps only the last C tokens of a write, and a
+    global cache writes its last token once more after the others.  Nothing
+    here waits for the device."""
+    s_new, cap = k_new.shape[1], cache.k.shape[1]
+    if kind == "local" and s_new > cap:
+        k_new, v_new = k_new[:, s_new - cap:], v_new[:, s_new - cap:]
+        lengths, s_new = lengths + (s_new - cap), cap
+    abs_pos = lengths.long()[:, None] + torch.arange(s_new, device=lengths.device)[None, :]
+    idx = abs_pos % cap if kind == "local" else torch.clamp_max(abs_pos, cap - 1)
+    bidx = torch.arange(k_new.shape[0], device=lengths.device)[:, None].expand_as(idx)
+    parts = [slice(None)] + ([slice(s_new - 1, None)] if kind != "local" and s_new > 1 else [])
+    for part in parts:
+        sel = (bidx[:, part], idx[:, part])
+        cache.k[sel] = k_new[:, part].to(cache.k.dtype)
+        cache.v[sel] = v_new[:, part].to(cache.v.dtype)
+        cache.pos[sel] = abs_pos[:, part].to(torch.int32)
+    return cache
+
+
+def attention_decode(q: torch.Tensor, cache: AttnCache, lengths: torch.Tensor, *, kind: str,
+                     window: int = 0) -> torch.Tensor:
+    """q (B, S_new, Hq, D) over the cache, masked by the positions it holds
+    (-1 empty, keys at or before the query, within the window for local).
+    Plain PyTorch, as the reference computes it outside any kernel."""
+    b, sn, hq, dh = q.shape
+    hkv = cache.k.shape[2]
+    qg = q.reshape(b, sn, hkv, hq // hkv, dh).float() * float(1.0 / np.sqrt(dh))
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, cache.k.float())
+    qpos = lengths.long()[:, None] + torch.arange(sn, device=q.device)[None, :]
+    kpos = cache.pos.long()
+    valid = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None])
+    if kind == "local":
+        valid = valid & ((qpos[:, :, None] - kpos[:, None, :]) < window)
+    valid = valid[:, None, None]
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p / torch.where(l == 0, 1.0, l), cache.v.float())
+    return out.to(q.dtype).reshape(b, sn, hq, dh)
+
+
+def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
+               cache: Optional[AttnCache] = None, lengths: Optional[torch.Tensor] = None,
+               mode: str = "train") -> tuple[torch.Tensor, Optional[AttnCache]]:
+    """One attention layer on x (B, S, D) at positions lengths.. (0.. in
+    training); ``kind`` causal|local|full, ``mode`` train|prefill|decode.
+    Returns (x + attention, the cache)."""
+    b, s, _ = x.shape
+    config = RuntimeConfig.from_arch(cfg)
+    h = rms_norm(x, p["ln"])
+    q = router.matmul(h, p["wq"], config=config).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = router.matmul(h, p["wk"], config=config).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = router.matmul(h, p["wv"], config=config).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.use_qk_norm:
+        q, k = rms_norm(q, p["q_norm"]), rms_norm(k, p["k_norm"])
+    base = torch.zeros(b, dtype=torch.int32, device=x.device) if lengths is None else lengths
+    positions = base[:, None] + torch.arange(s, device=x.device)[None, :]
+    theta = cfg.rope_theta_local if kind == "local" else cfg.rope_theta
+    q, k = apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+    attn_kind = "full" if (kind == "causal" and not cfg.causal) else kind
+    if mode == "train":
+        out = attention_core(q, k, v, kind=attn_kind, window=cfg.window_size)
+    else:
+        if cache is None or lengths is None:
+            raise ValueError(f"attn_apply: mode {mode!r} needs a cache and lengths")
+        cache = cache_write(cache, k, v, lengths, kind=attn_kind)
+        if mode == "prefill":
+            out = attention_core(q, k, v, kind=attn_kind, window=cfg.window_size)
+        else:
+            out = attention_decode(q, cache, lengths, kind=attn_kind, window=cfg.window_size)
+    out = router.matmul(out.reshape(b, s, cfg.q_dim), p["wo"], config=config)
+    return x + out, (cache if mode != "train" else None)
+
+
+# ---------------------------------------------------------------- dense MLP
+
+
+def mlp_specs(cfg: ArchConfig) -> dict:
+    dt = cfg.param_dtype
+    d, f = cfg.d_model, cfg.d_ff
+    specs = {
+        "ln": ParamSpec((d,), ("embed",), "zeros", dtype=dt),
+        "wi_up": ParamSpec((d, f), ("embed", "mlp"), "normal", dtype=dt),
+        "wo": ParamSpec((f, d), ("mlp", "embed"), "normal", dtype=dt),
+    }
+    if cfg.mlp_gated:
+        specs["wi_gate"] = ParamSpec((d, f), ("embed", "mlp"), "normal", dtype=dt)
+    return specs
+
+
+def mlp_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x + SwiGLU MLP (gelu MLP when not gated), every matmul routed."""
+    config = RuntimeConfig.from_arch(cfg)
+    h = rms_norm(x, p["ln"])
+    if cfg.mlp_gated:
+        gate = router.matmul(h, p["wi_gate"], activation="silu", config=config)
+        up = router.matmul(h, p["wi_up"], config=config)
+        return x + router.matmul(gate * up, p["wo"], config=config)
+    up = router.matmul(h, p["wi_up"], activation="gelu", config=config)
+    return x + router.matmul(up, p["wo"], config=config)

@@ -8,7 +8,7 @@ match the JAX package's plan exactly.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 from repro_torch.runtime.quant import QuantScales
 
@@ -56,3 +56,10 @@ class RuntimeConfig:
             raise ValueError("mxu_tile, fill_depth and vpe_max_elems must be positive")
         if self.accum_dtype != "float32":
             raise NotImplementedError("the engine kernels accumulate in float32 only")
+
+    @classmethod
+    def from_arch(cls, arch: Any) -> "RuntimeConfig":
+        """The runtime of a model's ``ArchConfig``, as the reference's:
+        ``policy`` from its ``router_policy`` and ``accum_dtype`` from its
+        ``matmul_accum_dtype``."""
+        return cls(policy=arch.router_policy, accum_dtype=arch.matmul_accum_dtype)

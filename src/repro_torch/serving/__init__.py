@@ -6,3 +6,4 @@ from repro_torch.serving.pipeline import (
     PipelineStats,
     PipelineStepOutput,
 )
+from repro_torch.serving.engine import Request, ServeConfig, ServeEngine, ServeStats

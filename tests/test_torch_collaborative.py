@@ -34,7 +34,13 @@ from repro.serving.packet_path import PacketEngine as JPacketEngine
 from repro_torch import convert, kernels
 from repro_torch.core import collaborative
 from repro_torch.data.traffic import TrafficConfig, TrafficGenerator
-from repro_torch.kernels.arype_matmul.ops import arype_matmul_unfused, mm_unfused_partials
+from repro_torch.common.util import apply_activation
+from repro_torch.kernels.arype_matmul.ops import (
+    arype_matmul_unfused,
+    mm_unfused_partials,
+    partials_sum,
+    sum_partials,
+)
 from repro_torch.models import paper_models
 from repro_torch.runtime import (
     QuantScales,
@@ -127,6 +133,22 @@ def test_unfused_partials_use_the_papers_blocking_and_refuse_bad_args():
     before = kernels.launches()
     out = arype_matmul_unfused(x.to("meta"), w.to("meta"), bk=32)
     assert out.device.type == "meta" and out.shape == (4, 8) and kernels.launches() == before
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_partials_sum_is_the_plain_sum_pass_on_cpu(act):
+    """The sum pass's own wrapper: on CPU tensors the plain block-order sum
+    and activation (what the unfused matmul's second launch computes)."""
+    parts = torch.as_tensor(np.random.default_rng(3).normal(size=(3, 5, 7)).astype(np.float32))
+    out = partials_sum(parts, activation=act)
+    assert torch.equal(out, sum_partials(parts, act))
+    assert torch.equal(out, apply_activation(parts[0] + parts[1] + parts[2], act))
+    with pytest.raises(ValueError, match="activation"):
+        partials_sum(parts, activation="tanh")
+    with pytest.raises(ValueError, match="float32"):
+        partials_sum(parts.double())
+    with pytest.raises(ValueError, match="no kernel"):
+        partials_sum(parts.to("meta"))
 
 
 def test_runtime_config_with_unfused_aggregation_builds():

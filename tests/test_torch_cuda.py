@@ -26,13 +26,17 @@ from repro_torch.kernels.arype_matmul.ops import (
     mm_unfused_partials,
     mm_unfused_partials_plain,
 )
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention.ops import valid_pairs
 from repro_torch.kernels.flow_features import ops as ff
 from repro_torch.kernels.vpe_smallmm.ops import vpe_matmul, vpe_matmul_q, vpe_mm, vpe_mm_q
 from repro_torch.launch.calibrate import calibrate_quant_scales
 from repro_torch.models.paper_models import init_paper_model
 from repro_torch.runtime import RuntimeConfig, record_routes
 from repro_torch.runtime.quant import pick_scale
-from repro_torch.serving import OctopusPipeline, PipelineConfig
+from repro_torch.models.transformer import LM
+from repro_torch.serving import OctopusPipeline, PipelineConfig, Request, ServeConfig, ServeEngine
 
 pytestmark = pytest.mark.cuda
 # the transformer flow engine's AryPE matmuls at 256 drained rows of 15
@@ -111,6 +115,81 @@ def test_unfused_kernels_match_plain(cuda, m, k, n, bk, act):
     torch.testing.assert_close(partials, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
     ref = mm_unfused(x, w, activation=act, bk=depth)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,mask,window,kv_len", [
+    (2, 4, 2, 256, 256, 32, "causal", 0, None), (1, 4, 1, 128, 384, 16, "full", 0, None),
+    (2, 2, 2, 300, 300, 32, "local", 64, None), (1, 8, 4, 256, 512, 64, "causal", 0, None),
+    (1, 2, 2, 64, 64, 128, "local", 16, None), (1, 4, 1, 128, 384, 16, "full", 0, 200),
+    (1, 4, 1, 77, 190, 256, "local", 20, 5), (1, 2, 2, 50, 70, 8, "full", 0, 33),
+    (4, 16, 8, 161, 161, 128, "causal", 0, None), (1, 1, 1, 1, 1, 16, "causal", 0, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_flash_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d, mask, window, kv_len, dtype,
+                                    layout):
+    """One launch, within f32 rtol = atol 2e-5 (the reference test's) and
+    bf16 rtol 2^-7, atol 1e-5 (both sides compute in f32 and round the output
+    once: one bf16 step of the value at most); fully masked rows exactly 0;
+    "bshd" hands the kernel transposed views, as the LM does."""
+    gen = torch.Generator().manual_seed(sq + sk + d)
+
+    def rand(h, s):
+        if layout == "bshd":
+            return torch.randn(b, s, h, d, generator=gen).to(cuda, dtype).transpose(1, 2)
+        return torch.randn(b, h, s, d, generator=gen).to(cuda, dtype)
+
+    q, k, v = rand(hq, sq), rand(hkv, sk), rand(hkv, sk)
+    kw = dict(mask=mask, window=window, kv_len=kv_len)
+    before = kernels.launches()
+    out = flash_attention(q, k, v, **kw)
+    after = kernels.launches()
+    assert after["flash_fwd"] == before["flash_fwd"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    ref = flash_attention_plain(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    rtol, atol = (2.0**-7, 1e-5) if dtype == torch.bfloat16 else (2e-5, 2e-5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+    dead = ~valid_pairs(mask, window, sk if kv_len is None else kv_len,
+                        torch.arange(sq, device=cuda)[:, None],
+                        torch.arange(sk, device=cuda)[None]).any(dim=1)
+    assert (out[:, :, dead] == 0).all()
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.randn(1, 2, 8, 12, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention(q, q, q)
+    q = torch.randn(1, 2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="D contiguous"):
+        flash_attention(q.transpose(2, 3), q.transpose(2, 3), q.transpose(2, 3))
+
+
+@pytest.mark.parametrize("arch,slots", [("qwen3-0.6b", 2), ("gemma3-1b", 2), ("gemma3-1b", 3)])
+def test_lm_serve_on_card_matches_cpu(cuda, arch, slots):
+    """A short serve of a reduced LM on the card and on the CPU: the same
+    tokens, and on the card one flash_fwd a layer a prefill."""
+    cfg = reduced_config(get_config(arch))
+    params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, 20 + 3 * i) for i in range(3)]
+    tokens = []
+    for device, p in (("cpu", params), (cuda, _to(params, cuda))):
+        eng = ServeEngine(cfg, p, ServeConfig(batch_slots=slots, cache_len=64), device=device)
+        reqs = [Request(rid=i, prompt=pr, max_new=6) for i, pr in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_launches()
+        assert len(eng.run_until_drained()) == 3
+        tokens.append([r.out_tokens for r in reqs])
+        counts = kernels.launches()
+    assert tokens[0] == tokens[1]
+    assert counts["flash_fwd"] == cfg.num_layers * eng.stats.prefills == cfg.num_layers * 3
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
 
 
 @pytest.mark.parametrize("policy", ["arype_only", "collaborative"])
