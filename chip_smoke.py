@@ -20,7 +20,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      for 1000 flows, with the paper's 32-deep K blocks and the reference
      wrapper's 128-deep ones, and its sum pass alone; ``mm_fused`` also at
      the LM's decode and longest-prefill shapes, per forward beside
-     ``torch.matmul``.  Each pipeline phase and the serve check that their
+     ``torch.matmul`` (L2-hot: 20 calls a shape on one weight), each shape's
+     plan logged (variant, tile, K ranks C), a 3xTF32 shape bounded by its
+     3 x 2MKN tf32 products with the f32 FMA bound beside; then one decode
+     forward's 197 matmuls over 28 distinct layers' weights (2.4 GB, cold
+     L2), one call each in forward order, beside ``torch.matmul`` run the
+     same way and the bound.  Each pipeline phase and the serve check that their
      matmuls are the shapes checked here.  ``[flash]``:
      ``flash_fwd`` against its plain twin in f32 (rtol = atol 2e-5) and bf16
      (rtol 2^-7, one bf16 step; atol 1e-5) over every mask, ragged Sq/Sk, kv_len < Sk, fully masked rows
@@ -98,6 +103,7 @@ NEAR_TIE = 1e-4  # logit gap under which the two devices may decide differently
 TF_LOGIT_TOL = {"f32": 1e-4, "int8": 2e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM data sheet, dense tf32 tensor-core rate
 INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8 tensor-core rate
 ACTS = ("none", "relu", "silu", "gelu")
 
@@ -192,10 +198,14 @@ def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple[floa
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_matmuls(torch, engine, plain, shapes, gen) -> dict:
+def check_matmuls(torch, engine, plain, shapes, gen, plan=None) -> dict:
     """Kernel vs plain on the card at each shape (all four activations at the
-    first), and per-step times summed over the shapes."""
+    first), and per-step times summed over the shapes.  With ``plan``
+    (``card_plan``) each shape's plan is logged, and a shape on the 3xTF32
+    variant is bounded by its 3 x 2MKN tf32 products over the tensor cores'
+    rate (or its bytes), with the f32 FMA bound beside it (``fma_bound_ms``)."""
     err, ms, plain_ms, lib_ms, bound_ms, ops, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0
+    fma_bound_ms, ops_ms, rel = 0.0, 0.0, 0.0
     for i, (name, m, k, n) in enumerate(shapes):
         x = torch.randn(m, k, generator=gen).cuda()
         w = torch.randn(k, n, generator=gen).cuda()
@@ -207,18 +217,30 @@ def check_matmuls(torch, engine, plain, shapes, gen) -> dict:
                 raise AssertionError(f"{engine.__name__} {name} {act}: max err "
                                      f"{(out - ref).abs().max().item()} over tol {tol}")
             err = max(err, (out - ref).abs().max().item())
+            rel = max(rel, (out - ref).abs().max().item() / ref.abs().max().item())
         t = time_ms(lambda: engine(x, w))
         tp = time_ms(lambda: plain(x, w))
         tl = time_ms(lambda: torch.matmul(x, w))
-        b, _ = bound(4 * (m * k + k * n + m * n), 2 * m * k * n)
-        log(f"  {engine.__name__} {name} ({m},{k},{n}): kernel {t:.5f} ms, plain {tp:.5f} ms, "
-            f"torch.matmul {tl:.5f} ms, bound {b:.6f} ms")
+        work_bytes, work_ops, rate = 4 * (m * k + k * n + m * n), 2 * m * k * n, F32_OPS_PER_S
+        b_fma, _ = bound(work_bytes, work_ops)
+        how = ""
+        if plan is not None:
+            p = plan(x.device, m, k, n)
+            how = f" [{p.variant} {p.bm}x{p.bn} C={p.split}]"
+            if p.variant == "tf32x3":
+                work_ops, rate = 3 * work_ops, TF32_OPS_PER_S
+        b, _ = bound(work_bytes, work_ops, rate)
+        beside = f" (f32 FMA bound {b_fma:.6f} ms)" if rate != F32_OPS_PER_S else ""
+        log(f"  {engine.__name__} {name} ({m},{k},{n}){how}: kernel {t:.5f} ms, plain {tp:.5f} "
+            f"ms, torch.matmul {tl:.5f} ms, bound {b:.6f} ms{beside}")
         ms, plain_ms, lib_ms, bound_ms = ms + t, plain_ms + tp, lib_ms + tl, bound_ms + b
+        fma_bound_ms += b_fma
+        ops_ms += work_ops / rate * 1e3
         ops += 2 * m * k * n
-        nbytes += 4 * (m * k + k * n + m * n)
-    _, by = bound(nbytes, ops)
+        nbytes += work_bytes
+    by = "bytes" if nbytes / HBM_BYTES_PER_S * 1e3 >= ops_ms else "operations"
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by, library_ms=lib_ms,
+                bound_by=by, library_ms=lib_ms, fma_bound_ms=fma_bound_ms, max_rel_err=rel,
                 bytes=nbytes, flops=ops)
 
 
@@ -631,18 +653,60 @@ def lm_matmul_shapes(cfg, rows: int) -> list:
 
 def check_lm_matmuls(torch, arype, gen, cfg, longest: int) -> None:
     """``mm_fused`` against its plain twin at the LM's shapes: a decode
-    forward (one row a slot) and the longest prompt's prefill; per forward
-    (28 layers and the head) times of the kernel and ``torch.matmul``."""
+    forward (one row a slot) and the longest prompt's prefill, each shape
+    timed L2-hot (20 back-to-back calls on one weight), and per forward (28
+    layers and the head) from those times; then one decode forward cold."""
     slots = LM_SERVE["batch_slots"]
     for label, rows in (("decode", slots), (f"prefill of {longest} tokens", slots * longest)):
         *layer, head = lm_matmul_shapes(cfg, rows)
-        log(f"[kernels] mm_fused at the {LM_ARCH} {label} shapes")
-        a, b = (check_matmuls(torch, arype.arype_matmul, arype.mm_fused, shapes, gen)
+        log(f"[kernels] mm_fused at the {LM_ARCH} {label} shapes (L2-hot: 20 calls a shape "
+            f"on one weight)")
+        a, b = (check_matmuls(torch, arype.arype_matmul, arype.mm_fused, shapes, gen,
+                              plan=arype.card_plan)
                 for shapes in (layer, [head]))
-        per = {key: cfg.num_layers * a[key] + b[key] for key in ("ms", "library_ms", "bound_ms")}
-        log(f"  per {label} forward ({cfg.num_layers} layers + lm head): kernel {per['ms']:.4f} "
-            f"ms, torch.matmul {per['library_ms']:.4f} ms ({per['ms'] / per['library_ms']:.2f}x), "
-            f"bound {per['bound_ms']:.4f} ms")
+        per = {key: cfg.num_layers * a[key] + b[key]
+               for key in ("ms", "library_ms", "bound_ms", "fma_bound_ms")}
+        log(f"  per {label} forward ({cfg.num_layers} layers + lm head, L2-hot): kernel "
+            f"{per['ms']:.4f} ms, torch.matmul {per['library_ms']:.4f} ms "
+            f"({per['ms'] / per['library_ms']:.2f}x), bound {per['bound_ms']:.4f} ms "
+            f"(f32 FMA bound {per['fma_bound_ms']:.4f} ms); worst error "
+            f"{max(a['max_rel_err'], b['max_rel_err']):.3e} of max|ref|")
+    time_decode_forward_cold(torch, arype, cfg)
+
+
+def time_decode_forward_cold(torch, arype, cfg) -> None:
+    """One decode forward's matmuls as the serve runs them: 7 a layer over
+    ``num_layers`` distinct layers' weights and the head (2.4 GB of f32 at
+    qwen3-0.6b, far past the 50 MB L2), one call each in forward order,
+    behind the sleep kernel, median of 5; the kernel and ``torch.matmul``
+    the same way, beside the bound of reading every weight once."""
+    slots = LM_SERVE["batch_slots"]
+    *layer, head = lm_matmul_shapes(cfg, slots)
+    g = torch.Generator(device=CARD).manual_seed(1)
+    xs = {k: torch.randn(slots, k, generator=g, device=CARD) for _, _, k, _ in layer + [head]}
+    calls = [(xs[k], torch.randn(k, n, generator=g, device=CARD))
+             for _ in range(cfg.num_layers) for _, _, k, n in layer]
+    calls.append((xs[head[2]], torch.randn(head[2], head[3], generator=g, device=CARD)))
+    nbytes = sum(4 * (x.numel() + w.numel() + x.shape[0] * w.shape[1]) for x, w in calls)
+
+    def forward(mm):
+        for x, w in calls:
+            mm(x, w)
+
+    # 197 enqueues take a few ms of host time: the sleep must outlast them
+    t = time_ms(lambda: forward(arype.arype_matmul), calls=1, sleep_cycles=200_000_000)
+    tl = time_ms(lambda: forward(torch.matmul), calls=1, sleep_cycles=200_000_000)
+    b, by = bound(nbytes, sum(2 * x.shape[0] * x.shape[1] * w.shape[1] for x, w in calls))
+    # a launch that reads no weight: what a skinny call costs beyond its bytes
+    x0, w0 = torch.empty(slots, 0, device=CARD), torch.empty(0, cfg.d_model, device=CARD)
+    floor = time_ms(lambda: arype.arype_matmul(x0, w0))
+    log(f"[kernels] mm_fused decode forward, cold L2 ({len(calls)} matmuls over "
+        f"{cfg.num_layers} distinct layers + head, {nbytes / 1e9:.3f} GB, one call each): "
+        f"kernel {t:.4f} ms, torch.matmul {tl:.4f} ms ({t / tl:.2f}x), bound {b:.4f} ms "
+        f"({by}), {nbytes / t / 1e6:.1f} GB/s; a call with K = 0 at ({slots},0,"
+        f"{cfg.d_model}) {floor * 1e3:.2f} us")
+    del calls, xs
+    torch.cuda.empty_cache()
 
 
 def greedy_single(torch, model, params, prompt, max_new: int, cache_len: int) -> list:
@@ -845,7 +909,8 @@ def main() -> int:
     results = {
         "flow_update": check_flow_update(torch, ff, gen),
         "vpe_mm": check_matmuls(torch, vpe_matmul, vpe_mm, VPE_SHAPES, gen),
-        "mm_fused": check_matmuls(torch, arype.arype_matmul, arype.mm_fused, ARYPE_SHAPES, gen),
+        "mm_fused": check_matmuls(torch, arype.arype_matmul, arype.mm_fused, ARYPE_SHAPES, gen,
+                                  plan=arype.card_plan),
         "vpe_mm_q": check_quant_matmuls(torch, vpe_matmul_q, vpe_mm_q, VPE_SHAPES, gen),
         "mm_fused_q": check_quant_matmuls(torch, arype.arype_matmul_q, arype.mm_fused_q,
                                           ARYPE_SHAPES, gen),
@@ -860,13 +925,16 @@ def main() -> int:
     log("[flash] flash_fwd against its plain twin on the card")
     results["flash_fwd"] = check_flash(torch, fa, gen, [len(p) for p in prompts], lm_cfg)
     log("[kernels] mm_fused and mm_fused_q at the transformer flow engine's shapes")
-    for name, engine, plain, check in (
-            ("mm_fused", arype.arype_matmul, arype.mm_fused, check_matmuls),
-            ("mm_fused_q", arype.arype_matmul_q, arype.mm_fused_q, check_quant_matmuls)):
-        r = check(torch, engine, plain, TF_ARYPE_SHAPES, gen)
+    for name, engine, plain, check, kw in (
+            ("mm_fused", arype.arype_matmul, arype.mm_fused, check_matmuls,
+             dict(plan=arype.card_plan)),
+            ("mm_fused_q", arype.arype_matmul_q, arype.mm_fused_q, check_quant_matmuls, {})):
+        r = check(torch, engine, plain, TF_ARYPE_SHAPES, gen, **kw)
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], r["max_abs_err"])
         log(f"  {name} per transformer step (6 layers): kernel {r['ms']:.5f} ms, plain "
             f"{r['plain_ms']:.5f} ms, library {r['library_ms']} ms, bound {r['bound_ms']:.6f} ms")
+    log(f"  mm_fused worst error over the pipeline shapes: "
+        f"{results['mm_fused']['max_rel_err']:.3e} of max|ref|")
     table6_shapes = usecase2_layers(TABLE6_FLOWS)
     for bk in (UNFUSED_BK, None):
         log(f"[kernels] mm_unfused_partials at use-case 2's arype_only shapes, "

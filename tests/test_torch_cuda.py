@@ -52,10 +52,22 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("engine,plain", [(vpe_matmul, vpe_mm), (arype_matmul, mm_fused)])
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (37, 5, 7), (1024, 6, 12), (5120, 3, 32),
-                                   (2560, 96, 32), (129, 300, 65), (256, 128, 162)]
-                         + TF_SHAPES)
+# (k, n) of the qwen3-0.6b layer matmuls mm_fused runs: wq, wk (= wv), wo,
+# wi_gate (= wi_up), wo_mlp
+LM_KN = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
+LM_HEAD = (4, 1024, 151936)
+MATMUL_SHAPES = [(1, 1, 1), (37, 5, 7), (1024, 6, 12), (5120, 3, 32), (2560, 96, 32),
+                 (129, 300, 65), (256, 128, 162)] + TF_SHAPES
+# mm_fused alone: the LM's shapes on both sides of the skinny/tf32x3 boundary
+# (M 8/9), its prefill (M 1032), the head, and ragged N and K on both variants
+MM_FUSED_SHAPES = ([(m, k, n) for m in (1, 4, 8, 9, 1032) for k, n in LM_KN] + [LM_HEAD]
+                   + [(3, 301, 163), (8, 257, 130), (9, 301, 163), (77, 1027, 258)])
+
+
+@pytest.mark.parametrize("engine,plain,m,k,n",
+                         [(e, p, *s) for e, p in ((vpe_matmul, vpe_mm), (arype_matmul, mm_fused))
+                          for s in MATMUL_SHAPES]
+                         + [(arype_matmul, mm_fused, *s) for s in MM_FUSED_SHAPES])
 @pytest.mark.parametrize("act", ["none", "relu", "silu", "gelu"])
 def test_matmul_kernels_match_plain(cuda, engine, plain, m, k, n, act):
     gen = torch.Generator().manual_seed(m + k + n)
@@ -67,6 +79,33 @@ def test_matmul_kernels_match_plain(cuda, engine, plain, m, k, n, act):
     assert sum(kernels.launches().values()) == sum(before.values()) + 1
     # only the order of the f32 sums differs
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 1024), (4, 1024, 3072), LM_HEAD, (1032, 1024, 1024),
+                                   (2560, 96, 32), (129, 300, 65)])
+def test_mm_fused_is_deterministic(cuda, m, k, n):
+    """Two calls give the same bits: every sum, the skinny variant's cluster
+    reduction included, runs in a fixed order."""
+    gen = torch.Generator().manual_seed(m * k + n)
+    x = torch.randn(m, k, generator=gen).to(cuda)
+    w = torch.randn(k, n, generator=gen).to(cuda)
+    assert torch.equal(arype_matmul(x, w, activation="silu"), arype_matmul(x, w, activation="silu"))
+
+
+@pytest.mark.parametrize("k,n", LM_KN + [LM_HEAD[1:], (301, 163)])
+@pytest.mark.parametrize("rows", [1, 20], ids=["decode", "prefill"])
+def test_mm_fused_rows_do_not_depend_on_m(cuda, k, n, rows):
+    """Row r of a 4-slot call equals the call on that slot's rows alone, bit
+    for bit: M = 4 against M = 1 (skinny), M = 80 against M = 20 (tf32x3), as
+    a served request must decode like its single-request run.  Each slot's
+    rows are a view at an offset, which may take the 4-byte loads."""
+    gen = torch.Generator().manual_seed(k + n + rows)
+    x = torch.randn(4 * rows, k, generator=gen).to(cuda)
+    w = torch.randn(k, n, generator=gen).to(cuda)
+    out = arype_matmul(x, w)
+    for s in range(4):
+        part = x[s * rows:(s + 1) * rows]
+        assert torch.equal(arype_matmul(part, w), out[s * rows:(s + 1) * rows]), s
 
 
 @pytest.mark.parametrize("engine,plain", [(vpe_matmul_q, vpe_mm_q), (arype_matmul_q, mm_fused_q)])
