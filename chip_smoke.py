@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout, on a machine with one card
     python3 chip_smoke.py --profile  # also trace 8 steps of the f32/int8 CNN and transformer
                                      # pipelines and a short LM serve for the device-busy share
+    python3 chip_smoke.py --kernel-times [--src DIR] [--label NAME]
+                                     # only time the AryPE kernels (see kernel_times)
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -15,10 +17,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      matmuls ``vpe_mm_q``/``mm_fused_q`` bit for bit under none/relu with
      per-tensor and per-channel weight scales), with times of the kernel,
      the plain version and one PyTorch library call; ``mm_fused``/``mm_fused_q``
-     also at the transformer flow engine's shapes; ``mm_unfused_partials``
-     (partials pass and sum pass) also at use-case 2's ``arype_only`` shapes
-     for 1000 flows, with the paper's 32-deep K blocks and the reference
-     wrapper's 128-deep ones, and its sum pass alone; ``mm_fused`` also at
+     also at the transformer flow engine's shapes (``mm_fused_q`` beside
+     ``torch._int_mm`` summed over the shapes cuBLASLt takes);
+     ``mm_unfused_partials`` (partials pass and sum pass) also at use-case 2's
+     ``arype_only`` shapes for 1000 flows, with the paper's 32-deep K blocks
+     and the reference wrapper's 128-deep ones, and its sum pass alone; each
+     ``mm_fused_q`` and ``mm_unfused_partials`` shape's plan (tile, grid)
+     logged; ``mm_fused`` also at
      the LM's decode and longest-prefill shapes, per forward beside
      ``torch.matmul`` (L2-hot: 20 calls a shape on one weight), each shape's
      plan logged (variant, tile, K ranks C), a 3xTF32 shape bounded by its
@@ -54,7 +59,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the CNN pipeline for 64 steps, its AryPE convs launching
      ``mm_unfused_partials`` and its sum pass; then the Table 6 variants of
      ``cnn_apply`` at 1000 flows (``arype_only`` fused and unfused,
-     ``collaborative`` fused), timed on the card; ``collaborative_forward``
+     ``collaborative`` fused), timed on the card, the unfused logits equal
+     to the fused ones bit for bit; ``collaborative_forward``
      on the card against the CPU, fused and unfused under both policies,
      with exact launch counts; and the ratio of the FPGA cycle model (the
      paper's hardware, not this card);
@@ -244,18 +250,21 @@ def check_matmuls(torch, engine, plain, shapes, gen, plan=None) -> dict:
                 bytes=nbytes, flops=ops)
 
 
-def check_quant_matmuls(torch, engine, plain, shapes, gen) -> dict:
+def check_quant_matmuls(torch, engine, plain, shapes, gen, plan=None) -> dict:
     """Int8 kernel vs its plain twin on the card at each shape, with a
     per-tensor and a per-channel weight scale (all four activations at the
     first shape): bit for bit under none/relu, rtol 1e-5 under silu/gelu.
     Times use per-channel scales.  The library yardstick is
     ``torch._int_mm`` on operands quantized beforehand, where cuBLASLt takes
     the shape (M > 16, K and N multiples of 8); the per-step library time is
-    null unless every shape has one."""
+    null unless every shape has one, and ``taken`` names the shapes that
+    have one, with the kernel's (``taken_ms``) and the library's
+    (``taken_library_ms``) time summed over them.  With ``plan``
+    (``mm_fused_q_plan``) each shape's tile is logged."""
     from repro_torch.runtime.quant import pick_scale, quantize_i8
 
     err, ms, plain_ms, lib_ms, bound_ms, ops, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0
-    lib_all = True
+    lib_all, taken, taken_ms = True, [], 0.0
     for i, (name, m, k, n) in enumerate(shapes):
         x = (torch.randn(m, k, generator=gen) * 3).cuda()
         w = torch.randn(k, n, generator=gen).cuda()
@@ -284,17 +293,25 @@ def check_quant_matmuls(torch, engine, plain, shapes, gen) -> dict:
             xq, wq = quantize_i8(x, sx), quantize_i8(w, sw)
             tl = time_ms(lambda: torch._int_mm(xq, wq))
         lib_all = lib_all and tl is not None
+        if tl is not None:
+            taken.append(name)
+            taken_ms += t
         work_bytes, work_ops = 4 * (m * k + k * n + m * n), 2 * m * k * n
         b, _ = bound(work_bytes, work_ops, INT8_OPS_PER_S)
         lib = f"{tl:.5f} ms" if tl is not None else "none (shape not taken by cuBLASLt)"
-        log(f"  {engine.__name__} {name} ({m},{k},{n}): kernel {t:.5f} ms, plain {tp:.5f} ms, "
-            f"torch._int_mm {lib}, bound {b:.6f} ms")
+        how = ""
+        if plan is not None:
+            p = plan(m, k, n, sms=torch.cuda.get_device_properties(x.device).multi_processor_count)
+            how = f" [{p.bm}x{p.bn}, grid {p.grid(m, n)}]"
+        log(f"  {engine.__name__} {name} ({m},{k},{n}){how}: kernel {t:.5f} ms, plain {tp:.5f} "
+            f"ms, torch._int_mm {lib}, bound {b:.6f} ms")
         ms, plain_ms, bound_ms = ms + t, plain_ms + tp, bound_ms + b
         lib_ms += tl or 0.0
         ops, nbytes = ops + work_ops, nbytes + work_bytes
     _, by = bound(nbytes, ops, INT8_OPS_PER_S)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                library_ms=lib_ms if lib_all else None, bytes=nbytes, flops=ops)
+                library_ms=lib_ms if lib_all else None, bytes=nbytes, flops=ops,
+                taken=taken, taken_ms=taken_ms, taken_library_ms=lib_ms)
 
 
 def check_unfused(torch, arype, shapes, gen, bk: int | None) -> dict:
@@ -302,7 +319,8 @@ def check_unfused(torch, arype, shapes, gen, bk: int | None) -> dict:
     on the card at each shape (all four activations at the first): the
     partials and the unfused product within MATMUL_RTOL.  Times are of the
     whole unfused matmul (both launches), its plain version and
-    ``torch.matmul`` on the same (M, K, N), summed over the shapes.  The
+    ``torch.matmul`` on the same (M, K, N), summed over the shapes; each
+    shape's plan (tile, grid) is logged.  The
     bound counts x and w read, the partials written and read back, and the
     output written, over the memory rate.  ``bk=None`` is the wrapper's
     default block."""
@@ -333,9 +351,10 @@ def check_unfused(torch, arype, shapes, gen, bk: int | None) -> dict:
         work_bytes = 4 * (m * k + k * n + 2 * nk * m * n + m * n)
         work_ops = 2 * m * k * n + (nk - 1) * m * n
         b, _ = bound(work_bytes, work_ops)
+        p = arype.mm_unfused_plan(m, k, n, depth, arype.sm_count(x.device))
         log(f"  mm_unfused_partials {name} ({m},{k},{n}) bk={depth} "
-            f"({nk} partials): kernel {t:.5f} ms, plain {tp:.5f} ms, torch.matmul {tl:.5f} ms, "
-            f"bound {b:.6f} ms ({work_bytes} bytes)")
+            f"({nk} partials) [{p.bm}x{p.bn}, grid {p.grid(m, n)}]: kernel {t:.5f} ms, plain "
+            f"{tp:.5f} ms, torch.matmul {tl:.5f} ms, bound {b:.6f} ms ({work_bytes} bytes)")
         ms, plain_ms, lib_ms, bound_ms = ms + t, plain_ms + tp, lib_ms + tl, bound_ms + b
         ops, nbytes = ops + work_ops, nbytes + work_bytes
     _, by = bound(nbytes, ops)
@@ -641,6 +660,12 @@ def check_flash(torch, fa, gen, prompt_lens, cfg) -> dict:
     return rec
 
 
+def lm_prompts(cfg, rng) -> list:
+    """The ``[lm]`` phase's LM_REQUESTS prompts of LM_PROMPT tokens, from ``rng``."""
+    return [rng.integers(0, cfg.vocab_size, n)
+            for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)]
+
+
 def lm_matmul_shapes(cfg, rows: int) -> list:
     """(name, m, k, n) of one LM forward's routed matmuls over ``rows``
     token rows: a layer's seven, then the lm head on the last positions."""
@@ -913,14 +938,13 @@ def main() -> int:
                                   plan=arype.card_plan),
         "vpe_mm_q": check_quant_matmuls(torch, vpe_matmul_q, vpe_mm_q, VPE_SHAPES, gen),
         "mm_fused_q": check_quant_matmuls(torch, arype.arype_matmul_q, arype.mm_fused_q,
-                                          ARYPE_SHAPES, gen),
+                                          ARYPE_SHAPES, gen, plan=arype.mm_fused_q_plan),
         "mm_unfused_partials": check_unfused(torch, arype, UNFUSED_SHAPES, gen, UNFUSED_BK),
         "mm_partials_sum": check_partials_sum(torch, arype, gen, UNFUSED_BK),
     }
     lm_cfg = get_config(LM_ARCH).replace(compute_dtype="float32")
     lm_rng = np.random.default_rng(0)
-    prompts = [lm_rng.integers(0, lm_cfg.vocab_size, n)
-               for n in lm_rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)]
+    prompts = lm_prompts(lm_cfg, lm_rng)
     check_lm_matmuls(torch, arype, gen, lm_cfg, max(len(p) for p in prompts))
     log("[flash] flash_fwd against its plain twin on the card")
     results["flash_fwd"] = check_flash(torch, fa, gen, [len(p) for p in prompts], lm_cfg)
@@ -928,11 +952,16 @@ def main() -> int:
     for name, engine, plain, check, kw in (
             ("mm_fused", arype.arype_matmul, arype.mm_fused, check_matmuls,
              dict(plan=arype.card_plan)),
-            ("mm_fused_q", arype.arype_matmul_q, arype.mm_fused_q, check_quant_matmuls, {})):
+            ("mm_fused_q", arype.arype_matmul_q, arype.mm_fused_q, check_quant_matmuls,
+             dict(plan=arype.mm_fused_q_plan))):
         r = check(torch, engine, plain, TF_ARYPE_SHAPES, gen, **kw)
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], r["max_abs_err"])
         log(f"  {name} per transformer step (6 layers): kernel {r['ms']:.5f} ms, plain "
             f"{r['plain_ms']:.5f} ms, library {r['library_ms']} ms, bound {r['bound_ms']:.6f} ms")
+        if "taken" in r:
+            log(f"  {name} over the {len(r['taken'])} shapes cuBLASLt takes "
+                f"({', '.join(r['taken'])}): kernel {r['taken_ms']:.5f} ms, torch._int_mm "
+                f"{r['taken_library_ms']:.5f} ms")
     log(f"  mm_fused worst error over the pipeline shapes: "
         f"{results['mm_fused']['max_rel_err']:.3e} of max|ref|")
     table6_shapes = usecase2_layers(TABLE6_FLOWS)
@@ -1050,10 +1079,14 @@ def main() -> int:
         t6[name] = time_ms(lambda cfg=cfg: cnn_apply(cnn_g, x, config=cfg), calls=10,
                            sleep_cycles=400_000_000)
         log(f"  {name}: {t6[name]:.5f} ms a forward, {TABLE6_FLOWS / t6[name] * 1e3:.1f} flow/s")
+    # every AryPE matmul here has M > 8: the unfused partials at bk = 32 are
+    # the fused kernel's promoted 32-deep tile sums, added in its order
     ref = cnn_apply(cnn_g, x, config=variants["arype_only fused"])
     got = cnn_apply(cnn_g, x, config=variants["arype_only unfused"])
-    if not torch.allclose(got, ref, rtol=MATMUL_RTOL, atol=MATMUL_RTOL * ref.abs().max().item()):
-        raise AssertionError("table 6: unfused logits differ from fused")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"table 6: unfused logits differ from fused by "
+                             f"{(got - ref).abs().max().item()}")
+    log("  arype_only unfused logits equal the fused ones bit for bit")
     log(f"[collaborative] collaborative_forward on the card against the CPU, stack "
         f"{COLLAB_STACK}")
     xs, *ws = (torch.randn(*shape, generator=gen) for shape in COLLAB_STACK)
@@ -1178,5 +1211,84 @@ def main() -> int:
     return 0
 
 
+def kernel_times(argv) -> int:
+    """``--kernel-times [--src DIR] [--label NAME]``: device times of the
+    AryPE engine kernels at the shapes the smoke checks, each beside one
+    library call, and nothing else, to compare two source trees on one card
+    in turns (a, b, b, a).  ``--src`` is the ``src`` directory whose
+    ``repro_torch`` is timed (this checkout's by default), so an older tree
+    unpacked beside this one is timed by the same code; only the wrappers
+    every tree has are called.  Shapes: ARYPE_SHAPES and TF_ARYPE_SHAPES
+    (``mm_fused``; ``mm_fused_q`` on dense and on post-ReLU inputs), the
+    LM's decode and longest-prefill layer matmuls (``mm_fused``), and the
+    unfused matmul at UNFUSED_SHAPES and Table 6's layers (bk 32) and at
+    Table 6's (bk 128).  Prints one JSON object a line: ``{"label",
+    "kernel", "name", "shape", "ms", "library_ms"}``, the library call
+    ``torch.matmul`` (f32, and for the unfused matmul, which adds
+    ``plain_ms``) or ``torch._int_mm`` on operands quantized beforehand
+    (int8, where cuBLASLt takes the shape)."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --kernel-times")
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.core.collaborative import usecase2_layers
+    from repro_torch.kernels.arype_matmul import ops as arype
+    from repro_torch.runtime.quant import pick_scale, quantize_i8
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def emit(kernel, name, shape, ms, library_ms, **extra):
+        print(json.dumps(dict(label=args.label, kernel=kernel, name=name, shape=shape, ms=ms,
+                              library_ms=library_ms, **extra)), flush=True)
+
+    cfg = get_config(LM_ARCH)
+    slots = LM_SERVE["batch_slots"]
+    longest = max(map(len, lm_prompts(cfg, np.random.default_rng(0))))
+    lm = {}  # one of each (rows, K, N): wv is wk's, wi_up wi_gate's; no head
+    for label, rows in (("decode", slots), (f"prefill{longest}", slots * longest)):
+        for name, m, k, n in lm_matmul_shapes(cfg, rows)[:-1]:
+            lm.setdefault((m, k, n), (f"{label}/{name}", m, k, n))
+    table6 = usecase2_layers(TABLE6_FLOWS)
+    for name, m, k, n in ARYPE_SHAPES + TF_ARYPE_SHAPES + list(lm.values()):
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        w = torch.randn(k, n, generator=gen, device="cuda")
+        emit("mm_fused", name, (m, k, n), time_ms(lambda: arype.arype_matmul(x, w)),
+             time_ms(lambda: torch.matmul(x, w)))
+    for name, m, k, n in ARYPE_SHAPES + TF_ARYPE_SHAPES:
+        w = torch.randn(k, n, generator=gen, device="cuda")
+        sw = tuple(pick_scale(v) for v in w.abs().amax(0).tolist())
+        # dense inputs, and post-ReLU ones (about half zeros) as the CNN's
+        # fc and linear and the transformer's mlp2 get them
+        for kind, x in (("dense", torch.randn(m, k, generator=gen, device="cuda") * 3),
+                        ("relu", torch.randn(m, k, generator=gen, device="cuda").clamp_min(0))):
+            sx = pick_scale(x.abs().max().item())
+            lib = None
+            if m > 16 and k % 8 == 0 and n % 8 == 0:  # as check_quant_matmuls
+                xq, wq = quantize_i8(x, sx), quantize_i8(w, sw)
+                lib = time_ms(lambda: torch._int_mm(xq, wq))
+            emit("mm_fused_q", f"{name}/{kind}", (m, k, n),
+                 time_ms(lambda: arype.arype_matmul_q(x, w, scale_x=sx, scale_w=sw)), lib)
+    for bk, shapes in ((32, UNFUSED_SHAPES), (32, table6), (128, table6)):
+        for name, m, k, n in shapes:
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            w = torch.randn(k, n, generator=gen, device="cuda")
+            emit("mm_unfused", f"{name}/bk{bk}", (m, k, n),
+                 time_ms(lambda: arype.arype_matmul_unfused(x, w, bk=bk)),
+                 time_ms(lambda: torch.matmul(x, w)),
+                 plain_ms=time_ms(lambda: arype.mm_unfused(x, w, bk=bk)))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(kernel_times(sys.argv[2:]) if sys.argv[1:2] == ["--kernel-times"] else main())

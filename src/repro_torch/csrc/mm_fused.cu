@@ -30,19 +30,20 @@
 //
 // Variant B, everything else (M > 8: prefill, the pipelines, Table 6).  Bound:
 // operations, 3 * 2MKN tf32 products over 495 TFLOP/s, or bytes at the
-// pipelines' thin K.  Design: a 3xTF32 tensor-core GEMM.  mma.sync m16n8k8
-// takes each operand split at fragment load into hi = rna_tf32(v) and lo =
-// rna_tf32(v - hi) (cvt.rna's rounding, done in integer ops);
-// lo*hi + hi*lo + hi*hi accumulate at every k-step, which holds the f32
-// reference's rtol 1e-5 where one tf32 product misses it by some 20x.  The
-// tensor cores' own f32 accumulation truncates, so its error grows with every
-// step: carried over all of K = 3072 it missed rtol 1e-5 on the H100 (PERF.md).
-// So each 32-deep K tile sums from 0 in the tensor cores (12 mma steps) and is
-// then promoted into the output's f32 sum with one round-to-nearest add.
+// pipelines' thin K.  Design: a 3xTF32 tensor-core GEMM on the 32-row tile
+// skeleton of gemm_tiles.cuh, which mm_unfused_partials.cu shares: mma.sync
+// m16n8k8 on each operand split at fragment load into hi = rna_tf32(v) and
+// lo = rna_tf32(v - hi) (cvt.rna's rounding, done in integer ops); lo*hi +
+// hi*lo + hi*hi accumulate at every k-step, which holds the f32 reference's
+// rtol 1e-5 where one tf32 product misses it by some 20x.  The tensor cores'
+// own f32 accumulation truncates, so its error grows with every step: carried
+// over all of K = 3072 it missed rtol 1e-5 on the H100 (PERF.md).  So each
+// 32-deep K tile sums from 0 in the tensor cores (12 mma steps) and is then
+// promoted into the output's f32 sum with one round-to-nearest add.
 // Tiles of 32 x BN x 32 (BN 128, 64 or 32, picked by shape) are fed by a
 // 3-stage cp.async ring: 16-byte copies, zero-filled on ragged edges, or
-// 4-byte copies of both operands where K, N or a base is not 16-byte aligned
-// (the paper's N = 162, the tests' K = 5 and 300).
+// 4-byte copies of an operand whose rows or base are not 16-byte aligned (x
+// at the tests' K = 5, w at the paper's N = 162).
 // The shared tiles are padded so that the A fragments (one ldmatrix each) and
 // the transposed B fragment reads (w is (K,N) with N contiguous, but tf32 mma
 // takes B only as .col) are free of bank conflicts.  K is never split and its
@@ -58,6 +59,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_tiles.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -205,241 +207,34 @@ cudaError_t launch_skinny(const float* x, const float* w, float* out, int m, int
 
 // ----------------------------------------------------------------- variant B
 
-constexpr int kBK = 32;      // K tile; the K order of every output
-constexpr int kStages = 3;   // cp.async ring depth
-constexpr int kAPad = 4;     // As[m][32 + 4]: A fragment reads hit 32 banks
-constexpr int kBPad = 8;     // Bs[k][BN + 8]: transposed B reads hit 32 banks
-
-// One cp.async of kBytes (16 or 4) from src into shared memory, or kBytes of
-// zeros when `ok` is false (the zero-fill source size).
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool ok) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-                 "r"(ok ? 16 : 0));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
-                 "n"(kBytes), "r"(ok ? kBytes : 0));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// v = hi + lo with both parts tf32, each rounded to nearest with ties away
-// from zero as cvt.rna.tf32.f32 rounds, here in two integer ops: add half a
-// tf32 ulp to the magnitude bits, drop the low 13
-__device__ __forceinline__ uint32_t rna_tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = rna_tf32(v);
-  lo = rna_tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <int BM, int BN>
-constexpr int tile_smem_bytes() {
-  return kStages * (BM * (kBK + kAPad) + kBK * (BN + kBPad)) * 4;
-}
-
-// One BM x 32 tile of x and one 32 x BN tile of w into ring stage `as`/`bs`
-// in copies of kCopy bytes, zero-filled past M, N and K.  The launcher takes
-// 16 bytes only where K and N are multiples of 4 floats and both bases 16-byte
-// aligned, so a copy is all in or all out.
-template <int BM, int BN, int kThreads, int kCopy>
-__device__ __forceinline__ void load_tiles(float* as, float* bs, const float* x, const float* w,
-                                           int m, int k, int n, int64_t row0, int col0, int k0,
-                                           int tid) {
-  constexpr int kAS = kBK + kAPad, kBS = BN + kBPad;
-  constexpr int kE = kCopy / 4;  // floats a copy
-#pragma unroll 4
-  for (int i = tid; i < BM * kBK / kE; i += kThreads) {
-    const int r = i / (kBK / kE), c = (i % (kBK / kE)) * kE;
-    const int64_t gr = row0 + r;
-    const bool ok = gr < m && k0 + c < k;
-    cp_async<kCopy>(as + r * kAS + c, ok ? x + gr * k + k0 + c : x, ok);
-  }
-#pragma unroll 4
-  for (int i = tid; i < kBK * BN / kE; i += kThreads) {
-    const int r = i / (BN / kE), c = (i % (BN / kE)) * kE;
-    const bool ok = k0 + r < k && col0 + c < n;
-    cp_async<kCopy>(bs + r * kBS + c, ok ? w + static_cast<int64_t>(k0 + r) * n + col0 + c : w, ok);
-  }
-}
-
-// BM x BN output tile per CTA; warps of WM x WN, each a grid of m16n8 mma
-// tiles; at least kMinBlocks CTAs an SM (the launch bound caps registers).
-template <int BM, int BN, int WM, int WN, int kMinBlocks, int kCopy>
+// The tile's 3xTF32 sum over all of K (gemm_tiles.cuh), then the activation.
+template <int BM, int BN, int WM, int WN, int kMinBlocks, int kCopyX, int kCopyW>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, kMinBlocks)
 mm_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  float* __restrict__ out, int m, int k, int n, int act) {
-  constexpr int kThreads = (BM / WM) * (BN / WN) * 32;
-  constexpr int kMT = WM / 16, kNT = WN / 8;
-  constexpr int kAS = kBK + kAPad, kBS = BN + kBPad;
-  constexpr int kStageFloats = BM * kAS + kBK * kBS;
   extern __shared__ __align__(16) float ring[];
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int gid = lane / 4, tig = lane % 4;  // the mma fragments' groupID, thread-in-group
-  const int wm0 = (warp / (BN / WN)) * WM, wn0 = (warp % (BN / WN)) * WN;
   const int64_t row0 = static_cast<int64_t>(blockIdx.y) * BM;
   const int col0 = blockIdx.x * BN;
-  const int tiles = (k + kBK - 1) / kBK;
-
-  float acc[kMT][kNT][4];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < tiles) {
-      float* as = ring + s * kStageFloats;
-      load_tiles<BM, BN, kThreads, kCopy>(as, as + BM * kAS, x, w, m, k, n, row0, col0,
-                                             s * kBK, tid);
-    }
-    cp_async_commit();
-  }
-
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile t landed for every thread; stage (t - 1) % S is free
-    const int next = t + kStages - 1;
-    if (next < tiles) {
-      float* as = ring + (next % kStages) * kStageFloats;
-      load_tiles<BM, BN, kThreads, kCopy>(as, as + BM * kAS, x, w, m, k, n, row0, col0,
-                                             next * kBK, tid);
-    }
-    cp_async_commit();
-
-    const float* as = ring + (t % kStages) * kStageFloats;
-    const float* bs = as + BM * kAS;
-    // the tile's 32-deep sum starts from 0 in the tensor cores and is
-    // promoted into acc with one round-to-nearest add (see the note)
-    float tile[kMT][kNT][4];
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tile[i][j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 8) {
-      uint32_t bh[kNT][2], bl[kNT][2];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const float* b = bs + (kk + tig) * kBS + wn0 + j * 8 + gid;
-        split_tf32(b[0], bh[j][0], bl[j][0]);
-        split_tf32(b[4 * kBS], bh[j][1], bl[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        // the A fragment (rows gid and gid + 8, columns tig and tig + 4) in one
-        // ldmatrix: four 8 x 4 float blocks read as 8 x 8 b16 matrices
-        uint32_t ah[4], al[4], raw[4];
-        const float* a =
-            as + (wm0 + i * 16 + lane % 8 + (lane / 8) % 2 * 8) * kAS + kk + lane / 16 * 4;
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                     : "=r"(raw[0]), "=r"(raw[1]), "=r"(raw[2]), "=r"(raw[3])
-                     : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(a))));
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(raw[e]), ah[e], al[e]);
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          mma_tf32(tile[i][j], al, bh[j]);
-          mma_tf32(tile[i][j], ah, bl[j]);
-          mma_tf32(tile[i][j], ah, bh[j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += tile[i][j][e];
-  }
-  cp_async_wait<0>();
-
-  const bool pairs = (n % 2) == 0;  // then (row, even col) pairs are 8-byte aligned
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t r = row0 + wm0 + i * 16 + gid + h * 8;
-      if (r >= m) continue;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int c = col0 + wn0 + j * 8 + tig * 2;
-        const float v0 = octo::activate(acc[i][j][h * 2], act);
-        const float v1 = octo::activate(acc[i][j][h * 2 + 1], act);
-        float* dst = out + r * n + c;
-        if (pairs && c + 1 < n) {
-          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-        } else {
-          if (c < n) dst[0] = v0;
-          if (c + 1 < n) dst[1] = v1;
-        }
-      }
-    }
+  float acc[WM / 16][WN / 8][4] = {};
+  octo::tf32x3_sum<BM, BN, WM, WN, kCopyX, kCopyW>(ring, x, w, m, k, n, row0, col0, 0, k, acc);
+  octo::store_tile<BM, BN, WM, WN>(out, acc, m, n, row0, col0,
+                                   [act](float v, int, int) { return octo::activate(v, act); });
 }
 
-// Above 48 KB of shared memory a kernel must opt in, once on each device:
-// `done` holds, a bit an ordinal, the devices where the kernel has opted in.
-template <typename Kernel>
-cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;  // past 64: every launch
-  if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
-}
-
-template <int BM, int BN, int WM, int WN, int kMinBlocks, int kCopy>
+// One launch of tile T (octo::Tile) in the copies C (octo::Copies)
+template <typename T, typename C>
 cudaError_t launch_tf32x3(const float* x, const float* w, float* out, int m, int k, int n,
                           int act, cudaStream_t stream) {
-  constexpr int kThreads = (BM / WM) * (BN / WN) * 32;
-  constexpr int kSmem = tile_smem_bytes<BM, BN>();
-  static_assert(kSmem * kMinBlocks <= 227 * 1024, "ring exceeds the SM's shared memory");
-  auto kernel = mm_tf32x3_kernel<BM, BN, WM, WN, kMinBlocks, kCopy>;
+  constexpr int kSmem = octo::ring_floats<T::BM, T::BN>() * 4;
+  static_assert(kSmem * T::kMinBlocks <= 227 * 1024, "ring exceeds the SM's shared memory");
+  auto kernel = mm_tf32x3_kernel<T::BM, T::BN, T::WM, T::WN, T::kMinBlocks, C::X, C::W>;
   static std::atomic<uint64_t> opted{0};
-  const cudaError_t opt_in = opt_in_smem(kernel, kSmem, opted);
+  const cudaError_t opt_in = octo::opt_in_smem(kernel, kSmem, opted);
   if (opt_in != cudaSuccess) return opt_in;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kernel<<<grid, kThreads, kSmem, stream>>>(x, w, out, m, k, n, act);
+  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM);
+  kernel<<<grid, T::kThreads, kSmem, stream>>>(x, w, out, m, k, n, act);
   return cudaSuccess;
 }
-
-// BM x BN tiles in 16-byte copies, or in 4-byte ones where `vec` is false;
-// warps of WM x WN; the CTAs an SM the launch bound guarantees (registers and
-// ring permit them)
-template <int BM, int BN, int WM, int WN, int kMinBlocks>
-cudaError_t launch_tf32x3_copy(bool vec, const float* x, const float* w, float* out, int m,
-                               int k, int n, int act, cudaStream_t s) {
-  return vec ? launch_tf32x3<BM, BN, WM, WN, kMinBlocks, 16>(x, w, out, m, k, n, act, s)
-             : launch_tf32x3<BM, BN, WM, WN, kMinBlocks, 4>(x, w, out, m, k, n, act, s);
-}
-
-bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
 }  // namespace
 
@@ -461,7 +256,7 @@ extern "C" int mm_fused_launch(const void* xp, const void* wp, void* outp, int m
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (skinny) {
-    const bool vec = n % 4 == 0 && aligned(w, 16);
+    const bool vec = n % 4 == 0 && octo::aligned(w, 16);
     if (tile == 0)
       err = vec ? launch_skinny<64, true>(x, w, out, m, k, n, act, split, s)
                 : launch_skinny<64, false>(x, w, out, m, k, n, act, split, s);
@@ -469,10 +264,13 @@ extern "C" int mm_fused_launch(const void* xp, const void* wp, void* outp, int m
       err = vec ? launch_skinny<128, true>(x, w, out, m, k, n, act, split, s)
                 : launch_skinny<128, false>(x, w, out, m, k, n, act, split, s);
   } else {
-    const bool vec = k % 4 == 0 && n % 4 == 0 && aligned(x, 16) && aligned(w, 16);
-    if (tile == 2) err = launch_tf32x3_copy<32, 128, 32, 32, 3>(vec, x, w, out, m, k, n, act, s);
-    if (tile == 3) err = launch_tf32x3_copy<32, 64, 16, 32, 5>(vec, x, w, out, m, k, n, act, s);
-    if (tile == 4) err = launch_tf32x3_copy<32, 32, 16, 16, 7>(vec, x, w, out, m, k, n, act, s);
+    const bool vec_x = k % 4 == 0 && octo::aligned(x, 16);
+    const bool vec_w = n % 4 == 0 && octo::aligned(w, 16);
+    err = octo::with_tile(tile - 2, [&](auto t) {
+      return octo::with_copies(vec_x, vec_w, [&](auto c) {
+        return launch_tf32x3<decltype(t), decltype(c)>(x, w, out, m, k, n, act, s);
+      });
+    });
   }
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);

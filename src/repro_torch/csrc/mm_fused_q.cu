@@ -7,121 +7,201 @@
 // axis) together with the quantize, pad and slice ops its wrapper
 // (ops.py:arype_matmul_q) runs around it.
 //
-// Bound: at the pipeline's shapes (a few million int8 operations) the launch
-// dominates.  At large shapes this SIMT __dp4a form is bound by the integer
-// pipes, far under the tensor cores' int8 rate; mma.sync s8 / wgmma and TMA
-// are later work.
+// Bound: at the pipelines' shapes (K 16-128, a few million int8 operations,
+// 2MKN over 1979 TOP/s is some 0.01 us) the bytes, and in practice the
+// launch, the latency of the first tile's loads and the divisions of the
+// quantize pass.  The earlier SIMT design walked K in unpipelined 32-deep steps
+// whose scalar loads waited on an IEEE division after every four, so each K
+// step cost one load latency; and it ran __dp4a, not the tensor cores.
 //
-// Design: mm_fused.cu's tiling — a 64x64 output tile per block of 256
-// threads, each thread holding a 4x4 int32 accumulator in registers (the
-// VMEM acc_ref's place).  Each K step stages a 64x32 x tile and a 32x64 w
-// tile in shared memory already quantized, four int8 codes along K packed
-// per 32-bit word, so every element is divided once per tile load and not
-// once per use; the inner loop is one __dp4a per quad.  Ragged M, N and K
-// load zero codes (exact: they add zero products) and stores are guarded, so
-// the wrapper pads nothing.  The epilogue writes
-// (float)acc * (scale_x * scale_w[n]) through the activation.
+// Design: the 32-row tile skeleton of mm_fused's tf32x3 variant
+// (gemm_tiles.cuh), on the int8 tensor cores.  The f32 x and w tiles come
+// through the 3-stage cp.async ring (16-byte copies, or 4-byte ones of an
+// operand whose rows or base are not 16-byte aligned; zero-filled past M, N
+// and K), so all of a tile's loads are in flight before any division.  After
+// the wait one pass of the CTA turns the landed tile into int8 codes in
+// shared memory with octo::quantize_code (IEEE division, rint, clip to
+// +-127), each element once per CTA: x's codes row-major [row][k], four k a
+// 32-bit word; w's transposed [n][k], so that a .col B fragment register is 4
+// consecutive k bytes.  Each division is a short serial chain ending in a
+// range check and a branch, so a thread's divisions do not overlap: the CTA
+// runs eight warps, twice mm_fused's four, to halve each thread's chain, and
+// a zero (the padding past M, N and K, half of a post-ReLU input), which the
+// range check would send down the slow path, takes code 0 directly.  Both
+// code rows are 48 bytes (32 + 16 of padding): the fragment reads, ldmatrix
+// for A and 32-bit loads for B, then hit 32 distinct banks.  The products run
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32, one per 16 x 8 fragment per K
+// tile.  An int32 sum is exact in any order, so the result equals the plain
+// twin (kernels/vpe_smallmm/ops.py:vpe_mm_q) bit for bit under none/relu.
+// Zero f32 past the edges gives zero codes, which add nothing.  The epilogue
+// writes (float)acc * (scale_x * scale_w[n]) through the activation, the
+// dequant row read before the mainloop so its latency hides under the loads.
+//
+// Left for later: wgmma, TMA, and quantizing the weights once (the reference
+// quantizes w on every call too).
+#include <atomic>
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_tiles.cuh"
 
 namespace {
 
-constexpr int kBM = 64, kBN = 64, kBK = 32, kTM = 4, kTN = 4;
-constexpr int kQuads = kBK / 4;                      // packed words along K
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
+constexpr int kCodeWords = 12;  // a code row: 32 int8 codes + 16 bytes of padding
 
-// Four int8 codes in one word, the first in the low byte (__dp4a's order).
-__device__ __forceinline__ int pack4(int c0, int c1, int c2, int c3) {
-  const unsigned u = (static_cast<unsigned>(c0) & 0xffu) |
-                     ((static_cast<unsigned>(c1) & 0xffu) << 8) |
-                     ((static_cast<unsigned>(c2) & 0xffu) << 16) |
-                     ((static_cast<unsigned>(c3) & 0xffu) << 24);
-  return static_cast<int>(u);
+// The code of v on a positive scale s: octo::quantize_code, except that a
+// zero takes code 0 without the division.  IEEE division sends a zero
+// dividend down its slow path (FCHK), which serialises the warp; zeros are
+// the padding past M, N and K and half of a post-ReLU input.  0 / s rounds
+// and clips to 0 for every positive s, so the code is the same.
+__device__ __forceinline__ int code(float v, float s) {
+  return v == 0.f ? 0 : octo::quantize_code(v, s);
 }
 
-__global__ void __launch_bounds__(kThreads)
-mm_fused_q_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  float scale_x, const float* __restrict__ scale_w,
-                  float* __restrict__ out, int m, int k, int n, int act) {
-  __shared__ int xs[kQuads][kBM];  // x codes: xs[quad][row]
-  __shared__ int ws[kQuads][kBN];  // w codes: ws[quad][col]
-  const int tid = threadIdx.x;
-  const int tr = tid / (kBN / kTN);
-  const int tc = tid % (kBN / kTN);
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kBM;
-  const int col0 = blockIdx.x * kBN;
+// Four int8 codes in one word, the first (lowest k) in the low byte.
+__device__ __forceinline__ uint32_t pack4(int c0, int c1, int c2, int c3) {
+  return (static_cast<uint32_t>(c0) & 0xffu) | ((static_cast<uint32_t>(c1) & 0xffu) << 8) |
+         ((static_cast<uint32_t>(c2) & 0xffu) << 16) | ((static_cast<uint32_t>(c3) & 0xffu) << 24);
+}
 
-  int acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    for (int i = tid; i < kBM * kQuads; i += kThreads) {
-      const int r = i / kQuads, q = i % kQuads;
-      const int64_t gr = row0 + r;
-      int c[4];
+template <int BM, int BN>
+constexpr int smem_bytes() {
+  return octo::ring_floats<BM, BN>() * 4 + (BM + BN) * kCodeWords * 4;
+}
+
+template <int BM, int BN, int WM, int WN, int kMinBlocks, int kCopyX, int kCopyW>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, kMinBlocks)
+mm_fused_q_kernel(const float* __restrict__ x, const float* __restrict__ w, float scale_x,
+                  const float* __restrict__ scale_w, float* __restrict__ out, int m, int k,
+                  int n, int act) {
+  constexpr int kThreads = (BM / WM) * (BN / WN) * 32;
+  constexpr int kMT = WM / 16, kNT = WN / 8;
+  constexpr int kAS = octo::kBK + octo::kAPad, kBS = BN + octo::kBPad;
+  static_assert(kThreads % BN == 0, "a thread quantizes one w column");
+  extern __shared__ __align__(16) float ring[];
+  uint32_t* aq = reinterpret_cast<uint32_t*>(ring + octo::ring_floats<BM, BN>());  // [BM][12]
+  uint32_t* bq = aq + BM * kCodeWords;                                               // [BN][12]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;  // the mma fragments' groupID, thread-in-group
+  const int wm0 = (warp / (BN / WN)) * WM, wn0 = (warp % (BN / WN)) * WN;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * BM;
+  const int col0 = blockIdx.x * BN;
+  const int nb = tid % BN;  // the w column this thread quantizes, at every K tile
+  const float sw = col0 + nb < n ? scale_w[col0 + nb] : 1.f;
+  // the dequant of the columns this thread stores, read while the first
+  // tiles load: scale_x * scale_w[c], one f32 product as the twin's row
+  float dq[kNT][2];
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int gk = k0 + 4 * q + t;
-        c[t] = (gr < m && gk < k) ? octo::quantize_code(x[gr * k + gk], scale_x) : 0;
-      }
-      xs[q][r] = pack4(c[0], c[1], c[2], c[3]);
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int c = col0 + wn0 + j * 8 + tig * 2 + p;
+      dq[j][p] = c < n ? scale_x * scale_w[c] : 0.f;
     }
-    for (int i = tid; i < kQuads * kBN; i += kThreads) {
-      const int q = i / kBN, cl = i % kBN;
-      const int gc = col0 + cl;
-      const float sw = gc < n ? scale_w[gc] : 1.f;
-      int c[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int gk = k0 + 4 * q + t;
-        c[t] = (gc < n && gk < k)
-                   ? octo::quantize_code(w[static_cast<int64_t>(gk) * n + gc], sw)
-                   : 0;
-      }
-      ws[q][cl] = pack4(c[0], c[1], c[2], c[3]);
+
+  int acc[kMT][kNT][4] = {};
+  octo::ring_loop<BM, BN, kThreads, kCopyX, kCopyW>(ring, x, w, m, k, n, row0, col0, 0, k,
+                                                    [&](const float* as, const float* bs) {
+    // the landed f32 tile to int8 codes, each element once
+    for (int i = tid; i < BM * octo::kBK / 4; i += kThreads) {
+      const int r = i / (octo::kBK / 4), q = i % (octo::kBK / 4);
+      const float4 v = *reinterpret_cast<const float4*>(as + r * kAS + q * 4);
+      aq[r * kCodeWords + q] =
+          pack4(code(v.x, scale_x), code(v.y, scale_x), code(v.z, scale_x), code(v.w, scale_x));
+    }
+    for (int q = tid / BN; q < octo::kBK / 4; q += kThreads / BN) {
+      const float* b = bs + q * 4 * kBS + nb;
+      bq[nb * kCodeWords + q] =
+          pack4(code(b[0], sw), code(b[kBS], sw), code(b[2 * kBS], sw), code(b[3 * kBS], sw));
     }
     __syncthreads();
+    // one m16n8k32 product a fragment: B (k rows tig*4.., 16 + tig*4.. of
+    // column gid) as two words of the transposed codes
+    uint32_t b[kNT][2];
 #pragma unroll
-    for (int q = 0; q < kQuads; ++q) {
-      int a[kTM], b[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = xs[q][tr * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) b[j] = ws[q][tc * kTN + j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+    for (int j = 0; j < kNT; ++j) {
+      const uint32_t* col = bq + (wn0 + j * 8 + gid) * kCodeWords;
+      b[j][0] = col[tig];
+      b[j][1] = col[4 + tig];
     }
-    __syncthreads();
-  }
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+      // the A fragment (rows gid and gid + 8, k bytes tig*4.. and 16 + tig*4..)
+      // in one ldmatrix: four 8-row x 16-byte blocks read as 8 x 8 b16 matrices
+      uint32_t a[4];
+      const uint32_t* src =
+          aq + (wm0 + i * 16 + lane % 8 + (lane / 8) % 2 * 8) * kCodeWords + lane / 16 * 4;
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                   : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                   : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(src))));
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) mma_s8(acc[i][j], a, b[j]);
+    }
+  });
 
-#pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    const int c = col0 + tc * kTN + j;
-    if (c >= n) continue;
-    const float dq = scale_x * scale_w[c];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int64_t r = row0 + tr * kTM + i;
-      if (r < m) out[r * n + c] = octo::activate(static_cast<float>(acc[i][j]) * dq, act);
-    }
-  }
+  octo::store_tile<BM, BN, WM, WN>(out, acc, m, n, row0, col0, [&](int v, int j, int p) {
+    return octo::activate(static_cast<float>(v) * dq[j][p], act);
+  });
+}
+
+// gemm_tiles.cuh:with_tile's tiles in eight warps by one rule: a warp takes
+// BM / 2 rows by BN / 4 columns (16 by 32, 16 or 8), twice mm_fused's four
+// warps, so each thread divides half as many elements of a tile, at three
+// CTAs an SM or more (the 32 x 32 tile's registers allow four).
+template <typename F>
+cudaError_t with_q_tile(int tile, F f) {
+  return octo::with_tile(tile, [&](auto t) {
+    using T = decltype(t);
+    return f(octo::Tile<T::BM, T::BN, T::BM / 2, T::BN / 4, 3>{});
+  });
+}
+
+template <typename T, typename C>
+cudaError_t launch_q(const float* x, const float* w, float scale_x, const float* scale_w,
+                     float* out, int m, int k, int n, int act, cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes<T::BM, T::BN>();
+  static_assert(kSmem * T::kMinBlocks <= 227 * 1024, "ring exceeds the SM's shared memory");
+  auto kernel = mm_fused_q_kernel<T::BM, T::BN, T::WM, T::WN, T::kMinBlocks, C::X, C::W>;
+  static std::atomic<uint64_t> opted{0};
+  const cudaError_t opt_in = octo::opt_in_smem(kernel, kSmem, opted);
+  if (opt_in != cudaSuccess) return opt_in;
+  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM);
+  kernel<<<grid, T::kThreads, kSmem, stream>>>(x, w, scale_x, scale_w, out, m, k, n, act);
+  return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" int mm_fused_q_launch(const void* x, const void* w, float scale_x,
-                                 const void* scale_w, void* out, int m, int k,
-                                 int n, int act, void* stream) {
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  mm_fused_q_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), scale_x,
-      static_cast<const float*>(scale_w), static_cast<float*>(out), m, k, n, act);
-  return static_cast<int>(cudaGetLastError());
+// One launch with the plan's tile, an index into kernels/arype_matmul/ops.py:
+// TF32X3_TILES.  A plan this file cannot run (a tile out of range, a grid past
+// its limits) is refused with cudaErrorInvalidValue and launches nothing.
+extern "C" int mm_fused_q_launch(const void* xp, const void* wp, float scale_x,
+                                 const void* scale_w, void* out, int m, int k, int n, int act,
+                                 int tile, void* stream) {
+  const float* x = static_cast<const float*>(xp);
+  const float* w = static_cast<const float*>(wp);
+  const float* sw = static_cast<const float*>(scale_w);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m <= 0 || n <= 0 || k < 0 || (m + 31) / 32 > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec_x = k % 4 == 0 && octo::aligned(x, 16);
+  const bool vec_w = n % 4 == 0 && octo::aligned(w, 16);
+  const cudaError_t err = with_q_tile(tile, [&](auto t) {
+    return octo::with_copies(vec_x, vec_w, [&](auto c) {
+      return launch_q<decltype(t), decltype(c)>(x, w, scale_x, sw, o, m, k, n, act, s);
+    });
+  });
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }

@@ -17,117 +17,157 @@
 // array).  So the sum is never fused into the partials kernel and nothing is
 // carried across K blocks on chip.
 //
-// Bound: bytes.  x and w are read once each, the partials written once and
-// read once more, the output written once; at the pipeline's shapes a few MB,
-// so the launches dominate.  The product itself is the SIMT f32 form of
-// mm_fused.cu (no TF32: the reference computes in full f32).
+// Bound: bytes at the pipeline's and Table 6's thin K.  x and w are read
+// once each, the partials written once and read once more, the output written
+// once; a few MB, so the launches and the first tile's load latency dominate.
+// The products are 3 x 2MKN tf32 operations over 495 TFLOP/s.
 //
-// Design: the partials kernel is mm_fused.cu's 64x64 output tile per block of
-// 256 threads (4x4 register accumulator, x and w tiles of depth 16 staged in
-// shared memory) with the K loop limited to the block's own K range, and one
-// grid slice (blockIdx.z) per K block.  Ragged M, N and K edges are masked
-// (zero-filled loads, guarded stores), so the wrapper pads nothing.
+// Design: the partials kernel is mm_fused.cu's 3xTF32 tensor-core mainloop
+// (gemm_tiles.cuh: 32 x BN tiles, the 3-stage cp.async ring, every 32-deep K
+// tile's sum promoted into an f32 sum) over the CTA's own K block, with one
+// grid slice (blockIdx.z) per block: one CTA per (column tile, row tile, K
+// block), so a deep K fills the card even where the tiles alone would not.
+// The K range and the store (the raw block sum to partials[l], no activation)
+// are its only differences from mm_fused's tf32x3 variant.  The tiles start
+// at l * bk, so at bk = 32 each partial is the fused kernel's promoted tile
+// sum, the sum pass adds them left to right from the first as mm_fused's
+// promotion does, and the unfused product equals mm_fused's bit for bit for
+// M > 8.  Ragged M, N and block edges are masked (zero-filled loads, guarded
+// stores), so the wrapper pads nothing; x takes 4-byte copies where bk or K
+// is not a multiple of 4 or its base is unaligned, w where N or its base is.
+//
+// The sum pass is bound by bytes (the partials read, the output written); one
+// thread an element, or four in 16-byte loads where M*N is a multiple of 4,
+// grid-strided.  At these sizes its launch costs about as much as its bytes,
+// so it is a programmatic dependent launch: the partials kernel lets it
+// launch at once, and it waits (griddepcontrol.wait) until the partials
+// kernel has finished and its partials are visible in device memory before
+// it reads them.  The round trip and the two launches stay; only the sum's
+// launch latency overlaps the partials kernel.
+#include <atomic>
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_tiles.cuh"
 
 namespace {
 
-constexpr int kBM = 64, kBN = 64, kBK = 16, kTM = 4, kTN = 4;
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
 constexpr int kSumThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
+template <int BM, int BN, int WM, int WN, int kMinBlocks, int kCopyX, int kCopyW>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, kMinBlocks)
 mm_partials_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    float* __restrict__ partials, int m, int k, int n, int bk) {
-  __shared__ float xs[kBK][kBM];  // transposed x tile: xs[depth][row]
-  __shared__ float ws[kBK][kBN];
-  const int tid = threadIdx.x;
-  const int tr = tid / (kBN / kTN);
-  const int tc = tid % (kBN / kTN);
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kBM;
-  const int col0 = blockIdx.x * kBN;
+  extern __shared__ __align__(16) float ring[];
+  // the sum pass may launch now; it waits for this grid to finish (below)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * BM;
+  const int col0 = blockIdx.x * BN;
   const int kbeg = blockIdx.z * bk;
-  const int kend = min(kbeg + bk, k);
-
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
-    for (int i = tid; i < kBM * kBK; i += kThreads) {
-      const int r = i / kBK, c = i % kBK;
-      const int64_t gr = row0 + r;
-      const int gc = k0 + c;
-      xs[c][r] = (gr < m && gc < kend) ? x[gr * k + gc] : 0.f;
-    }
-    for (int i = tid; i < kBK * kBN; i += kThreads) {
-      const int r = i / kBN, c = i % kBN;
-      const int gr = k0 + r, gc = col0 + c;
-      ws[r][c] = (gr < kend && gc < n) ? w[static_cast<int64_t>(gr) * n + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kTM], b[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = xs[kk][tr * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) b[j] = ws[kk][tc * kTN + j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = partials + static_cast<int64_t>(blockIdx.z) * m * n;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int64_t r = row0 + tr * kTM + i;
-    if (r >= m) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = col0 + tc * kTN + j;
-      if (c < n) out[r * n + c] = acc[i][j];
-    }
-  }
+  const int kend = min(k - kbeg, bk) + kbeg;
+  float acc[WM / 16][WN / 8][4] = {};
+  octo::tf32x3_sum<BM, BN, WM, WN, kCopyX, kCopyW>(ring, x, w, m, k, n, row0, col0, kbeg, kend,
+                                                    acc);
+  octo::store_tile<BM, BN, WM, WN>(partials + static_cast<int64_t>(blockIdx.z) * m * n, acc, m,
+                                   n, row0, col0, [](float v, int, int) { return v; });
 }
 
-// out[e] = act(P[0][e] + P[1][e] + ... + P[nk-1][e]), left to right.
+template <typename T, typename C>
+cudaError_t launch_partials(const float* x, const float* w, float* partials, int m, int k, int n,
+                            int bk, cudaStream_t stream) {
+  constexpr int kSmem = octo::ring_floats<T::BM, T::BN>() * 4;
+  static_assert(kSmem * T::kMinBlocks <= 227 * 1024, "ring exceeds the SM's shared memory");
+  auto kernel = mm_partials_kernel<T::BM, T::BN, T::WM, T::WN, T::kMinBlocks, C::X, C::W>;
+  static std::atomic<uint64_t> opted{0};
+  const cudaError_t opt_in = octo::opt_in_smem(kernel, kSmem, opted);
+  if (opt_in != cudaSuccess) return opt_in;
+  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM, (k + bk - 1) / bk);
+  kernel<<<grid, T::kThreads, kSmem, stream>>>(x, w, partials, m, k, n, bk);
+  return cudaSuccess;
+}
+
+__device__ __forceinline__ void add(float& a, float b) { a += b; }
+__device__ __forceinline__ void add(float4& a, float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+__device__ __forceinline__ float activate(float v, int act) { return octo::activate(v, act); }
+__device__ __forceinline__ float4 activate(float4 v, int act) {
+  return make_float4(octo::activate(v.x, act), octo::activate(v.y, act),
+                     octo::activate(v.z, act), octo::activate(v.w, act));
+}
+
+// out[e] = act(P[0][e] + P[1][e] + ... + P[nk-1][e]), left to right, over
+// elements of V (a float, or four in one 16-byte load where M*N allows).
+template <typename V>
 __global__ void __launch_bounds__(kSumThreads)
-mm_partials_sum_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                       int64_t mn, int nk, int act) {
+mm_partials_sum_kernel(const V* __restrict__ partials, V* __restrict__ out, int64_t mn, int nk,
+                       int act) {
+  // launched early behind the partials kernel (programmatic dependent
+  // launch): wait until it has finished and its partials are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kSumThreads;
   for (int64_t e = static_cast<int64_t>(blockIdx.x) * kSumThreads + threadIdx.x; e < mn;
        e += stride) {
-    float acc = partials[e];
-    for (int l = 1; l < nk; ++l) acc += partials[l * mn + e];
-    out[e] = octo::activate(acc, act);
+    V acc = partials[e];
+    for (int l = 1; l < nk; ++l) add(acc, partials[l * mn + e]);
+    out[e] = activate(acc, act);
   }
+}
+
+template <typename V>
+cudaError_t launch_sum(const void* partials, void* out, int64_t mn, int nk, int act,
+                       cudaStream_t stream) {
+  const int64_t blocks = (mn + kSumThreads - 1) / kSumThreads;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks < 65535 * 16 ? blocks : 65535 * 16));
+  cfg.blockDim = dim3(kSumThreads);
+  cfg.stream = stream;
+  // its launch overlaps the partials kernel's tail; griddepcontrol.wait keeps
+  // the order, so the partials still go through device memory first
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, mm_partials_sum_kernel<V>, static_cast<const V*>(partials),
+                            static_cast<V*>(out), mn, nk, act);
 }
 
 }  // namespace
 
-extern "C" int mm_unfused_partials_launch(const void* x, const void* w, void* partials,
-                                          int m, int k, int n, int bk, void* stream) {
-  const int nk = (k + bk - 1) / bk;
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, nk);
-  mm_partials_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(partials), m, k, n, bk);
-  return static_cast<int>(cudaGetLastError());
+// One launch of the partials kernel with the plan's tile, an index into
+// kernels/arype_matmul/ops.py:TF32X3_TILES.  A plan this file cannot run (a
+// tile out of range, bk < 1, a grid past its limits) is refused with
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int mm_unfused_partials_launch(const void* xp, const void* wp, void* partials,
+                                          int m, int k, int n, int bk, int tile, void* stream) {
+  const float* x = static_cast<const float*>(xp);
+  const float* w = static_cast<const float*>(wp);
+  float* p = static_cast<float*>(partials);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m <= 0 || n <= 0 || k <= 0 || bk <= 0 || (m + 31) / 32 > 65535 ||
+      (k - 1) / bk + 1 > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec_x = k % 4 == 0 && bk % 4 == 0 && octo::aligned(x, 16);
+  const bool vec_w = n % 4 == 0 && octo::aligned(w, 16);
+  const cudaError_t err = octo::with_tile(tile, [&](auto t) {
+    return octo::with_copies(vec_x, vec_w, [&](auto c) {
+      return launch_partials<decltype(t), decltype(c)>(x, w, p, m, k, n, bk, s);
+    });
+  });
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 extern "C" int mm_partials_sum_launch(const void* partials, void* out, int64_t mn, int nk,
                                       int act, void* stream) {
-  const int64_t blocks = (mn + kSumThreads - 1) / kSumThreads;
-  const int grid = static_cast<int>(blocks < 65535 * 16 ? blocks : 65535 * 16);
-  mm_partials_sum_kernel<<<grid, kSumThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(partials), static_cast<float*>(out), mn, nk, act);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = mn % 4 == 0 && octo::aligned(partials, 16) && octo::aligned(out, 16);
+  return static_cast<int>(vec ? launch_sum<float4>(partials, out, mn / 4, nk, act, s)
+                              : launch_sum<float>(partials, out, mn, nk, act, s));
 }

@@ -54,7 +54,7 @@ SKINNY_CTAS = 192
 # weight rows a skinny CTA reads in one unrolled step, by slab width: no K
 # rank gets fewer
 SKINNY_STEP_ROWS = {64: 128, 128: 64}
-THIN_K = 4 * 32  # K up to four of the tf32x3 variant's K tiles takes its smallest tile
+THIN_K = 4 * 32  # a CTA that walks at most four 32-deep K tiles takes the smallest tile
 GRID_Y_MAX = 65535
 
 
@@ -108,14 +108,60 @@ def mm_fused_plan(m: int, k: int, n: int, sms: int = H100_SMS) -> MmFusedPlan:
         split = max(1, min(MAX_CLUSTER, SKINNY_CTAS // ceil_div(n, bn),
                            ceil_div(k, SKINNY_STEP_ROWS[bn])))
         return MmFusedPlan("skinny", SKINNY_MAX_M, bn, split)
-    bm, bn = (TF32X3_TILES[-1] if k <= THIN_K
-              else min(TF32X3_TILES, key=lambda tile: _busiest_sm(m, n, *tile, sms)))
-    return MmFusedPlan("tf32x3", bm, bn, 1)
+    return MmFusedPlan("tf32x3", *gemm_tile(m, k, n, sms), 1)
 
 
-def _busiest_sm(m: int, n: int, bm: int, bn: int, sms: int) -> int:
+def gemm_tile(m: int, depth: int, n: int, sms: int = H100_SMS, blocks: int = 1) -> tuple:
+    """(rows, columns) of the 32-row tile (:data:`TF32X3_TILES`) that the
+    tensor-core kernels of ``csrc/gemm_tiles.cuh`` (``mm_fused``'s tf32x3
+    variant, ``mm_fused_q``, ``mm_unfused_partials``) run on an (M, N) output
+    whose CTAs each walk ``depth`` of K, over ``blocks`` K blocks (the grid's
+    z): the one whose busiest SM computes the least output (the larger on a
+    tie), or, where a CTA walks at most :data:`THIN_K`, so that its few K
+    tiles leave it bound by latency, the smallest, for the most CTAs in
+    flight."""
+    if depth <= THIN_K:
+        return TF32X3_TILES[-1]
+    return min(TF32X3_TILES, key=lambda tile: _busiest_sm(m, n, *tile, sms, blocks))
+
+
+def _busiest_sm(m: int, n: int, bm: int, bn: int, sms: int, blocks: int = 1) -> int:
     """Output elements of the SM that gets the most CTAs of the grid."""
-    return ceil_div(ceil_div(m, bm) * ceil_div(n, bn), sms) * bm * bn
+    return ceil_div(ceil_div(m, bm) * ceil_div(n, bn) * blocks, sms) * bm * bn
+
+
+class TilePlan(NamedTuple):
+    """How ``mm_fused_q`` or ``mm_unfused_partials`` runs one shape: the
+    output tile (``bm`` rows by ``bn`` columns a CTA, one of
+    :data:`TF32X3_TILES`) and ``blocks``, the K blocks of the grid's z (1
+    where K is not split)."""
+    bm: int
+    bn: int
+    blocks: int
+
+    @property
+    def tile(self) -> int:
+        """The tile's index in :data:`TF32X3_TILES`, as the kernels take it."""
+        return TF32X3_TILES.index((self.bm, self.bn))
+
+    def grid(self, m: int, n: int) -> tuple[int, int, int]:
+        """(x, y, z) of the launch grid: column tiles, row tiles, K blocks."""
+        return ceil_div(n, self.bn), ceil_div(m, self.bm), self.blocks
+
+
+def mm_fused_q_plan(m: int, k: int, n: int, sms: int = H100_SMS) -> TilePlan:
+    """How ``mm_fused_q`` runs a shape, from the shape alone: the tile
+    :func:`gemm_tile` picks for all of K, every M included (no int8 path has
+    M <= 8, which the 32-row tile masks)."""
+    return TilePlan(*gemm_tile(m, k, n, sms), 1)
+
+
+def mm_unfused_plan(m: int, k: int, n: int, bk: int, sms: int = H100_SMS) -> TilePlan:
+    """How ``mm_unfused_partials`` runs a shape in K blocks of ``bk``: one CTA
+    per (column tile, row tile, block), each walking at most ``bk`` of K, the
+    tile picked by :func:`gemm_tile` over all the blocks' CTAs."""
+    blocks = ceil_div(k, bk)
+    return TilePlan(*gemm_tile(m, min(bk, k), n, sms, blocks), blocks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,7 +203,7 @@ def arype_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none") 
 
 
 MM_FUSED_Q = CudaKernel("mm_fused_q_launch", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
-                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def arype_matmul_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
@@ -166,7 +212,8 @@ def arype_matmul_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
     clip-rounded to int8 on the layer's scales (``scale_w`` a float or a
     per-output-channel tuple), fused int32 accumulation, dequant, activation.
     On CPU tensors this is the plain :func:`mm_fused_q`; on CUDA tensors one
-    launch of the kernel, which quantizes on load and masks ragged M/N/K."""
+    launch of the kernel with the tile :func:`mm_fused_q_plan` picks, which
+    quantizes each landed tile and masks ragged M/N/K (no padding)."""
     check_quant_args("arype_matmul_q", x, w, scale_w, activation)
     if x.device.type == "cpu":
         return mm_fused_q(x, w, scale_x=scale_x, scale_w=scale_w, activation=activation)
@@ -174,13 +221,14 @@ def arype_matmul_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
         raise ValueError(f"arype_matmul_q: no kernel for {x.device}")
     check_matmul_operands("arype_matmul_q", x, w)
     (m, k), n = x.shape, w.shape[1]
-    if m >= 64 * 65535:
+    plan = mm_fused_q_plan(m, k, n, sms=sm_count(x.device))
+    if plan.grid(m, n)[1] > GRID_Y_MAX:
         raise ValueError(f"arype_matmul_q: M={m} exceeds the kernel's grid")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m * n:
         MM_FUSED_Q(x.device, x.data_ptr(), w.data_ptr(), scale_x,
                    scale_row(scale_w, n, x.device).data_ptr(), out.data_ptr(), m, k, n,
-                   ACTIVATIONS[activation], stream_of(x))
+                   ACTIVATIONS[activation], plan.tile, stream_of(x))
     return out
 
 
@@ -211,7 +259,7 @@ def mm_unfused(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
 
 
 MM_UNFUSED_PARTIALS = CudaKernel("mm_unfused_partials_launch",
-                                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 MM_PARTIALS_SUM = CudaKernel("mm_partials_sum_launch",
                              [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                                       ctypes.c_void_p])
@@ -227,7 +275,7 @@ def _check_unfused(name: str, x: torch.Tensor, w: torch.Tensor, bk: int) -> None
     if x.device.type == "cuda":
         check_matmul_operands(name, x, w)
         m, k = x.shape
-        if m >= 64 * 65535 or ceil_div(k, bk) > 65535:
+        if ceil_div(m, TF32X3_TILES[0][0]) > GRID_Y_MAX or ceil_div(k, bk) > 65535:
             raise ValueError(f"{name}: M={m} or K/bk={ceil_div(k, bk)} exceeds the kernel's grid")
         if ceil_div(k, bk) * m * w.shape[1] >= 2**31:
             raise ValueError(f"{name}: partials too large for the kernel's int sizes")
@@ -238,14 +286,16 @@ def _launch_partials(x: torch.Tensor, w: torch.Tensor, bk: int) -> torch.Tensor:
     partials = torch.empty((ceil_div(k, bk), m, n), dtype=torch.float32, device=x.device)
     if m * n:
         MM_UNFUSED_PARTIALS(x.device, x.data_ptr(), w.data_ptr(), partials.data_ptr(),
-                            m, k, n, bk, stream_of(x))
+                            m, k, n, bk, mm_unfused_plan(m, k, n, bk, sm_count(x.device)).tile,
+                            stream_of(x))
     return partials
 
 
 def mm_unfused_partials(x: torch.Tensor, w: torch.Tensor, *, bk: int = BLOCK_K) -> torch.Tensor:
     """(M, K) @ (K, N) -> the (ceil(K/bk), M, N) f32 K-block partials.  On CPU
     tensors this is the plain :func:`mm_unfused_partials_plain`; on CUDA
-    tensors one launch of the partials kernel, which masks ragged edges."""
+    tensors one launch of the partials kernel with the tile
+    :func:`mm_unfused_plan` picks, which masks ragged edges."""
     _check_unfused("mm_unfused_partials", x, w, bk)
     if x.device.type == "cpu":
         return mm_unfused_partials_plain(x, w, bk=bk)

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import flow_tracker as ft
-from repro_torch.core.collaborative import collaborative_forward, plan_stack
+from repro_torch.core.collaborative import collaborative_forward, plan_stack, usecase2_layers
 from repro_torch.core.feature_extractor import packet_meta_features
 from repro_torch.data.traffic import TrafficConfig, TrafficGenerator
 from repro_torch.kernels.arype_matmul.ops import (
@@ -108,11 +108,15 @@ def test_mm_fused_rows_do_not_depend_on_m(cuda, k, n, rows):
         assert torch.equal(arype_matmul(part, w), out[s * rows:(s + 1) * rows]), s
 
 
+# the int8 kernels' shapes: the pipelines', and ragged ones across the 32-row
+# tiles' edges (M 8/9/33, N 162/163) at K 5 and 300, which take 4-byte copies
+INT8_SHAPES = ([(1, 1, 1), (37, 5, 7), (1024, 6, 12), (1024, 12, 6), (1024, 6, 3), (1024, 3, 2),
+                (5120, 3, 32), (2560, 96, 32), (1280, 96, 32), (256, 96, 128), (256, 128, 162)]
+               + TF_SHAPES + [(8, 300, 162), (9, 5, 163), (33, 300, 163), (33, 5, 162)])
+
+
 @pytest.mark.parametrize("engine,plain", [(vpe_matmul_q, vpe_mm_q), (arype_matmul_q, mm_fused_q)])
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (37, 5, 7), (1024, 6, 12), (1024, 12, 6),
-                                   (1024, 6, 3), (1024, 3, 2), (5120, 3, 32), (2560, 96, 32),
-                                   (1280, 96, 32), (256, 96, 128), (256, 128, 162)]
-                         + TF_SHAPES)
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
 @pytest.mark.parametrize("per_channel", [False, True], ids=["tensor", "channel"])
 @pytest.mark.parametrize("act", ["none", "relu", "silu", "gelu"])
 def test_int8_kernels_match_plain(cuda, engine, plain, m, k, n, per_channel, act):
@@ -132,9 +136,15 @@ def test_int8_kernels_match_plain(cuda, engine, plain, m, k, n, per_channel, act
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (37, 5, 7), (2560, 96, 32), (1280, 96, 32),
-                                   (1000, 128, 162), (33, 200, 17), (20000, 3, 32)])
-@pytest.mark.parametrize("bk", [32, None])
+# the unfused matmul's shapes: the loop's convs, Table 6's, and ragged ones
+# across the 32-row tiles' and the K blocks' edges (4-byte copies at K 5, N
+# 162/163 and bk 20)
+UNFUSED_SHAPES = [(1, 1, 1), (37, 5, 7), (2560, 96, 32), (1280, 96, 32), (1000, 128, 162),
+                  (33, 200, 17), (20000, 3, 32), (8, 300, 162), (9, 5, 163), (33, 300, 163)]
+
+
+@pytest.mark.parametrize("m,k,n", UNFUSED_SHAPES)
+@pytest.mark.parametrize("bk", [32, None, 20, 48])
 @pytest.mark.parametrize("act", ["none", "relu", "silu", "gelu"])
 def test_unfused_kernels_match_plain(cuda, m, k, n, bk, act):
     gen = torch.Generator().manual_seed(m + k + n)
@@ -154,6 +164,62 @@ def test_unfused_kernels_match_plain(cuda, m, k, n, bk, act):
     torch.testing.assert_close(partials, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
     ref = mm_unfused(x, w, activation=act, bk=depth)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+def _view_at(flat: torch.Tensor, start: int, rows: int, cols: int) -> torch.Tensor:
+    """(rows, cols) view of ``flat`` from element ``start``: one row in
+    (``start`` = cols) keeps the base 16-byte aligned only where cols is a
+    multiple of 4; one float in (``start`` = 1) leaves it 4-byte aligned at
+    any cols, so the launchers take 4-byte copies of x for the base alone."""
+    return flat[start:start + rows * cols].view(rows, cols)
+
+
+OFFSETS = {"row": lambda k: k, "float": lambda k: 1}
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 5, 7), (33, 300, 163), (2560, 96, 32), (257, 6, 12)])
+@pytest.mark.parametrize("per_channel", [False, True], ids=["tensor", "channel"])
+@pytest.mark.parametrize("offset", list(OFFSETS))
+def test_int8_kernel_takes_row_offset_views(cuda, m, k, n, per_channel, offset):
+    """x a view into a larger tensor, one row or one float in (its base only
+    4-byte aligned at K 96 and 300 too): bit for bit with the twin."""
+    gen = torch.Generator().manual_seed(m * k + n)
+    x = _view_at((torch.randn((m + 1) * k, generator=gen) * 3).to(cuda), OFFSETS[offset](k), m, k)
+    w = torch.randn(k, n, generator=gen).to(cuda)
+    sx = pick_scale(x.abs().max().item())
+    sw = (tuple(pick_scale(v) for v in w.abs().amax(0).tolist()) if per_channel
+          else pick_scale(w.abs().max().item()))
+    for act in ("none", "relu"):
+        assert torch.equal(arype_matmul_q(x, w, scale_x=sx, scale_w=sw, activation=act),
+                           mm_fused_q(x, w, scale_x=sx, scale_w=sw, activation=act))
+
+
+@pytest.mark.parametrize("m,k,n,bk", [(37, 5, 7, 20), (33, 300, 163, 48), (2560, 96, 32, 32),
+                                      (129, 6, 65, 20)])
+@pytest.mark.parametrize("offset", list(OFFSETS))
+def test_unfused_kernels_take_row_offset_views(cuda, m, k, n, bk, offset):
+    gen = torch.Generator().manual_seed(m * k + n)
+    x = _view_at(torch.randn((m + 1) * k, generator=gen).to(cuda), OFFSETS[offset](k), m, k)
+    w = torch.randn(k, n, generator=gen).to(cuda)
+    ref = mm_unfused_partials_plain(x, w, bk=bk)
+    torch.testing.assert_close(mm_unfused_partials(x, w, bk=bk), ref, rtol=1e-5,
+                               atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("m,k,n", [(2560, 96, 32), (1280, 96, 32), (9, 5, 163), (33, 300, 163)]
+                         + [s[1:] for s in usecase2_layers(1000)])
+@pytest.mark.parametrize("act", ["none", "relu", "silu", "gelu"])
+def test_unfused_at_bk_32_equals_fused(cuda, m, k, n, act):
+    """For M > 8 both run the same 3xTF32 32-deep K tiles: each partial is a
+    promoted tile sum of the fused kernel, and the sum pass adds them in the
+    fused kernel's order, so the unfused product equals it bit for bit (the
+    unfused CNN loop and Table 6 run bk = 32)."""
+    gen = torch.Generator().manual_seed(m + k * n)
+    x = torch.randn(m, k, generator=gen).to(cuda)
+    w = torch.randn(k, n, generator=gen).to(cuda)
+    assert m > 8
+    assert torch.equal(arype_matmul_unfused(x, w, activation=act, bk=32),
+                       arype_matmul(x, w, activation=act))
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d,mask,window,kv_len", [

@@ -1,5 +1,6 @@
-"""``mm_fused_plan``, the one place that picks how the ``mm_fused`` kernel runs
-a shape, and why its tensor-core variant takes three tf32 products a term.
+"""The plans that pick how the AryPE kernels run a shape (``mm_fused_plan``,
+``mm_fused_q_plan``, ``mm_unfused_plan``), and the tensor-core arithmetic of
+``csrc/gemm_tiles.cuh`` and ``csrc/mm_fused_q.cu``.
 
 These run on the CPU, without a card or nvcc:
 
@@ -7,10 +8,13 @@ These run on the CPU, without a card or nvcc:
 
 The shapes are the ones ``chip_smoke.py`` checks on the card: the LM's decode,
 prefill and head matmuls, the pipelines' AryPE layers, Table 6's and the
-collaborative stack's.  The last tests emulate the kernel's arithmetic (tf32
-rounding as ``cvt.rna``, a truncating f32 sum in the 8-deep steps of
-``mma.sync``, each 32-deep K tile's sum promoted) and hold it to ``chip_smoke.py``'s
-unchanged tolerance against the plain twin.
+collaborative stack's.  The emulations follow the kernels' arithmetic: for
+3xTF32, tf32 rounding as ``cvt.rna``, a truncating f32 sum in the 8-deep
+steps of ``mma.sync``, each 32-deep K tile's sum promoted, the unfused
+partials' tiles starting at each block's first K, held to ``chip_smoke.py``'s
+unchanged tolerance against the plain twin; for int8, the code tiles in
+shared memory, the fragments each lane's registers hold and the int32 sum of
+every m16n8k32 product, held bit for bit to the plain twin.
 """
 import importlib.util
 from pathlib import Path
@@ -30,20 +34,28 @@ from repro_torch.kernels.arype_matmul.ops import (
     TF32X3_TILES,
     mm_fused,
     mm_fused_plan,
+    mm_fused_q_plan,
+    mm_unfused_partials_plain,
+    mm_unfused_plan,
+    sum_partials,
 )
+from repro_torch.kernels.vpe_smallmm.ops import vpe_mm_q
+from repro_torch.runtime.quant import pick_scale
 
 ROOT = Path(__file__).resolve().parent.parent
 KBK = 32  # the tf32x3 variant's K tile (csrc/mm_fused.cu kBK)
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+def _load(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-smoke = _chip_smoke()
+smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
+# the int8 and unfused shapes the card tests run (that file imports no JAX)
+card_tests = _load("card_tests", ROOT / "tests" / "test_torch_cuda.py")
 LM_CFG = get_config(smoke.LM_ARCH)
 SLOTS = smoke.LM_SERVE["batch_slots"]
 LM_LAYER_KN = [(k, n) for _, _, k, n in smoke.lm_matmul_shapes(LM_CFG, 1)[:-1]]
@@ -225,6 +237,187 @@ def test_three_tf32_products_hold_the_tolerance_and_one_does_not(k):
         assert not np.allclose(_mma_emulated(x, w, three, promote=False), ref, rtol=rtol, atol=atol)
     # the split is exact where it matters: hi + lo recovers all but ~2^-22 of v
     np.testing.assert_allclose(xh.astype(np.float64) + xl, x, rtol=2.0**-21)
+
+
+# ------------------------------------- the int8 and unfused kernels' plans
+
+
+def int8_warp(bm: int, bn: int) -> tuple:
+    """(rows, columns) of a warp of the int8 kernel's (bm, bn) tile, by
+    csrc/mm_fused_q.cu with_q_tile's rule: eight warps, two down and four
+    across."""
+    return bm // 2, bn // 4
+
+
+INT8_SHAPES = ([s[1:] for s in smoke.ARYPE_SHAPES + smoke.TF_ARYPE_SHAPES]
+               + card_tests.INT8_SHAPES)
+
+
+def test_int8_plan_of_every_checked_shape():
+    """Every int8 shape the card checks gets a tile of the table and a grid
+    within the hardware's limits; at the pipelines' thin K the smallest tile,
+    so conv2 spreads over 80 CTAs where the earlier 64 x 64 tiles launched 40."""
+    for bm, bn in TF32X3_TILES:
+        wm, wn = int8_warp(bm, bn)
+        assert wm % 16 == 0 and wn % 8 == 0 and (bm // wm) * (bn // wn) == 8, (bm, bn)
+    for m, k, n in INT8_SHAPES:
+        plan = mm_fused_q_plan(m, k, n)
+        gx, gy, gz = plan.grid(m, n)
+        assert TF32X3_TILES[plan.tile] == plan[:2] and plan.blocks == gz == 1, (m, k, n)
+        assert 1 <= gx <= 2**31 - 1 and 1 <= gy <= GRID_Y_MAX, (m, k, n)
+        if k <= 128:
+            assert plan[:2] == TF32X3_TILES[-1], (m, k, n)
+    conv2 = mm_fused_q_plan(2560, 96, 32)
+    assert conv2.grid(2560, 32) == (1, 80, 1)
+
+
+def _blocks_walked(plan, k: int, bk: int) -> list:
+    """The K indices each CTA of the partials kernel walks, as its grid and
+    K loop do: block z from z*bk to min(k - z*bk, bk) + z*bk, in 32-deep
+    tiles from the block's first K."""
+    walked = []
+    for z in range(plan.grid(1, 1)[2]):
+        kbeg = z * bk
+        kend = min(k - kbeg, bk) + kbeg
+        for t in range(-(-(kend - kbeg) // KBK)):
+            walked += range(kbeg + t * KBK, min(kbeg + (t + 1) * KBK, kend))
+    return walked
+
+
+@pytest.mark.parametrize("bk", [1, 20, 32, 48, 128])
+@pytest.mark.parametrize("k", [5, 96, 300])
+def test_unfused_grid_covers_each_k_once(bk, k):
+    for m, n in ((2560, 32), (10000, 32), (33, 163), (1, 1)):
+        plan = mm_unfused_plan(m, k, n, bk)
+        gx, gy, gz = plan.grid(m, n)
+        assert gz == -(-k // bk) <= 65535 and 1 <= gy <= GRID_Y_MAX and gx >= 1
+        assert TF32X3_TILES[plan.tile] == plan[:2]
+        assert sorted(_blocks_walked(plan, k, bk)) == list(range(k)), (m, n)
+        if min(bk, k) <= 128:
+            assert plan[:2] == TF32X3_TILES[-1]
+
+
+def _partials_emulated(x: np.ndarray, w: np.ndarray, bk: int) -> np.ndarray:
+    """The partials kernel's arithmetic: each block's 3xTF32 sum in 32-deep
+    tiles from l * bk, promoted, as the fused kernel sums all of K."""
+    parts = []
+    for k0 in range(0, x.shape[1], bk):
+        xb, wb = x[:, k0:k0 + bk], w[k0:k0 + bk]
+        (xh, xl), (wh, wl) = _split_tf32(xb), _split_tf32(wb)
+        parts.append(_mma_emulated(xb, wb, [(xl, wh), (xh, wl), (xh, wh)], promote=True))
+    return np.stack(parts)
+
+
+@pytest.mark.parametrize("bk", [32, 128, 48])
+def test_unfused_partials_hold_the_tolerance(bk):
+    """Per-block 3xTF32 partials at the unfused loop's shapes hold the card
+    check's rtol against the plain twin; at bk = 32 their left-to-right sum
+    equals the fused kernel's promoted sum bit for bit."""
+    rng = np.random.default_rng(bk)
+    for _, m, k, n in smoke.UNFUSED_SHAPES:
+        x = rng.standard_normal((m, k)).astype(np.float32)
+        w = rng.standard_normal((k, n)).astype(np.float32)
+        got = _partials_emulated(x, w, bk)
+        ref = mm_unfused_partials_plain(torch.from_numpy(x), torch.from_numpy(w), bk=bk).numpy()
+        rtol = smoke.MATMUL_RTOL
+        np.testing.assert_allclose(got, ref, rtol=rtol, atol=rtol * np.abs(ref).max())
+        if bk == KBK:
+            (xh, xl), (wh, wl) = _split_tf32(x), _split_tf32(w)
+            fused = _mma_emulated(x, w, [(xl, wh), (xh, wl), (xh, wh)], promote=True)
+            summed = sum_partials(torch.from_numpy(got), "none").numpy()
+            assert np.array_equal(summed, fused)
+
+
+def _codes(v: np.ndarray, s) -> np.ndarray:
+    """octo::quantize_code: IEEE f32 division, rint (half to even), clip."""
+    q = np.rint(v.astype(np.float32) / np.asarray(s, np.float32))
+    return np.clip(q, -127, 127).astype(np.int8)
+
+
+def _lane_maps():
+    """Where each lane's fragment elements come from and what PTX makes of
+    them.  A (m16n8k32 .row): the ldmatrix.x4 address lane L gives (row L % 8
+    + (L / 8) % 2 * 8, byte L / 16 * 16) and what lane l receives of matrix q
+    (the row of lane 8q + l / 4, bytes l % 4 * 4..); B (.col): words tig and
+    4 + tig of code row gid.  PTX's layouts: a_i at row gid + 8 ((i / 4) % 2),
+    k tig * 4 + i % 4 + 16 (i >= 8); b_i at k tig * 4 + i % 4 + 16 (i >= 4),
+    n gid; c_e at row gid + 8 (e / 2), col tig * 2 + e % 2."""
+    lane = np.arange(32)[:, None]
+    gid, tig = lane // 4, lane % 4
+    i = np.arange(16)[None, :]
+    q, e = i // 4, i % 4
+    src = 8 * q + gid  # the lane whose address row matrix q's row gid uses
+    a_src = (src % 8 + (src // 8) % 2 * 8, src // 16 * 16 + tig * 4 + e)
+    a_ptx = (gid + 8 * (q % 2), tig * 4 + e + 16 * (i >= 8))
+    i = np.arange(8)[None, :]
+    b_src = (np.broadcast_to(gid, (32, 8)), (i // 4) * 16 + tig * 4 + i % 4)
+    b_ptx = (tig * 4 + i % 4 + 16 * (i >= 4), np.broadcast_to(gid, (32, 8)))
+    e = np.arange(4)[None, :]
+    c_ptx = (gid + 8 * (e // 2), tig * 2 + e % 2)
+    return a_src, a_ptx, b_src, b_ptx, c_ptx
+
+
+def _int8_kernel_emulated(x, w, sx, sw, tile) -> np.ndarray:
+    """mm_fused_q.cu's decomposition: each CTA's f32 tiles zero-filled past
+    the edges, quantized into 48-byte code rows (x row-major, w transposed),
+    every warp's m16n8k32 fragments gathered lane by lane, multiplied as PTX
+    defines, summed in int32 over the K tiles, stored through store_tile's
+    indices and dequantized."""
+    (m, k), n = x.shape, w.shape[1]
+    bm, bn = tile
+    wm, wn = int8_warp(bm, bn)
+    sw_row = np.broadcast_to(np.asarray(sw, np.float32), (n,))
+    a_src, a_ptx, b_src, b_ptx, c_ptx = _lane_maps()
+    out = np.full((m, n), np.nan, np.float32)
+    for row0 in range(0, m, bm):
+        for col0 in range(0, n, bn):
+            rows, cols = min(bm, m - row0), min(bn, n - col0)
+            scale = np.ones(bn, np.float32)
+            scale[:cols] = sw_row[col0:col0 + cols]
+            acc = {}
+            for k0 in range(0, k, KBK):
+                depth = min(KBK, k - k0)
+                xa = np.zeros((bm, KBK), np.float32)
+                xa[:rows, :depth] = x[row0:row0 + rows, k0:k0 + depth]
+                wb = np.zeros((KBK, bn), np.float32)
+                wb[:depth, :cols] = w[k0:k0 + depth, col0:col0 + cols]
+                aq = np.zeros((bm, 48), np.int8)
+                aq[:, :KBK] = _codes(xa, sx)
+                bq = np.zeros((bn, 48), np.int8)
+                bq[:, :KBK] = _codes(wb, scale).T
+                for wm0 in range(0, bm, wm):
+                    for wn0 in range(0, bn, wn):
+                        for i0 in range(wm0, wm0 + wm, 16):
+                            a = np.zeros((16, KBK), np.int64)
+                            a[a_ptx] = aq[i0 + a_src[0], a_src[1]]
+                            for j0 in range(wn0, wn0 + wn, 8):
+                                b = np.zeros((KBK, 8), np.int64)
+                                b[b_ptx] = bq[j0 + b_src[0], b_src[1]]
+                                c = (a @ b)[c_ptx]  # (lane, e) as the registers hold it
+                                acc[i0, j0] = acc.get((i0, j0), 0) + c
+            for (i0, j0), c in acc.items():
+                assert np.abs(c).max() < 2**31
+                r = row0 + i0 + c_ptx[0]
+                col = col0 + j0 + c_ptx[1]
+                ok = (r < m) & (col < n)
+                dq = np.float32(sx) * sw_row[col[ok]]
+                out[r[ok], col[ok]] = c[ok].astype(np.float32) * dq
+    return out
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 5, 7), (256, 128, 162)])
+@pytest.mark.parametrize("tile", TF32X3_TILES)
+@pytest.mark.parametrize("per_channel", [False, True], ids=["tensor", "channel"])
+def test_int8_tile_decomposition_equals_the_twin(m, k, n, tile, per_channel):
+    rng = np.random.default_rng(m + k + n)
+    x = (rng.standard_normal((m, k)) * 3).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    sx = pick_scale(np.abs(x).max())
+    sw = (tuple(pick_scale(v) for v in np.abs(w).max(0).tolist()) if per_channel
+          else pick_scale(np.abs(w).max()))
+    got = _int8_kernel_emulated(x, w, sx, sw, tile)
+    want = vpe_mm_q(torch.from_numpy(x), torch.from_numpy(w), scale_x=sx, scale_w=sw).numpy()
+    assert np.array_equal(got, want)
 
 
 if __name__ == "__main__":
