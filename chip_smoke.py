@@ -30,8 +30,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      3 x 2MKN tf32 products with the f32 FMA bound beside; then one decode
      forward's 197 matmuls over 28 distinct layers' weights (2.4 GB, cold
      L2), one call each in forward order, beside ``torch.matmul`` run the
-     same way and the bound.  Each pipeline phase and the serve check that their
-     matmuls are the shapes checked here.  ``[flash]``:
+     same way and the bound.  The same LM shapes again through
+     ``mm_fused``'s mixed arm (bf16 x on f32 w, bf16 out, the head's f32;
+     the registered compute type): bit for bit with the f32 arm on
+     ``x.float()``, within one bf16 step of the plain twin, beside
+     ``torch.matmul(x.float(), w).to(out)`` and its 2 x 2MKN tf32 bound; the
+     bf16 decode forward cold; ``vpe_mm``'s mixed arm at the batch-1 decode
+     projections the router places on the VPE.  Each pipeline phase and the
+     serve check that their matmuls are the shapes checked here.  ``[flash]``:
      ``flash_fwd`` against its plain twin in f32 (rtol = atol 2e-5) and bf16
      (rtol 2^-7, one bf16 step; atol 1e-5) over every mask, ragged Sq/Sk, kv_len < Sk, fully masked rows
      (exactly 0), GQA and D 8-256, then at the LM phase's prefill shapes,
@@ -81,7 +87,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``flash_fwd`` a prefill); prefill ms, decode ms a step and tok/s;
  12. ``[lm card vs cpu]``: one 160-token request through ``LM.prefill`` and
      4 ``decode_step``s on the card and on the CPU, logits within
-     ``LM_LOGIT_TOL`` of max|logit|, tokens identical except counted near ties.
+     ``LM_LOGIT_TOL`` of max|logit|, tokens identical except counted near ties;
+ 13. ``[lm bf16]``: qwen3-0.6b as registered (bf16 activations on the same
+     f32 weights) serving the same requests: tokens equal, exactly, each
+     request served alone at the same 4 slots, and its batch-1 greedy run
+     except counted near ties under ``bf16_logit_tol`` (batch 1 places the
+     one-row projections on the VPE); launches as in 11, times beside the
+     f32 run's; ``[lm bf16 card vs cpu]`` as 12 within ``bf16_logit_tol``;
+ 14. ``[lm gemma3-1b]``: gemma3-1b at full width as registered (head_dim 256,
+     the 512-token window, vocab 262144; its embed_scale makes the stack f32)
+     serving 4 requests, one past the window: tokens equal the single-request
+     runs except counted near ties under ``LM_LOGIT_TOL``, launches as
+     predicted (183 ``mm_fused`` a forward, 26 ``flash_fwd`` a prefill).
 
 The second-to-last line is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off everywhere: the reference
@@ -141,6 +158,25 @@ LM_ARCH = "qwen3-0.6b"
 LM_SERVE = dict(batch_slots=4, cache_len=512)
 LM_REQUESTS, LM_MAX_NEW, LM_PROMPT = 8, 32, (16, 300)
 LM_CPU_PROMPT, LM_CPU_DECODES = 160, 4
+# gemma3-1b at full width and its registered default (bf16 compute, which
+# its embed_scale promotes to an f32 stack), 4 slots of 1024 cache rows: one
+# prompt past the 512-token window (its local layers' ring caches wrap), one
+# just past it, two inside it; 16 new tokens each
+GEMMA_ARCH = "gemma3-1b"
+GEMMA_SERVE = dict(batch_slots=4, cache_len=1024)
+GEMMA_PROMPTS, GEMMA_MAX_NEW = (700, 37, 256, 530), 16
+
+
+def bf16_logit_tol(cfg) -> float:
+    """LM logits in bf16 compute, two runs whose f32 sums differ in order
+    (card against CPU, or a batch-1 run whose one-row projections the router
+    places on the VPE against the 4-slot serve's mm_fused), as a share of
+    max|logit|: each of the stack's bf16 roundings (matmul outputs, norms,
+    rope, attention outputs, residual adds) can land one bf16 step (at most
+    2^-7 of the value) apart where the f32 value sits at a rounding boundary;
+    half a step of the largest logit for every layer (tests/test_torch_bf16.py
+    states the same bound).  qwen3-0.6b: 28 layers, 0.109."""
+    return cfg.num_layers * 2.0**-8
 # LM logits, card against CPU, as a share of max|logit|.  The f32 matmuls sum
 # in another order on each device (last bits, ~1e-6 of a value), and 28
 # layers carry that forward; decode then reads the bf16 KV cache, where a
@@ -647,16 +683,23 @@ def check_flash(torch, fa, gen, prompt_lens, cfg) -> dict:
                bytes=0, flops=0)
     log(f"[flash] the LM's prefill shapes ({LM_ARCH}: {slots} slots, {cfg.num_heads} heads over "
         f"{cfg.num_kv_heads} KV heads, D {hd})")
+    bf16 = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
     for p in prompt_lens:
         case = (slots, cfg.num_heads, cfg.num_kv_heads, p, p, hd, "causal", 0, None)
         r = flash_case(torch, fa, gen, case, "float32", lm_layout=True)
         rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"):
             rec[key] += r[key]
+        # the registered bf16 compute's prefill (the record stays f32)
+        r = flash_case(torch, fa, gen, case, "bfloat16", lm_layout=True)
+        for key in bf16:
+            bf16[key] += r[key]
     _, rec["bound_by"] = bound(rec["bytes"], rec["flops"])
     log(f"  over the {len(prompt_lens)} prefill shapes, one call each: kernel {rec['ms']:.5f} ms, "
         f"plain {rec['plain_ms']:.5f} ms, sdpa {rec['library_ms']:.5f} ms, bound "
         f"{rec['bound_ms']:.6f} ms; a prefill runs {cfg.num_layers} such calls")
+    log(f"  the same in bf16: kernel {bf16['ms']:.5f} ms, plain {bf16['plain_ms']:.5f} ms, sdpa "
+        f"{bf16['library_ms']:.5f} ms, bound {bf16['bound_ms']:.6f} ms")
     return rec
 
 
@@ -676,12 +719,74 @@ def lm_matmul_shapes(cfg, rows: int) -> list:
             + [("lm_head", slots, d, cfg.padded_vocab)])
 
 
-def check_lm_matmuls(torch, arype, gen, cfg, longest: int) -> None:
+def bf16_step(torch, v):
+    """One bf16 step (ulp) at each |v|: 2^(e - 7) for |v| in [2^e, 2^(e+1))."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0**-126))) - 7)
+
+
+def check_mixed_matmuls(torch, engine, plain, shapes, gen, plan=None) -> dict:
+    """The mixed arm (bf16 x on f32 w) at each (name, m, k, n): bf16 out,
+    f32 for the ``lm_head`` (all four activations at the first shape).  The
+    kernel must equal itself on ``x.float()`` rounded once, bit for bit, and
+    lie within one bf16 step (f32 out: rtol 1e-5) of the plain twin.  Times
+    of the kernel, the twin and the library call for the same function,
+    ``torch.matmul(x.float(), w).to(out)``, summed over the shapes; the bound
+    counts 2 bytes of x, 4 of w, 2 or 4 of out over 3.35 TB/s, or the
+    operations: 2 x 2MKN tf32 products over 495 TFLOP/s on the tf32x3
+    variant (``plan``; the bf16 arm skips the lo*hi product), 2MKN f32 FMAs
+    elsewhere."""
+    rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+               bytes=0, flops=0)
+    for i, (name, m, k, n) in enumerate(shapes):
+        x = torch.randn(m, k, generator=gen).to(CARD, torch.bfloat16)
+        w = torch.randn(k, n, generator=gen).to(CARD)
+        od = torch.float32 if name == "lm_head" else torch.bfloat16
+        for act in (ACTS if i == 0 else ("none",)):
+            out = engine(x, w, activation=act, out_dtype=od)
+            if not torch.equal(out, engine(x.float(), w, activation=act).to(od)):
+                raise AssertionError(f"{engine.__name__} bf16 x {name} {act}: differs from the "
+                                     f"f32 arm on x.float()")
+            ref = plain(x, w, activation=act, out_dtype=od).float()
+            diff = (out.float() - ref).abs()
+            top = ref.abs().max()
+            ok = (diff <= (bf16_step(torch, ref) if od == torch.bfloat16
+                           else MATMUL_RTOL * ref.abs()) + MATMUL_RTOL * top).all()
+            if not ok:
+                raise AssertionError(f"{engine.__name__} bf16 x {name} {act}: max err "
+                                     f"{diff.max().item()} from the plain twin")
+            rec["max_abs_err"] = max(rec["max_abs_err"], diff.max().item())
+        t = time_ms(lambda: engine(x, w, out_dtype=od))
+        tp = time_ms(lambda: plain(x, w, out_dtype=od))
+        tl = time_ms(lambda: torch.matmul(x.float(), w).to(od))
+        nbytes = 2 * m * k + 4 * k * n + out.element_size() * m * n
+        ops, rate, how = 2 * m * k * n, F32_OPS_PER_S, ""
+        if plan is not None:
+            p = plan(x.device, m, k, n)
+            how = f" [{p.variant} {p.bm}x{p.bn} C={p.split}]"
+            if p.variant == "tf32x3":
+                ops, rate = 2 * ops, TF32_OPS_PER_S
+        b, by = bound(nbytes, ops, rate)
+        log(f"  {engine.__name__} bf16 x {name} ({m},{k},{n}) -> {str(od)[6:]}{how}: kernel "
+            f"{t:.5f} ms, plain {tp:.5f} ms, torch.matmul(x.float(), w).to() {tl:.5f} ms, "
+            f"bound {b:.6f} ms ({by})")
+        for key, v in (("ms", t), ("plain_ms", tp), ("library_ms", tl), ("bound_ms", b),
+                       ("ops_ms", ops / rate * 1e3), ("bytes", nbytes), ("flops", ops)):
+            rec[key] += v
+    rec["bound_by"] = "bytes" if rec["bytes"] / HBM_BYTES_PER_S * 1e3 >= rec["ops_ms"] \
+        else "operations"
+    return rec
+
+
+def check_lm_matmuls(torch, arype, gen, cfg, longest: int) -> dict:
     """``mm_fused`` against its plain twin at the LM's shapes: a decode
     forward (one row a slot) and the longest prompt's prefill, each shape
     timed L2-hot (20 back-to-back calls on one weight), and per forward (28
-    layers and the head) from those times; then one decode forward cold."""
+    layers and the head) from those times, in f32 and in the mixed arm (bf16
+    x, the registered compute type); then one decode forward cold in each.
+    Returns the mixed arm's record: one decode and one prefill forward."""
     slots = LM_SERVE["batch_slots"]
+    mixed = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 bytes=0, flops=0, ops_ms=0.0)
     for label, rows in (("decode", slots), (f"prefill of {longest} tokens", slots * longest)):
         *layer, head = lm_matmul_shapes(cfg, rows)
         log(f"[kernels] mm_fused at the {LM_ARCH} {label} shapes (L2-hot: 20 calls a shape "
@@ -696,70 +801,151 @@ def check_lm_matmuls(torch, arype, gen, cfg, longest: int) -> None:
             f"({per['ms'] / per['library_ms']:.2f}x), bound {per['bound_ms']:.4f} ms "
             f"(f32 FMA bound {per['fma_bound_ms']:.4f} ms); worst error "
             f"{max(a['max_rel_err'], b['max_rel_err']):.3e} of max|ref|")
-    time_decode_forward_cold(torch, arype, cfg)
+        log(f"[kernels] mm_fused's mixed arm (bf16 x, f32 w) at the {LM_ARCH} {label} shapes, "
+            f"each bit for bit with the f32 arm on x.float()")
+        a, b = (check_mixed_matmuls(torch, arype.arype_matmul, arype.mm_fused, shapes, gen,
+                                    plan=arype.card_plan)
+                for shapes in (layer, [head]))
+        per = {key: cfg.num_layers * a[key] + b[key]
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops",
+                           "ops_ms")}
+        log(f"  per {label} forward, bf16 x: kernel {per['ms']:.4f} ms, torch.matmul(x.float(), "
+            f"w).to() {per['library_ms']:.4f} ms ({per['ms'] / per['library_ms']:.2f}x), bound "
+            f"{per['bound_ms']:.4f} ms; worst error from the twin "
+            f"{max(a['max_abs_err'], b['max_abs_err']):.3e}")
+        mixed["max_abs_err"] = max(mixed["max_abs_err"], a["max_abs_err"], b["max_abs_err"])
+        for key, v in per.items():
+            mixed[key] += v
+    mixed["bound_by"] = "bytes" if mixed["bytes"] / HBM_BYTES_PER_S * 1e3 >= mixed.pop("ops_ms") \
+        else "operations"
+    for dtype in ("float32", "bfloat16"):
+        time_decode_forward_cold(torch, arype, cfg, dtype)
+    return mixed
 
 
-def time_decode_forward_cold(torch, arype, cfg) -> None:
+def check_vpe_mixed(torch, vpe_matmul, vpe_mm, gen, cfg) -> dict:
+    """The VPE's mixed arm at the one-row projections the router places there
+    (a batch-1 decode: wq, wk, wv, wo), bit for bit with the f32 arm on
+    x.float(), within one bf16 step of the plain twin; per batch-1 decode
+    forward (the layer's four, ``num_layers`` times)."""
+    d = cfg.d_model
+    shapes = [("wq", 1, d, cfg.q_dim), ("wk", 1, d, cfg.kv_dim), ("wv", 1, d, cfg.kv_dim),
+              ("wo", 1, cfg.q_dim, d)]
+    log(f"[kernels] vpe_mm's mixed arm (bf16 x, f32 w) at the {LM_ARCH} batch-1 decode "
+        f"projections")
+    r = check_mixed_matmuls(torch, vpe_matmul, vpe_mm, shapes, gen)
+    rec = {key: cfg.num_layers * r[key] if key in ("ms", "plain_ms", "library_ms", "bound_ms")
+           else r[key] for key in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by")}
+    log(f"  per batch-1 decode forward ({cfg.num_layers} x 4 calls): kernel {rec['ms']:.4f} ms, "
+        f"torch.matmul(x.float(), w).to() {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms")
+    return rec
+
+
+def time_decode_forward_cold(torch, arype, cfg, dtype: str = "float32") -> None:
     """One decode forward's matmuls as the serve runs them: 7 a layer over
     ``num_layers`` distinct layers' weights and the head (2.4 GB of f32 at
     qwen3-0.6b, far past the 50 MB L2), one call each in forward order,
     behind the sleep kernel, median of 5; the kernel and ``torch.matmul``
-    the same way, beside the bound of reading every weight once."""
+    the same way, beside the bound of reading every weight once.  ``dtype``
+    is the activations' (bf16: the mixed arm, bf16 out but the head's f32;
+    the library call then ``torch.matmul(x.float(), w).to(out)``)."""
     slots = LM_SERVE["batch_slots"]
+    dt = getattr(torch, dtype)
     *layer, head = lm_matmul_shapes(cfg, slots)
     g = torch.Generator(device=CARD).manual_seed(1)
-    xs = {k: torch.randn(slots, k, generator=g, device=CARD) for _, _, k, _ in layer + [head]}
-    calls = [(xs[k], torch.randn(k, n, generator=g, device=CARD))
+    xs = {k: torch.randn(slots, k, generator=g, device=CARD).to(dt)
+          for _, _, k, _ in layer + [head]}
+    calls = [(xs[k], torch.randn(k, n, generator=g, device=CARD), dt)
              for _ in range(cfg.num_layers) for _, _, k, n in layer]
-    calls.append((xs[head[2]], torch.randn(head[2], head[3], generator=g, device=CARD)))
-    nbytes = sum(4 * (x.numel() + w.numel() + x.shape[0] * w.shape[1]) for x, w in calls)
+    calls.append((xs[head[2]], torch.randn(head[2], head[3], generator=g, device=CARD),
+                  torch.float32))
+    nbytes = sum(x.element_size() * x.numel() + 4 * w.numel()
+                 + torch.empty((), dtype=od).element_size() * x.shape[0] * w.shape[1]
+                 for x, w, od in calls)
 
     def forward(mm):
-        for x, w in calls:
-            mm(x, w)
+        for x, w, od in calls:
+            mm(x, w, od)
+
+    def library(x, w, od):
+        return torch.matmul(x, w) if x.dtype == torch.float32 else torch.matmul(x.float(), w).to(od)
 
     # 197 enqueues take a few ms of host time: the sleep must outlast them
-    t = time_ms(lambda: forward(arype.arype_matmul), calls=1, sleep_cycles=200_000_000)
-    tl = time_ms(lambda: forward(torch.matmul), calls=1, sleep_cycles=200_000_000)
-    b, by = bound(nbytes, sum(2 * x.shape[0] * x.shape[1] * w.shape[1] for x, w in calls))
+    t = time_ms(lambda: forward(lambda x, w, od: arype.arype_matmul(x, w, out_dtype=od)),
+                calls=1, sleep_cycles=200_000_000)
+    tl = time_ms(lambda: forward(library), calls=1, sleep_cycles=200_000_000)
+    b, by = bound(nbytes, sum(2 * x.shape[0] * x.shape[1] * w.shape[1] for x, w, _ in calls))
     # a launch that reads no weight: what a skinny call costs beyond its bytes
-    x0, w0 = torch.empty(slots, 0, device=CARD), torch.empty(0, cfg.d_model, device=CARD)
+    x0, w0 = torch.empty(slots, 0, device=CARD, dtype=dt), torch.empty(0, cfg.d_model, device=CARD)
     floor = time_ms(lambda: arype.arype_matmul(x0, w0))
-    log(f"[kernels] mm_fused decode forward, cold L2 ({len(calls)} matmuls over "
+    log(f"[kernels] mm_fused decode forward, {dtype} x, cold L2 ({len(calls)} matmuls over "
         f"{cfg.num_layers} distinct layers + head, {nbytes / 1e9:.3f} GB, one call each): "
-        f"kernel {t:.4f} ms, torch.matmul {tl:.4f} ms ({t / tl:.2f}x), bound {b:.4f} ms "
-        f"({by}), {nbytes / t / 1e6:.1f} GB/s; a call with K = 0 at ({slots},0,"
-        f"{cfg.d_model}) {floor * 1e3:.2f} us")
+        f"kernel {t:.4f} ms, {'torch.matmul' if dtype == 'float32' else 'torch.matmul(x.float(), w).to()'} "
+        f"{tl:.4f} ms ({t / tl:.2f}x), bound {b:.4f} ms ({by}), {nbytes / t / 1e6:.1f} GB/s; a "
+        f"call with K = 0 at ({slots},0,{cfg.d_model}) {floor * 1e3:.2f} us")
     del calls, xs
     torch.cuda.empty_cache()
 
 
-def greedy_single(torch, model, params, prompt, max_new: int, cache_len: int) -> list:
-    """The single-request greedy reference: batch 1, prefill then decode."""
+def greedy_single(torch, model, params, prompt, max_new: int, cache_len: int):
+    """The single-request greedy reference: batch 1, prefill then decode.
+    Returns its tokens and, at each, the gap of its top two logits as a
+    share of max|logit|."""
     cache = model.init_cache(1, cache_len)
     v = model.cfg.vocab_size
+    toks, gaps = [], []
+
+    def take(logits):
+        top2 = logits.topk(2).values
+        gaps.append(((top2[0] - top2[1]) / logits.abs().max()).item())
+        toks.append(int(logits.argmax()))
+
     logits, cache = model.prefill(params, {"tokens": torch.as_tensor(prompt[None]).to(CARD)},
                                   cache)
-    toks = [int(torch.argmax(logits[0, -1, :v]))]
+    take(logits[0, -1, :v])
     for _ in range(max_new - 1):
         tok = torch.tensor([[toks[-1]]], device=CARD)
         logits, cache = model.decode_step(params, {"tokens": tok}, cache)
-        toks.append(int(torch.argmax(logits[0, 0, :v])))
-    return toks
+        take(logits[0, 0, :v])
+    return toks, gaps
 
 
-def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompts) -> dict:
+def serve_alone(serving, cfg, params, prompt, serve: dict, max_new: int) -> list:
+    """One request served alone by an engine of the same ``serve`` config:
+    the same slots, so every matmul has the serve's shape and placement."""
+    eng = serving.ServeEngine(cfg, params, serving.ServeConfig(**serve), device=CARD)
+    eng.submit(serving.Request(rid=0, prompt=prompt, max_new=max_new))
+    return eng.run_until_drained()[0].out_tokens
+
+
+def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompts, *,
+             serve: dict = LM_SERVE, max_new: int = LM_MAX_NEW, near_tie=None,
+             alone: bool = False):
     """Serve the requests with every launch count at 0 just before and read
     just after; tokens must equal each request's single-request greedy run,
     and launches the prediction: 7 routed matmuls a layer plus the lm head a
     forward, every one on the AryPE at these shapes (``mm_fused``), one
-    forward a prefill and one a decode step (every 4-slot wave of
-    ``LM_MAX_NEW``-token requests takes ``LM_MAX_NEW - 1`` steps), and one
-    ``flash_fwd`` a layer a prefill."""
-    refs = [greedy_single(torch, lm_mod.LM(cfg, device=CARD), params, p, LM_MAX_NEW,
-                          LM_SERVE["cache_len"]) for p in prompts]
-    eng = serving.ServeEngine(cfg, params, serving.ServeConfig(**LM_SERVE), device=CARD)
-    reqs = [serving.Request(rid=i, prompt=p, max_new=LM_MAX_NEW) for i, p in enumerate(prompts)]
+    forward a prefill and one a decode step (every wave of ``max_new``-token
+    requests takes ``max_new - 1`` steps), and one ``flash_fwd`` a layer a
+    prefill.  With ``near_tie`` (a share of max|logit|) a request may leave
+    its batch-1 tokens where that run's top two logits were closer than it
+    (counted; the rest of that request is not compared): at batch 1 the
+    router places the one-row projections on the VPE, which sums in another
+    order than the serve's ``mm_fused``.  With ``alone`` the tokens must
+    also equal, exactly, each request served alone by an engine of the same
+    config (the same shapes and placements: no kernel's rows depend on the
+    other slots).  Returns (launch counts, the engine's stats, the batch-1
+    runs' launch counts, near ties)."""
+    refs_alone = [serve_alone(serving, cfg, params, p, serve, max_new) for p in prompts] \
+        if alone else None
+    kernels.reset_launches()
+    refs = [greedy_single(torch, lm_mod.LM(cfg, device=CARD), params, p, max_new,
+                          serve["cache_len"]) for p in prompts]
+    single_counts = kernels.launches()
+    eng = serving.ServeEngine(cfg, params, serving.ServeConfig(**serve), device=CARD)
+    reqs = [serving.Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
     kernels.reset_launches()
@@ -769,12 +955,27 @@ def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompt
     st = eng.stats
     if len(done) != len(reqs):
         raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
-    for r, ref in zip(reqs, refs):
-        if r.out_tokens != ref:
-            raise AssertionError(f"request {r.rid}: engine {r.out_tokens} != single {ref}")
-    waves = -(-len(reqs) // LM_SERVE["batch_slots"])
+    if alone:
+        for r, ref in zip(reqs, refs_alone):
+            if r.out_tokens != ref:
+                raise AssertionError(f"request {r.rid}: engine {r.out_tokens} != served alone "
+                                     f"{ref}")
+        log(f"  tokens equal, exactly, to each request served alone at "
+            f"{serve['batch_slots']} slots")
+    ties = 0
+    for r, (ref, gaps) in zip(reqs, refs):
+        if r.out_tokens == ref:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(r.out_tokens, ref)) if a != b)
+        if near_tie is None or gaps[t] >= near_tie:
+            raise AssertionError(f"request {r.rid}: engine {r.out_tokens} != single {ref} "
+                                 f"(top-2 gap at token {t}: {gaps[t]:.3e} of max|logit|)")
+        log(f"  request {r.rid}: token {t} differs at a near tie of the single run (top-2 "
+            f"gap {gaps[t]:.3e} of max|logit| < {near_tie:.3e})")
+        ties += 1
+    waves = -(-len(reqs) // serve["batch_slots"])
     per_forward = 7 * cfg.num_layers + 1
-    forwards = len(reqs) + waves * (LM_MAX_NEW - 1)
+    forwards = len(reqs) + waves * (max_new - 1)
     want = dict.fromkeys(kernels.KERNELS, 0)
     want["mm_fused"] = per_forward * forwards
     want["flash_fwd"] = cfg.num_layers * len(reqs)
@@ -789,16 +990,19 @@ def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompt
                              f"{st.prefills} prefills + {st.decode_steps} decode steps: "
                              f"predicted {want} over {forwards} forwards")
     log(f"  {len(done)}/{len(reqs)} requests done, tokens equal to each one's single-request "
-        f"greedy run; {st.prefills} prefills, {st.decode_steps} decode steps, {st.tokens} tokens")
-    log(f"  prefill {st.prefill_s / st.prefills * 1e3:.3f} ms per admit (4-slot batch, prompts "
-        f"{min(map(len, prompts))}-{max(map(len, prompts))}), decode "
+        f"greedy run{f' except {ties} near ties' if near_tie is not None else ''}; "
+        f"{st.prefills} prefills, {st.decode_steps} decode steps, {st.tokens} tokens")
+    log(f"  prefill {st.prefill_s / st.prefills * 1e3:.3f} ms per admit ({serve['batch_slots']}-"
+        f"slot batch, prompts {min(map(len, prompts))}-{max(map(len, prompts))}), decode "
         f"{st.decode_s / st.decode_steps * 1e3:.3f} ms per step, {st.tok_per_s:.1f} generated tok/s")
     log(f"  launches {counts} = predicted: {per_forward} mm_fused a forward x {forwards} "
         f"forwards, {cfg.num_layers} flash_fwd a prefill x {len(reqs)}")
-    return counts
+    single = {name: n for name, n in single_counts.items() if n}
+    log(f"  the {len(prompts)} single-request runs launched {single}")
+    return counts, st, single_counts, ties
 
 
-def profile_serve(torch, serving, cfg, params, prompts) -> None:
+def profile_serve(torch, serving, cfg, params, prompts, label: str = "") -> None:
     """Device-busy share of a short serve run from a torch.profiler trace,
     against the run's wall time: the host/device split."""
     from torch.autograd import DeviceType
@@ -817,16 +1021,16 @@ def profile_serve(torch, serving, cfg, params, prompts) -> None:
     if busy_us == 0:
         log("[profile] the trace holds no device time: idle share not measured")
         return
-    log(f"[profile] serve {len(prompts)} requests x 8 tokens: device busy {busy_us:.1f} us of "
+    log(f"[profile] serve{label} {len(prompts)} requests x 8 tokens: device busy {busy_us:.1f} us of "
         f"{wall_us:.1f} us traced wall, idle share {1 - busy_us / wall_us:.4f}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total:11.1f} us  {e.count:6d} calls  {e.key[:90]}")
 
 
-def lm_card_vs_cpu(torch, lm_mod, cfg, params, rng) -> None:
+def lm_card_vs_cpu(torch, lm_mod, cfg, params, rng, tol: float = LM_LOGIT_TOL) -> None:
     """One request, batch 1: prefill of a ``LM_CPU_PROMPT``-token prompt and
     ``LM_CPU_DECODES`` decode steps on the card and on the CPU (plain
-    twins), both fed the CPU's greedy tokens.  Logits within LM_LOGIT_TOL of
+    twins), both fed the CPU's greedy tokens.  Logits within ``tol`` of
     max|logit|; the two argmaxes equal except where the CPU's top two logits
     are that close (counted)."""
     cpu_params = _tree_to(params, "cpu")
@@ -848,18 +1052,20 @@ def lm_card_vs_cpu(torch, lm_mod, cfg, params, rng) -> None:
         rel = (g - c).abs().max().item() / scale
         worst = max(worst, rel)
         top2 = c.topk(2).values
-        tie = (top2[0] - top2[1]).item() < LM_LOGIT_TOL * scale
-        if rel > LM_LOGIT_TOL:
+        tie = (top2[0] - top2[1]).item() < tol * scale
+        if rel > tol:
             raise AssertionError(f"{run} {step}: logits differ by {rel:.3e} of max|logit|")
         if int(g.argmax()) != int(c.argmax()):
             if not tie:
                 raise AssertionError(f"{run} {step}: tokens {int(g.argmax())} != {int(c.argmax())}")
             ties += 1
         log(f"  {run} {step}: max|card - cpu| {rel:.3e} of max|logit| ({scale:.4f}), token "
-            f"card {int(g.argmax())} cpu {int(c.argmax())}")
+            f"card {int(g.argmax())} cpu {int(c.argmax())}, cpu top-2 gap "
+            f"{(top2[0] - top2[1]).item() / scale:.3e}")
         tokens = c.argmax().reshape(1, 1).numpy()
-    log(f"  worst {worst:.3e} of max|logit| (tolerance {LM_LOGIT_TOL}); tokens identical "
+    log(f"  worst {worst:.3e} of max|logit| (tolerance {tol:.3e}); tokens identical "
         f"except {ties} near ties")
+    del cpu_params
 
 
 def _leaves(tree):
@@ -945,7 +1151,9 @@ def main() -> int:
     lm_cfg = get_config(LM_ARCH).replace(compute_dtype="float32")
     lm_rng = np.random.default_rng(0)
     prompts = lm_prompts(lm_cfg, lm_rng)
-    check_lm_matmuls(torch, arype, gen, lm_cfg, max(len(p) for p in prompts))
+    mixed = {"mm_fused": check_lm_matmuls(torch, arype, gen, lm_cfg,
+                                          max(len(p) for p in prompts)),
+             "vpe_mm": check_vpe_mixed(torch, vpe_matmul, vpe_mm, gen, lm_cfg)}
     log("[flash] flash_fwd against its plain twin on the card")
     results["flash_fwd"] = check_flash(torch, fa, gen, [len(p) for p in prompts], lm_cfg)
     log("[kernels] mm_fused and mm_fused_q at the transformer flow engine's shapes")
@@ -1179,17 +1387,63 @@ def main() -> int:
     log(f"[lm] {LM_ARCH}, f32 compute, {n_params} port-initialised parameters (seed 0) in "
         f"{time.perf_counter() - t0:.2f} s; ServeConfig({LM_SERVE}), {LM_REQUESTS} requests, "
         f"prompts {sorted(len(p) for p in prompts)}, max_new {LM_MAX_NEW}")
-    counts["flash_fwd"] = serve_lm(torch, kernels, record_routes, lm_mod, serving, lm_cfg,
-                                   lm_params, prompts)["flash_fwd"]
+    lm_counts, st32, _, _ = serve_lm(torch, kernels, record_routes, lm_mod, serving, lm_cfg,
+                                     lm_params, prompts)
+    counts["flash_fwd"] = lm_counts["flash_fwd"]
     if profile:
-        profile_serve(torch, serving, lm_cfg, lm_params, prompts[:4])
+        profile_serve(torch, serving, lm_cfg, lm_params, prompts[:4], " f32")
 
     # -- 12. LM card vs CPU
     log(f"[lm card vs cpu] batch 1, a {LM_CPU_PROMPT}-token prompt, prefill + {LM_CPU_DECODES} "
         f"decode steps at full depth")
     lm_card_vs_cpu(torch, lm_mod, lm_cfg, lm_params, lm_rng)
 
-    # -- 13. records
+    # -- 13. LM serving at the registered compute dtype: bf16 activations on
+    # the same f32 weights, the config from get_config unmodified
+    bf_cfg = get_config(LM_ARCH)
+    tol = bf16_logit_tol(bf_cfg)
+    log(f"[lm bf16] {LM_ARCH} as registered (compute {bf_cfg.compute_dtype}, params "
+        f"{bf_cfg.param_dtype}), the same weights, requests and ServeConfig; near ties under "
+        f"{tol:.4f} of max|logit| counted")
+    bf_counts, st16, singles, _ = serve_lm(torch, kernels, record_routes, lm_mod, serving, bf_cfg,
+                                           lm_params, prompts, near_tie=tol, alone=True)
+    for label, a, b in (("prefill ms per admit", st32.prefill_s / st32.prefills,
+                         st16.prefill_s / st16.prefills),
+                        ("decode ms per step", st32.decode_s / st32.decode_steps,
+                         st16.decode_s / st16.decode_steps)):
+        log(f"  {label}: f32 {a * 1e3:.3f}, bf16 {b * 1e3:.3f} ({b / a:.3f}x)")
+    log(f"  generated tok/s: f32 {st32.tok_per_s:.2f}, bf16 {st16.tok_per_s:.2f}")
+    mixed["mm_fused"]["launches"] = bf_counts["mm_fused"]
+    mixed["vpe_mm"]["launches"] = singles["vpe_mm"]
+    if singles["vpe_mm"] == 0:
+        raise AssertionError("the batch-1 runs placed no projection on the VPE")
+    if profile:
+        profile_serve(torch, serving, bf_cfg, lm_params, prompts[:4], " bf16")
+    log(f"[lm bf16 card vs cpu] batch 1, a {LM_CPU_PROMPT}-token prompt, prefill + "
+        f"{LM_CPU_DECODES} decode steps at full depth")
+    lm_card_vs_cpu(torch, lm_mod, bf_cfg, lm_params, lm_rng, tol=tol)
+    del lm_params
+    torch.cuda.empty_cache()
+
+    # -- 14. gemma3-1b at full width, as registered
+    g_cfg = get_config(GEMMA_ARCH)
+    t0 = time.perf_counter()
+    g_params = lm_mod.LM(g_cfg, device=CARD).init(torch.Generator(device=CARD).manual_seed(0))
+    torch.cuda.synchronize()
+    g_rng = np.random.default_rng(2)
+    g_prompts = [g_rng.integers(0, g_cfg.vocab_size, n) for n in GEMMA_PROMPTS]
+    log(f"[lm gemma3-1b] {GEMMA_ARCH} as registered (compute {g_cfg.compute_dtype}: embed_scale "
+        f"makes the stack f32), d_model {g_cfg.d_model}, head_dim {g_cfg.head_dim}, window "
+        f"{g_cfg.window_size}, vocab {g_cfg.vocab_size}, {g_cfg.num_layers} layers, "
+        f"{sum(t.numel() for t in _leaves(g_params))} parameters (seed 0) in "
+        f"{time.perf_counter() - t0:.2f} s; ServeConfig({GEMMA_SERVE}), prompts "
+        f"{list(GEMMA_PROMPTS)}, max_new {GEMMA_MAX_NEW}; near ties under {LM_LOGIT_TOL} counted")
+    serve_lm(torch, kernels, record_routes, lm_mod, serving, g_cfg, g_params, g_prompts,
+             serve=GEMMA_SERVE, max_new=GEMMA_MAX_NEW, near_tie=LM_LOGIT_TOL)
+    del g_params
+    torch.cuda.empty_cache()
+
+    # -- 15. records
     source = {name: f"src/repro_torch/csrc/{name}.cu" for name in results}
     source["mm_partials_sum"] = "src/repro_torch/csrc/mm_unfused_partials.cu"
     replaces = {"flow_update": "src/repro/kernels/flow_features/flow_features.py:78",
@@ -1203,6 +1457,10 @@ def main() -> int:
                 "flash_fwd": "src/repro/kernels/flash_attention/flash_attention.py:105"}
     record = [dict(name=name, route="cuda", source=source[name], replaces=replaces[name],
                    launches=counts[name], **r) for name, r in results.items()]
+    # the mixed arms (bf16 x, f32 w) of mm_fused (the bf16 serve) and vpe_mm
+    # (its batch-1 single-request runs), timed at the LM's shapes
+    record += [dict(name=f"{name} (bf16 x, f32 w)", route="cuda", source=source[name],
+                    replaces=replaces[name], **r) for name, r in mixed.items()]
     log(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1220,7 +1478,9 @@ def kernel_times(argv) -> int:
     unpacked beside this one is timed by the same code; only the wrappers
     every tree has are called.  Shapes: ARYPE_SHAPES and TF_ARYPE_SHAPES
     (``mm_fused``; ``mm_fused_q`` on dense and on post-ReLU inputs), the
-    LM's decode and longest-prefill layer matmuls (``mm_fused``), and the
+    LM's decode and longest-prefill layer matmuls (``mm_fused``, and its
+    mixed arm ``mm_fused_bf16x`` on bf16 x into bf16, beside
+    ``torch.matmul(x.float(), w).to(torch.bfloat16)``, where the tree has it), and the
     unfused matmul at UNFUSED_SHAPES and Table 6's layers (bk 32) and at
     Table 6's (bk 128).  Prints one JSON object a line: ``{"label",
     "kernel", "name", "shape", "ms", "library_ms"}``, the library call
@@ -1228,6 +1488,7 @@ def kernel_times(argv) -> int:
     ``plain_ms``) or ``torch._int_mm`` on operands quantized beforehand
     (int8, where cuBLASLt takes the shape)."""
     import argparse
+    import inspect
 
     import numpy as np
     import torch
@@ -1265,6 +1526,13 @@ def kernel_times(argv) -> int:
         w = torch.randn(k, n, generator=gen, device="cuda")
         emit("mm_fused", name, (m, k, n), time_ms(lambda: arype.arype_matmul(x, w)),
              time_ms(lambda: torch.matmul(x, w)))
+    # the mixed arm (bf16 x, f32 w, bf16 out), in a tree that has it
+    if "out_dtype" in inspect.signature(arype.arype_matmul).parameters:
+        for name, m, k, n in lm.values():
+            x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            w = torch.randn(k, n, generator=gen, device="cuda")
+            emit("mm_fused_bf16x", name, (m, k, n), time_ms(lambda: arype.arype_matmul(x, w)),
+                 time_ms(lambda: torch.matmul(x.float(), w).to(torch.bfloat16)))
     for name, m, k, n in ARYPE_SHAPES + TF_ARYPE_SHAPES:
         w = torch.randn(k, n, generator=gen, device="cuda")
         sw = tuple(pick_scale(v) for v in w.abs().amax(0).tolist())

@@ -10,6 +10,11 @@ import torch.nn.functional as F
 Device = Union[str, torch.device, None]
 
 ACTIVATIONS = {"none": 0, "relu": 1, "silu": 2, "gelu": 3}  # codes of csrc/common.cuh
+# the f32 engine kernels' activation and output types (octo::Dtype codes of
+# csrc/common.cuh): f32, and bf16, the LM's compute type; weights are f32
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the ROADMAP item that holds the engine arms the port does not run yet
+BF16_ROADMAP = "ROADMAP Queue 2 item 1"
 
 
 def ceil_div(a: int, b: int) -> int:

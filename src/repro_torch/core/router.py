@@ -10,7 +10,10 @@ the two engines:
     latency engine for shapes that would under-fill the systolic array.
 
 Each engine is a hand-written CUDA kernel on the card and its plain PyTorch
-twin on the CPU, chosen by the device of the operands.  With
+twin on the CPU, chosen by the device of the operands.  x is f32 (the
+pipelines) or bf16 (the LM's compute type), w f32; both engines sum in f32
+and round once to ``out_dtype``, x's dtype unless the caller names another,
+as the reference's ``out_dtype or x.dtype``.  With
 ``RuntimeConfig.quantize`` and a scale entry for the layer, the engine runs
 its int8 kernel (``vpe_mm_q`` / ``mm_fused_q``) instead.  On ``meta`` tensors
 (:meth:`repro_torch.runtime.plan.RoutePlan.trace`) the route is recorded and
@@ -23,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.common.util import BF16_ROADMAP
 from repro_torch.kernels.arype_matmul.ops import arype_matmul, arype_matmul_q
 from repro_torch.kernels.vpe_smallmm.ops import vpe_matmul, vpe_matmul_q
 from repro_torch.runtime.config import RuntimeConfig
@@ -33,9 +37,10 @@ __all__ = ["Route", "matmul", "route_matmul"]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, activation: Optional[str] = None,
-           config: Optional[RuntimeConfig] = None, name: Optional[str] = None,
-           route: Optional[Route] = None) -> torch.Tensor:
-    """Routed matmul: x (..., M, K) @ w (K, N) -> (..., M, N) f32.
+           out_dtype: Optional[torch.dtype] = None, config: Optional[RuntimeConfig] = None,
+           name: Optional[str] = None, route: Optional[Route] = None) -> torch.Tensor:
+    """Routed matmul: x (..., M, K) @ w (K, N) -> (..., M, N) of ``out_dtype``
+    (x's dtype by default).
 
     The batch dimensions fold into M before routing, so the placement sees
     the product the engine really runs.  Under a
@@ -43,7 +48,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, activation: Optional[str] = None
     statistics are recorded first (the calibration tap).  With
     ``config.quantize``, a layer ``name`` that has an entry in
     ``config.quant_scales`` runs on int8 operands with int32 accumulation,
-    dequantized to f32 before the activation; other layers stay f32.
+    dequantized to f32 before the activation; other layers stay f32.  An
+    int8 layer takes f32 x into f32 only (its other types: the ROADMAP item
+    :data:`~repro_torch.common.util.BF16_ROADMAP`).
 
     ``route`` executes a pre-decided :class:`Route` (a plan step) instead of
     deriving and recording one.  On ``meta`` operands the route is recorded
@@ -53,6 +60,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, activation: Optional[str] = None
     if w.shape[0] != k:
         raise ValueError(f"matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
     n = w.shape[1]
+    out_dtype = out_dtype or x.dtype
     meta = x.device.type == "meta"
     if not meta:
         maybe_record(name, x, w)
@@ -60,13 +68,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, activation: Optional[str] = None
                if cfg.quantize and cfg.quant_scales is not None else None)
     r = route if route is not None else route_matmul(
         math.prod(batch) * m, k, n, config=cfg, name=name, quantized=qscales is not None)
+    if qscales is not None and (x.dtype, out_dtype) != (torch.float32, torch.float32):
+        raise NotImplementedError(
+            f"matmul {name!r}: the int8 engines take float32 x into float32, got {x.dtype} "
+            f"-> {out_dtype} (not ported: {BF16_ROADMAP})")
     if meta:
-        return torch.empty((*batch, m, n), dtype=torch.float32, device="meta")
+        return torch.empty((*batch, m, n), dtype=out_dtype, device="meta")
     x2, w2, act = x.reshape(-1, k).contiguous(), w.contiguous(), activation or "none"
     if qscales is not None:
         engine = vpe_matmul_q if r.path == "vpe" else arype_matmul_q
         out = engine(x2, w2, scale_x=qscales[0], scale_w=qscales[1], activation=act)
     else:
         engine = vpe_matmul if r.path == "vpe" else arype_matmul
-        out = engine(x2, w2, activation=act)
+        out = engine(x2, w2, activation=act, out_dtype=out_dtype)
     return out.reshape(*batch, m, n)

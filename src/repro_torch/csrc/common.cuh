@@ -1,9 +1,36 @@
 // Shared device helpers of the port's matmul kernels.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace octo {
+
+// Element types of the kernels' activation operands and outputs: f32, or
+// bf16 held as its raw bits (bf16_bits) on the way in and as __nv_bfloat16 on
+// the way out.  A launcher takes each as a dtype code (kF32 or kBF16).
+enum Dtype : int { kF32 = 0, kBF16 = 1 };
+using bf16_bits = uint16_t;
+
+// A loaded element as f32: exact for bf16, whose 8 significand bits are the
+// top half of an f32's.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16_bits v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+// An f32 result stored as the output's type: bf16 rounded once, to nearest
+// even (__float2bfloat16_rn), as torch's .to(torch.bfloat16) and XLA's astype
+// round.  put2 stores the (even, odd) column pair at p as one 8- or 4-byte word.
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void put2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 // Activation codes shared with the Python wrappers (ACTIVATIONS in
 // kernels/vpe_smallmm/ops.py).

@@ -1,5 +1,7 @@
-// mm_fused: f32 (M,K) @ (K,N) -> (M,N) with the sum of every output kept on
-// chip across K and the activation applied once, in the epilogue.
+// mm_fused: (M,K) @ (K,N) -> (M,N) with the sum of every output kept on chip
+// across K and the activation applied once, in the epilogue: x f32 or bf16
+// (the LM's activations), w f32, the sum and the activation in f32, the
+// output f32 or bf16, rounded once on its single write.
 //
 // Replaces src/repro/kernels/arype_matmul/arype_matmul.py:mm_fused (body
 // _mm_fused_kernel), whose f32 acc_ref stays in VMEM across the K grid axis.
@@ -50,6 +52,18 @@
 // order never changes with the tile or M, so a row's result does not depend
 // on M either.
 //
+// The mixed arm (bf16 x, f32 w; reference: jnp.dot of the pair promotes to
+// f32, arype_matmul.py:33-35, rounded once to out_dtype, :44 and :111).  A
+// bf16 value is exactly an f32 and a tf32 value, so both variants compute
+// the f32 kernel's function on x.float(), bit for bit: the skinny one
+// converts x while staging it; the tf32x3 one lands bf16 tiles (half the
+// activation bytes) and splits them into hi = bits << 16, lo = 0, so it
+// skips the zero lo*hi product and issues two mma.sync a step instead of
+// three (2 x 2MKN tf32 products: its bound is two thirds of the f32 arm's).
+// A bf16 x with odd K or a base that is only 2-byte aligned has no cp.async
+// copy (4, 8 or 16 bytes); its tiles load synchronously, element by element.
+// A bf16 output is rounded to nearest even, as torch's .to and XLA's astype.
+//
 // Left for later: wgmma (it takes tf32 B only K-major, so the weights would
 // need another layout), TMA loads and warp specialisation.
 #include <atomic>
@@ -73,15 +87,15 @@ constexpr int kSkinnyUnroll = 8;     // weight rows a thread a step
 constexpr int kSkinnyStage = 1024;   // x rows (of K) staged at a time
 constexpr int kMaxCluster = 8;       // the portable cluster size
 
-template <int BN, bool kVec>
+template <int BN, bool kVec, typename TX, typename TO>
 __global__ void __launch_bounds__(kSkinnyThreads, 2)
-mm_skinny_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 float* __restrict__ out, int m, int k, int n, int act, int kc) {
+mm_skinny_kernel(const TX* __restrict__ x, const float* __restrict__ w,
+                 TO* __restrict__ out, int m, int k, int n, int act, int kc) {
   constexpr int kQuads = BN / 4;                    // lanes across a weight row
   constexpr int kGroups = kSkinnyThreads / kQuads;  // weight rows a CTA step reads at once
   static_assert(kGroups * kSkinnyRows * BN == kSkinnyStage * kSkinnyRows, "smem reuse");
-  // x staged as xs[k][8] (two float4 broadcasts a row), reused after the K loop
-  // as the warps' partials red[group][row][BN]
+  // x staged as f32 xs[k][8] (two float4 broadcasts a row), reused after the
+  // K loop as the warps' partials red[group][row][BN]
   __shared__ __align__(16) float smem[kSkinnyStage * kSkinnyRows];
   __shared__ __align__(16) float part[kSkinnyRows * BN];
 
@@ -148,7 +162,8 @@ mm_skinny_kernel(const float* __restrict__ x, const float* __restrict__ w,
     __syncthreads();  // the previous chunk's xs reads are done
     for (int i = tid; i < rows * kSkinnyRows; i += kSkinnyThreads) {
       const int r = i / rows, kr = i % rows;
-      smem[kr * kSkinnyRows + r] = r < m ? x[static_cast<int64_t>(r) * k + c0 + kr] : 0.f;
+      smem[kr * kSkinnyRows + r] =
+          r < m ? octo::to_f32(x[static_cast<int64_t>(r) * k + c0 + kr]) : 0.f;
     }
     __syncthreads();
     for (int kb = 0; kb < rows; kb += 2 * kStep) {
@@ -181,15 +196,15 @@ mm_skinny_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (c >= n) continue;
       float s = part[e];
       for (int rr = 1; rr < ranks; ++rr) s += cluster.map_shared_rank(part, rr)[e];
-      out[static_cast<int64_t>(r) * n + c] = octo::activate(s, act);
+      octo::put(out + static_cast<int64_t>(r) * n + c, octo::activate(s, act));
     }
   }
   cluster.sync();  // no rank leaves while rank 0 still reads its partials
 }
 
-template <int BN, bool kVec>
-cudaError_t launch_skinny(const float* x, const float* w, float* out, int m, int k, int n,
-                          int act, int split, cudaStream_t stream) {
+template <int BN, bool kVec, typename TX, typename TO>
+cudaError_t launch_skinny(const TX* x, const float* w, TO* out, int m, int k, int n, int act,
+                          int split, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((n + BN - 1) / BN, split, 1);
   cfg.blockDim = dim3(kSkinnyThreads, 1, 1);
@@ -202,16 +217,18 @@ cudaError_t launch_skinny(const float* x, const float* w, float* out, int m, int
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const int kc = (k + split - 1) / split;
-  return cudaLaunchKernelEx(&cfg, mm_skinny_kernel<BN, kVec>, x, w, out, m, k, n, act, kc);
+  return cudaLaunchKernelEx(&cfg, mm_skinny_kernel<BN, kVec, TX, TO>, x, w, out, m, k, n, act,
+                            kc);
 }
 
 // ----------------------------------------------------------------- variant B
 
 // The tile's 3xTF32 sum over all of K (gemm_tiles.cuh), then the activation.
-template <int BM, int BN, int WM, int WN, int kMinBlocks, int kCopyX, int kCopyW>
+template <int BM, int BN, int WM, int WN, int kMinBlocks, int kCopyX, int kCopyW, typename TA,
+          typename TO>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, kMinBlocks)
-mm_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 float* __restrict__ out, int m, int k, int n, int act) {
+mm_tf32x3_kernel(const TA* __restrict__ x, const float* __restrict__ w, TO* __restrict__ out,
+                 int m, int k, int n, int act) {
   extern __shared__ __align__(16) float ring[];
   const int64_t row0 = static_cast<int64_t>(blockIdx.y) * BM;
   const int col0 = blockIdx.x * BN;
@@ -222,12 +239,13 @@ mm_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // One launch of tile T (octo::Tile) in the copies C (octo::Copies)
-template <typename T, typename C>
-cudaError_t launch_tf32x3(const float* x, const float* w, float* out, int m, int k, int n,
-                          int act, cudaStream_t stream) {
+template <typename T, typename C, typename TA, typename TO>
+cudaError_t launch_tf32x3(const TA* x, const float* w, TO* out, int m, int k, int n, int act,
+                          cudaStream_t stream) {
   constexpr int kSmem = octo::ring_floats<T::BM, T::BN>() * 4;
   static_assert(kSmem * T::kMinBlocks <= 227 * 1024, "ring exceeds the SM's shared memory");
-  auto kernel = mm_tf32x3_kernel<T::BM, T::BN, T::WM, T::WN, T::kMinBlocks, C::X, C::W>;
+  auto kernel =
+      mm_tf32x3_kernel<T::BM, T::BN, T::WM, T::WN, T::kMinBlocks, C::X, C::W, TA, TO>;
   static std::atomic<uint64_t> opted{0};
   const cudaError_t opt_in = octo::opt_in_smem(kernel, kSmem, opted);
   if (opt_in != cudaSuccess) return opt_in;
@@ -236,42 +254,61 @@ cudaError_t launch_tf32x3(const float* x, const float* w, float* out, int m, int
   return cudaSuccess;
 }
 
+// One launch of the plan on x of TA into out of TO.
+template <typename TA, typename TO>
+cudaError_t launch_plan(const void* xp, const float* w, void* outp, int m, int k, int n, int act,
+                        int tile, int split, cudaStream_t s) {
+  const TA* x = static_cast<const TA*>(xp);
+  TO* out = static_cast<TO*>(outp);
+  if (tile <= 1) {
+    const bool vec = n % 4 == 0 && octo::aligned(w, 16);
+    if (tile == 0)
+      return vec ? launch_skinny<64, true>(x, w, out, m, k, n, act, split, s)
+                 : launch_skinny<64, false>(x, w, out, m, k, n, act, split, s);
+    return vec ? launch_skinny<128, true>(x, w, out, m, k, n, act, split, s)
+               : launch_skinny<128, false>(x, w, out, m, k, n, act, split, s);
+  }
+  const int copy_x = octo::copy_width(x, k, sizeof(TA));
+  const bool vec_w = n % 4 == 0 && octo::aligned(w, 16);
+  return octo::with_tile(tile - 2, [&](auto t) {
+    auto launch = [&](auto c) {
+      return launch_tf32x3<decltype(t), decltype(c)>(x, w, out, m, k, n, act, s);
+    };
+    if constexpr (sizeof(TA) == 2) return octo::with_bf16_copies(copy_x, vec_w, launch);
+    else return octo::with_copies(copy_x, vec_w, launch);
+  });
+}
+
 }  // namespace
 
 // One launch of the plan's tile, an index into kernels/arype_matmul/ops.py:
 // MM_FUSED_TILES (0-1 skinny, 8 rows by 64 or 128 columns; 2-4 tf32x3, 32 rows
-// by 128, 64 or 32), split over `split` K ranks.  A plan this file cannot run
-// (a tile out of range or of the wrong variant for M, C outside 1..8 or not 1
-// for tf32x3, a grid past its limits) is refused with cudaErrorInvalidValue
-// and launches nothing.
+// by 128, 64 or 32), split over `split` K ranks, on x of x_dtype into out of
+// out_dtype (octo::Dtype: kF32 or kBF16 each; w is f32).  A plan this file
+// cannot run (a tile out of range or of the wrong variant for M, C outside
+// 1..8 or not 1 for tf32x3, a grid past its limits, an unknown dtype) is
+// refused with cudaErrorInvalidValue and launches nothing.
 extern "C" int mm_fused_launch(const void* xp, const void* wp, void* outp, int m, int k, int n,
-                               int act, int tile, int split, void* stream) {
-  const float* x = static_cast<const float*>(xp);
+                               int act, int tile, int split, int x_dtype, int out_dtype,
+                               void* stream) {
   const float* w = static_cast<const float*>(wp);
-  float* out = static_cast<float*>(outp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool skinny = tile == 0 || tile == 1;
+  const bool dtypes = (x_dtype == octo::kF32 || x_dtype == octo::kBF16) &&
+                      (out_dtype == octo::kF32 || out_dtype == octo::kBF16);
   if (m <= 0 || n <= 0 || k < 0 || tile < 0 || tile > 4 || skinny != (m <= kSkinnyRows) ||
-      split < 1 || split > (skinny ? kMaxCluster : 1) || (m + 31) / 32 > 65535)
+      split < 1 || split > (skinny ? kMaxCluster : 1) || (m + 31) / 32 > 65535 || !dtypes)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (skinny) {
-    const bool vec = n % 4 == 0 && octo::aligned(w, 16);
-    if (tile == 0)
-      err = vec ? launch_skinny<64, true>(x, w, out, m, k, n, act, split, s)
-                : launch_skinny<64, false>(x, w, out, m, k, n, act, split, s);
-    else
-      err = vec ? launch_skinny<128, true>(x, w, out, m, k, n, act, split, s)
-                : launch_skinny<128, false>(x, w, out, m, k, n, act, split, s);
-  } else {
-    const bool vec_x = k % 4 == 0 && octo::aligned(x, 16);
-    const bool vec_w = n % 4 == 0 && octo::aligned(w, 16);
-    err = octo::with_tile(tile - 2, [&](auto t) {
-      return octo::with_copies(vec_x, vec_w, [&](auto c) {
-        return launch_tf32x3<decltype(t), decltype(c)>(x, w, out, m, k, n, act, s);
-      });
-    });
-  }
+  using bf16 = __nv_bfloat16;
+  cudaError_t err;
+  if (x_dtype == octo::kF32)
+    err = out_dtype == octo::kF32
+              ? launch_plan<float, float>(xp, w, outp, m, k, n, act, tile, split, s)
+              : launch_plan<float, bf16>(xp, w, outp, m, k, n, act, tile, split, s);
+  else
+    err = out_dtype == octo::kF32
+              ? launch_plan<octo::bf16_bits, float>(xp, w, outp, m, k, n, act, tile, split, s)
+              : launch_plan<octo::bf16_bits, bf16>(xp, w, outp, m, k, n, act, tile, split, s);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }

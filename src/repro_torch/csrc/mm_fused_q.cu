@@ -198,7 +198,7 @@ extern "C" int mm_fused_q_launch(const void* xp, const void* wp, float scale_x,
   const bool vec_x = k % 4 == 0 && octo::aligned(x, 16);
   const bool vec_w = n % 4 == 0 && octo::aligned(w, 16);
   const cudaError_t err = with_q_tile(tile, [&](auto t) {
-    return octo::with_copies(vec_x, vec_w, [&](auto c) {
+    return octo::with_copies(vec_x ? 16 : 4, vec_w, [&](auto c) {
       return launch_q<decltype(t), decltype(c)>(x, w, scale_x, sw, o, m, k, n, act, s);
     });
   });

@@ -156,7 +156,7 @@ extern "C" int mm_unfused_partials_launch(const void* xp, const void* wp, void* 
   const bool vec_x = k % 4 == 0 && bk % 4 == 0 && octo::aligned(x, 16);
   const bool vec_w = n % 4 == 0 && octo::aligned(w, 16);
   const cudaError_t err = octo::with_tile(tile, [&](auto t) {
-    return octo::with_copies(vec_x, vec_w, [&](auto c) {
+    return octo::with_copies(vec_x ? 16 : 4, vec_w, [&](auto c) {
       return launch_partials<decltype(t), decltype(c)>(x, w, p, m, k, n, bk, s);
     });
   });

@@ -4,7 +4,8 @@
 
 (M, K) @ (K, N) with the accumulator carried across K blocks and the
 activation applied once, in the epilogue (the paper's fused collaborative
-aggregation): in f32, or on int8 codes with an int32 accumulator and a
+aggregation): in f32 (x f32 or bf16, w f32, the output rounded once to
+``out_dtype``), or on int8 codes with an int32 accumulator and a
 per-channel dequant (the paper's fixed-point AryPE).  The unfused form is the
 paper's "wo/ collaborating" ablation: every K block's f32 partial product is
 written to memory and the partials are summed in a second pass.
@@ -17,9 +18,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.common.util import ACTIVATIONS, apply_activation, ceil_div
+from repro_torch.common.util import ACTIVATIONS, DTYPES, apply_activation, ceil_div
 from repro_torch.kernels.build import CudaKernel, check_cuda, stream_of
-from repro_torch.kernels.vpe_smallmm.ops import check_matmul_operands, check_quant_args, scale_row
+from repro_torch.kernels.vpe_smallmm.ops import (
+    check_matmul_operands,
+    check_matmul_shapes,
+    check_quant_args,
+    mixed_out_dtype,
+    scale_row,
+)
 from repro_torch.kernels.vpe_smallmm.ops import vpe_mm_q as mm_fused_q  # one exact int8 twin
 
 # the reference kernels' K block (``_pick_blocks`` gives 128 whatever K), so an
@@ -27,14 +34,17 @@ from repro_torch.kernels.vpe_smallmm.ops import vpe_mm_q as mm_fused_q  # one ex
 BLOCK_K = 128
 
 
-def mm_fused(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none") -> torch.Tensor:
+def mm_fused(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
+             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain twin of the kernel: one f32 accumulator summed over K blocks of
-    the reference's depth, then the activation."""
+    the reference's depth on ``x.float()``, the activation, then one rounding
+    to ``out_dtype`` (x's dtype by default, as the reference's
+    ``out_dtype or x.dtype``)."""
     m, k = x.shape
     acc = torch.zeros((m, w.shape[1]), dtype=torch.float32, device=x.device)
     for k0 in range(0, k, BLOCK_K):
         acc += x[:, k0:k0 + BLOCK_K].float() @ w[k0:k0 + BLOCK_K].float()
-    return apply_activation(acc, activation)
+    return apply_activation(acc, activation).to(out_dtype or x.dtype)
 
 
 # the tiles of csrc/mm_fused.cu, (variant, rows, columns) a CTA, in the order
@@ -175,30 +185,35 @@ def card_plan(device: torch.device, m: int, k: int, n: int) -> MmFusedPlan:
     return mm_fused_plan(m, k, n, sms=sm_count(device))
 
 
-MM_FUSED = CudaKernel("mm_fused_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+MM_FUSED = CudaKernel("mm_fused_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                       + [ctypes.c_void_p])
 
 
-def arype_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none") -> torch.Tensor:
-    """(M, K) @ (K, N) -> (M, N) f32 on the AryPE engine.  On CPU tensors this
-    is the plain :func:`mm_fused`; on CUDA tensors one launch of the kernel
-    variant :func:`mm_fused_plan` picks, which masks ragged M/N/K edges itself
-    (no padding)."""
+def arype_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(M, K) @ (K, N) -> (M, N) on the AryPE engine: x f32 or bf16, w f32,
+    the sum and the activation in f32, the output ``out_dtype`` (x's by
+    default).  On CPU tensors this is the plain :func:`mm_fused`; on CUDA
+    tensors one launch of the kernel variant :func:`mm_fused_plan` picks, on
+    the tensors as they are (no cast around it), which masks ragged M/N/K
+    edges itself (no padding)."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {tuple(ACTIVATIONS)}, got {activation!r}")
+    out_dtype = mixed_out_dtype("arype_matmul", x, w, out_dtype)
     if x.device.type == "cpu":
-        return mm_fused(x, w, activation=activation)
+        return mm_fused(x, w, activation=activation, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"arype_matmul: no kernel for {x.device}")
-    check_matmul_operands("arype_matmul", x, w)
+    check_matmul_shapes("arype_matmul", x, w)
     (m, k), n = x.shape, w.shape[1]
     plan = card_plan(x.device, m, k, n)
     if plan.grid(m, n)[1] > GRID_Y_MAX:
         raise ValueError(f"arype_matmul: M={m} exceeds the kernel's grid")
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m * n:
         MM_FUSED(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-                 ACTIVATIONS[activation], plan.tile, plan.split, stream_of(x))
+                 ACTIVATIONS[activation], plan.tile, plan.split, DTYPES[x.dtype],
+                 DTYPES[out_dtype], stream_of(x))
     return out
 
 

@@ -2,60 +2,88 @@
 and the wrappers of the CUDA kernels ``csrc/vpe_mm.cu`` / ``csrc/vpe_mm_q.cu``.
 
 Small or skinny (M, K) @ (K, N) products (K*N small) as a broadcast-multiply
-and a reduce over K, with a fused activation: in f32, or on int8 codes with
-an int32 sum and a per-channel dequant (the paper's fixed-point SIMDU).
+and a reduce over K, with a fused activation: in f32 (x f32 or bf16, w f32,
+the output rounded once to ``out_dtype``), or on int8 codes with an int32 sum
+and a per-channel dequant (the paper's fixed-point SIMDU).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.common.util import ACTIVATIONS, apply_activation
+from repro_torch.common.util import ACTIVATIONS, BF16_ROADMAP, DTYPES, apply_activation
 from repro_torch.kernels.build import CudaKernel, check_cuda, stream_of
 from repro_torch.runtime.quant import I32_MAX_K, dequant_row, quantize_i8
 
 
-def vpe_mm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none") -> torch.Tensor:
-    """Plain twin of the kernel: broadcast-multiply, then sum over K."""
+def vpe_mm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain twin of the kernel: broadcast-multiply in f32, sum over K, the
+    activation, then one rounding to ``out_dtype`` (x's dtype by default)."""
     out = (x[:, :, None].float() * w[None, :, :].float()).sum(dim=1)
-    return apply_activation(out, activation)
+    return apply_activation(out, activation).to(out_dtype or x.dtype)
 
 
-VPE_MM = CudaKernel("vpe_mm_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+VPE_MM = CudaKernel("vpe_mm_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
 
 
-def check_matmul_operands(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
-    """What both engine kernels take: 2-D contiguous f32 on one CUDA device,
-    with sizes that fit their int arguments."""
+def check_matmul_shapes(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    """What every engine kernel takes: 2-D contiguous operands on one CUDA
+    device, with sizes that fit their int arguments."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"{name}: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise ValueError(f"{name}: needs float32, got {x.dtype} @ {w.dtype}")
     if max(x.numel(), w.numel()) >= 2**31:
         raise ValueError(f"{name}: operands too large for the kernel's int sizes")
     check_cuda(name, x, w)
 
 
-def vpe_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none") -> torch.Tensor:
-    """(M, K) @ (K, N) -> (M, N) f32 on the VPE engine.  On CPU tensors this is
-    the plain :func:`vpe_mm`; on CUDA tensors it launches the kernel, which
-    masks the ragged M edge itself (no padding)."""
+def check_matmul_operands(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    """What the int8 engines and the unfused partials take: f32 operands of
+    :func:`check_matmul_shapes`."""
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError(f"{name}: needs float32, got {x.dtype} @ {w.dtype} (other "
+                         f"types of this engine are not ported: {BF16_ROADMAP})")
+    check_matmul_shapes(name, x, w)
+
+
+def mixed_out_dtype(name: str, x: torch.Tensor, w: torch.Tensor,
+                    out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The output type of an f32 engine matmul, x's by default, refusing on
+    any device what its kernels do not run: x f32 or bf16, w f32, the
+    output f32 or bf16 (the bf16 x bf16 arm is :data:`BF16_ROADMAP`)."""
+    out_dtype = out_dtype or x.dtype
+    if x.dtype not in DTYPES or w.dtype != torch.float32 or out_dtype not in DTYPES:
+        raise ValueError(f"{name}: runs float32 or bfloat16 x on float32 w into float32 or "
+                         f"bfloat16, got {x.dtype} @ {w.dtype} -> {out_dtype} (other types "
+                         f"are not ported: {BF16_ROADMAP})")
+    return out_dtype
+
+
+def vpe_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(M, K) @ (K, N) -> (M, N) on the VPE engine: x f32 or bf16, w f32, the
+    sum and the activation in f32, the output ``out_dtype`` (x's by
+    default).  On CPU tensors this is the plain :func:`vpe_mm`; on CUDA
+    tensors it launches the kernel on the tensors as they are (no cast
+    around it), which masks the ragged M edge itself (no padding)."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {tuple(ACTIVATIONS)}, got {activation!r}")
+    out_dtype = mixed_out_dtype("vpe_matmul", x, w, out_dtype)
     if x.device.type == "cpu":
-        return vpe_mm(x, w, activation=activation)
+        return vpe_mm(x, w, activation=activation, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"vpe_matmul: no kernel for {x.device}")
-    check_matmul_operands("vpe_matmul", x, w)
+    check_matmul_shapes("vpe_matmul", x, w)
     (m, k), n = x.shape, w.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m * n:
         VPE_MM(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-               ACTIVATIONS[activation], stream_of(x))
+               ACTIVATIONS[activation], DTYPES[x.dtype], DTYPES[out_dtype], stream_of(x))
     return out
 
 

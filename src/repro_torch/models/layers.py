@@ -7,9 +7,13 @@ Every projection goes through the Octopus router (``core/router.matmul``),
 which places it on the VPE or the AryPE engine.  The reference keeps the
 QKV/O projections on XLA's dot even when its kernels are on; the port has no
 such arm, so on the card they run the engine kernels like every other matmul.
+Each routed matmul returns the layer input's dtype (``out_dtype=x.dtype``, as
+the reference passes): bf16 under bf16 compute, summed in f32 on f32 weights
+and rounded once.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -146,11 +150,11 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
     training); ``kind`` causal|local|full, ``mode`` train|prefill|decode.
     Returns (x + attention, the cache)."""
     b, s, _ = x.shape
-    config = RuntimeConfig.from_arch(cfg)
+    mm = functools.partial(router.matmul, out_dtype=x.dtype, config=RuntimeConfig.from_arch(cfg))
     h = rms_norm(x, p["ln"])
-    q = router.matmul(h, p["wq"], config=config).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = router.matmul(h, p["wk"], config=config).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = router.matmul(h, p["wv"], config=config).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = mm(h, p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = mm(h, p["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = mm(h, p["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     if cfg.use_qk_norm:
         q, k = rms_norm(q, p["q_norm"]), rms_norm(k, p["k_norm"])
     base = torch.zeros(b, dtype=torch.int32, device=x.device) if lengths is None else lengths
@@ -168,7 +172,7 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
             out = attention_core(q, k, v, kind=attn_kind, window=cfg.window_size)
         else:
             out = attention_decode(q, cache, lengths, kind=attn_kind, window=cfg.window_size)
-    out = router.matmul(out.reshape(b, s, cfg.q_dim), p["wo"], config=config)
+    out = mm(out.reshape(b, s, cfg.q_dim), p["wo"])
     return x + out, (cache if mode != "train" else None)
 
 
@@ -190,11 +194,11 @@ def mlp_specs(cfg: ArchConfig) -> dict:
 
 def mlp_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """x + SwiGLU MLP (gelu MLP when not gated), every matmul routed."""
-    config = RuntimeConfig.from_arch(cfg)
+    mm = functools.partial(router.matmul, out_dtype=x.dtype, config=RuntimeConfig.from_arch(cfg))
     h = rms_norm(x, p["ln"])
     if cfg.mlp_gated:
-        gate = router.matmul(h, p["wi_gate"], activation="silu", config=config)
-        up = router.matmul(h, p["wi_up"], config=config)
-        return x + router.matmul(gate * up, p["wo"], config=config)
-    up = router.matmul(h, p["wi_up"], activation="gelu", config=config)
-    return x + router.matmul(up, p["wo"], config=config)
+        gate = mm(h, p["wi_gate"], activation="silu")
+        up = mm(h, p["wi_up"])
+        return x + mm(gate * up, p["wo"])
+    up = mm(h, p["wi_up"], activation="gelu")
+    return x + mm(up, p["wo"])

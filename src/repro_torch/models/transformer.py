@@ -4,8 +4,10 @@ with forward, prefill and decode entry points.
 
 The superblocks' parameters and caches stay stacked on a leading axis, as the
 reference lays them out for its ``lax.scan``; the port loops over them.  This
-slice runs attention (``attn``, ``attn_local``) and the dense MLP in f32
-compute; what it does not run raises ``NotImplementedError``.
+slice runs attention (``attn``, ``attn_local``) and the dense MLP on f32
+weights in f32 or bf16 compute (the registered configs' default: bf16
+activations, each routed matmul summed in f32 and rounded once); what it does
+not run raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.common.util import Device, resolve_device
+from repro_torch.common.util import BF16_ROADMAP, Device, resolve_device
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core import router
 from repro_torch.models import spec as pspec
@@ -46,11 +48,13 @@ def check_supported(cfg: ArchConfig) -> None:
                                       "(MoE and shared MLPs come with a later slice)")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} frontend is not ported")
-    if cfg.compute_dtype != "float32":
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise NotImplementedError(f"{cfg.name}: compute_dtype {cfg.compute_dtype!r} is not "
+                                  "ported (float32 and bfloat16 are)")
+    if cfg.param_dtype != "float32":
         raise NotImplementedError(
-            f"{cfg.name}: compute_dtype {cfg.compute_dtype!r} is not ported: the engine "
-            "kernels take float32 only (bf16 engine kernels come with a later slice); "
-            "use cfg.replace(compute_dtype='float32')")
+            f"{cfg.name}: param_dtype {cfg.param_dtype!r} is not ported: the engine kernels "
+            f"take float32 weights only (the bf16 x bf16 arm is {BF16_ROADMAP})")
     if cfg.attn_logit_softcap != 0:
         raise NotImplementedError(f"{cfg.name}: attn_logit_softcap is not ported")
 
@@ -150,16 +154,20 @@ def _layers(params: dict, cfg: ArchConfig, h: torch.Tensor, *, mode: str,
 
 
 def _embed_input(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """The embedding rows in the compute dtype.  The reference scales them by
+    a numpy f32 scalar, which JAX types strongly: a bf16 row times it is
+    f32, so under ``embed_scale`` (gemma3) the stack runs in f32 after one
+    bf16 rounding of the embedding, and the port does the same."""
     h = params["embed"][batch["tokens"].long()].to(getattr(torch, cfg.compute_dtype))
     if cfg.embed_scale:
-        h = h * float(np.float32(np.sqrt(cfg.d_model)))
+        h = h.float() * float(np.float32(np.sqrt(cfg.d_model)))
     return h
 
 
 def _logits(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"])
-    logits = router.matmul(h, params["lm_head"], config=RuntimeConfig.from_arch(cfg),
-                           name="lm_head")
+    logits = router.matmul(h, params["lm_head"], out_dtype=torch.float32,
+                           config=RuntimeConfig.from_arch(cfg), name="lm_head")
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)

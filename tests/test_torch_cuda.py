@@ -108,6 +108,91 @@ def test_mm_fused_rows_do_not_depend_on_m(cuda, k, n, rows):
         assert torch.equal(arype_matmul(part, w), out[s * rows:(s + 1) * rows]), s
 
 
+# the mixed arm (bf16 x, f32 w): the LM's shapes, ragged N and odd K on both
+# variants, and K 6 (rows of 12 bytes: 4-byte copies) on the tf32x3 one
+MIXED_SHAPES = MM_FUSED_SHAPES + [(3, 7, 9), (33, 301, 65), (40, 6, 130), (129, 5, 7)]
+OUTS = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _bf16(gen, *shape):
+    return torch.randn(*shape, generator=gen).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k,n", MIXED_SHAPES)
+@pytest.mark.parametrize("act", ["none", "relu", "silu", "gelu"])
+@pytest.mark.parametrize("out", list(OUTS))
+def test_mixed_arm_equals_the_f32_kernel_on_upcast_x(cuda, m, k, n, act, out):
+    """bf16 x on f32 w: one launch, bit for bit the f32 kernel on x.float()
+    rounded once to the output type (both variants: a bf16 value is a tf32
+    value with lo = 0), and within one bf16 step of the plain twin."""
+    gen = torch.Generator().manual_seed(m * 3 + k + n)
+    x, w = _bf16(gen, m, k).to(cuda), torch.randn(k, n, generator=gen).to(cuda)
+    before = kernels.launches()
+    got = arype_matmul(x, w, activation=act, out_dtype=OUTS[out])
+    after = kernels.launches()
+    assert after["mm_fused"] == before["mm_fused"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    assert got.dtype == OUTS[out]
+    assert torch.equal(got, arype_matmul(x.float(), w, activation=act).to(OUTS[out]))
+    ref = mm_fused(x, w, activation=act, out_dtype=OUTS[out]).float()
+    step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
+    if out == "f32":
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+    else:
+        assert ((got.float() - ref).abs() <= step + 1e-6 * ref.abs().max()).all()
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 1024), (37, 96, 65), (129, 300, 163), (9, 301, 7),
+                                   (1032, 1024, 1024)])
+@pytest.mark.parametrize("offset", [1, 2, "row"])
+def test_mixed_arm_takes_unaligned_views(cuda, m, k, n, offset):
+    """x a bf16 view one or two elements or one row into its storage: a base
+    only 2- or 4-byte aligned takes the synchronous or the 4-byte loads, and
+    the result still equals the f32 kernel on x.float() bit for bit."""
+    gen = torch.Generator().manual_seed(m + k * n)
+    start = k if offset == "row" else offset
+    x = _bf16(gen, (m + 1) * k + 2).to(cuda)[start:start + m * k].view(m, k)
+    w = torch.randn(k, n, generator=gen).to(cuda)
+    for out in OUTS.values():
+        assert torch.equal(arype_matmul(x, w, activation="silu", out_dtype=out),
+                           arype_matmul(x.float(), w, activation="silu").to(out))
+
+
+@pytest.mark.parametrize("k,n", LM_KN + [LM_HEAD[1:], (301, 163)])
+def test_mixed_arm_rows_do_not_depend_on_m(cuda, k, n):
+    """As the f32 arm: a 4-slot decode call's rows equal single-row calls."""
+    gen = torch.Generator().manual_seed(k + n)
+    x, w = _bf16(gen, 4, k).to(cuda), torch.randn(k, n, generator=gen).to(cuda)
+    out = arype_matmul(x, w)
+    for s in range(4):
+        assert torch.equal(arype_matmul(x[s:s + 1], w), out[s:s + 1]), s
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 2048), (1, 1024, 1024), (1, 2048, 1024),
+                                   (1, 1152, 256), (7, 16, 8), (1024, 6, 12), (33, 1, 2)])
+@pytest.mark.parametrize("act", ["none", "silu"])
+@pytest.mark.parametrize("out", list(OUTS))
+def test_vpe_mixed_arm_equals_the_f32_kernel_on_upcast_x(cuda, m, k, n, act, out):
+    """The VPE's mixed arm, at the one-row projections the router places
+    there (batch-1 decode of qwen3-0.6b and gemma3-1b) and the pipeline's
+    shapes: bit for bit the f32 kernel on x.float(), one launch."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    x, w = _bf16(gen, m, k).to(cuda), torch.randn(k, n, generator=gen).to(cuda)
+    before = kernels.launches()
+    got = vpe_matmul(x, w, activation=act, out_dtype=OUTS[out])
+    assert kernels.launches()["vpe_mm"] == before["vpe_mm"] + 1
+    assert torch.equal(got, vpe_matmul(x.float(), w, activation=act).to(OUTS[out]))
+
+
+def test_engines_refuse_bf16_weights_on_the_card(cuda):
+    x, w = torch.randn(4, 8, device=cuda), torch.randn(8, 3, device=cuda)
+    for engine in (arype_matmul, vpe_matmul):
+        with pytest.raises(ValueError, match="ROADMAP Queue 2 item 1"):
+            engine(x.bfloat16(), w.bfloat16())
+    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 1"):
+        arype_matmul_q(x.bfloat16(), w, scale_x=0.1, scale_w=0.1)
+
+
 # the int8 kernels' shapes: the pipelines', and ragged ones across the 32-row
 # tiles' edges (M 8/9/33, N 162/163) at K 5 and 300, which take 4-byte copies
 INT8_SHAPES = ([(1, 1, 1), (37, 5, 7), (1024, 6, 12), (1024, 12, 6), (1024, 6, 3), (1024, 3, 2),
@@ -291,6 +376,44 @@ def test_lm_serve_on_card_matches_cpu(cuda, arch, slots):
         counts = kernels.launches()
     assert tokens[0] == tokens[1]
     assert counts["flash_fwd"] == cfg.num_layers * eng.stats.prefills == cfg.num_layers * 3
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-1b"])
+@pytest.mark.parametrize("policy", ["collaborative", "arype_only"])
+def test_lm_bf16_serve_on_card_matches_single_requests(cuda, arch, policy):
+    """A reduced LM in bf16 compute served on the card: every request's
+    tokens equal its single-request run on the card, since each matmul is
+    placed alike at 1 and 2 slots here (arype_only: all on mm_fused; the
+    collaborative reduced shapes: decode and the head on the VPE, prefill's
+    wider ones on the tf32x3 variant) and no kernel's rows depend on M;
+    launches are one engine matmul a routed layer and one flash_fwd a layer a
+    prefill."""
+    cfg = reduced_config(get_config(arch)).replace(compute_dtype="bfloat16",
+                                                   router_policy=policy)
+    params = _to(LM(cfg, device="cpu").init(torch.Generator().manual_seed(0)), cuda)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, 20 + 3 * i) for i in range(3)]
+    model = LM(cfg, device=cuda)
+    singles = []
+    for pr in prompts:
+        eng = ServeEngine(cfg, params, ServeConfig(batch_slots=1, cache_len=64), device=cuda)
+        eng.submit(Request(rid=0, prompt=pr, max_new=6))
+        singles.append(eng.run_until_drained()[0].out_tokens)
+    eng = ServeEngine(cfg, params, ServeConfig(batch_slots=2, cache_len=64), device=cuda)
+    reqs = [Request(rid=i, prompt=pr, max_new=6) for i, pr in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    kernels.reset_launches()
+    eng.run_until_drained()
+    counts = kernels.launches()
+    assert [r.out_tokens for r in reqs] == singles
+    assert counts["flash_fwd"] == cfg.num_layers * 3
+    assert counts["mm_fused"] + counts["vpe_mm"] == (7 * cfg.num_layers + 1) * (
+        3 + eng.stats.decode_steps)
+    if policy == "arype_only":
+        assert counts["vpe_mm"] == 0
+    logits, _ = model.forward(params, {"tokens": torch.as_tensor(prompts[0][None]).to(cuda)})
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
 
 
 def _to(tree, device):

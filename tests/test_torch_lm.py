@@ -143,12 +143,12 @@ def test_lm_refuses_what_this_slice_does_not_run():
                       (dict(block_pattern=(LayerSpec("attn_cross", "mlp"),)), "attn_cross"),
                       (dict(block_pattern=(LayerSpec("attn", "moe"),)), "moe"),
                       (dict(frontend="audio_frames"), "frontend"),
-                      (dict(compute_dtype="bfloat16"), "compute_dtype"),
+                      (dict(param_dtype="bfloat16"), "param_dtype"),
                       (dict(attn_logit_softcap=30.0), "softcap")):
         with pytest.raises(NotImplementedError, match=match):
             LM(base.replace(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        LM(get_config("qwen3-0.6b"), device="cpu")  # registered default: bf16 compute
+    cfg = get_config("qwen3-0.6b")  # registered default: bf16 compute on f32 weights
+    assert LM(cfg, device="cpu").cfg.compute_dtype == "bfloat16"
 
 
 def test_lm_and_engine_refuse_to_run_without_a_card_unless_asked():

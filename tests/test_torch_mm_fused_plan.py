@@ -14,7 +14,11 @@ steps of ``mma.sync``, each 32-deep K tile's sum promoted, the unfused
 partials' tiles starting at each block's first K, held to ``chip_smoke.py``'s
 unchanged tolerance against the plain twin; for int8, the code tiles in
 shared memory, the fragments each lane's registers hold and the int32 sum of
-every m16n8k32 product, held bit for bit to the plain twin.
+every m16n8k32 product, held bit for bit to the plain twin; for the
+bf16-activation (mixed) arm, a bf16 value's tf32 split (hi its bits, lo 0),
+its fragment reads against PTX's layout and the shared-memory banks, and the
+load width ``gemm_tiles.cuh:copy_width`` picks for odd K and unaligned
+views.
 """
 import importlib.util
 from pathlib import Path
@@ -419,6 +423,123 @@ def test_int8_tile_decomposition_equals_the_twin(m, k, n, tile, per_channel):
     want = vpe_mm_q(torch.from_numpy(x), torch.from_numpy(w), scale_x=sx, scale_w=sw).numpy()
     assert np.array_equal(got, want)
 
+
+
+# ------------------------------------------- the bf16-activation (mixed) arm
+
+
+def _bf16_values() -> np.ndarray:
+    """Every finite bf16 value, as f32."""
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    v = (bits << 16).view(np.float32)
+    return v[np.isfinite(v)]
+
+
+def test_bf16_values_are_tf32_values_with_lo_zero():
+    """The mixed arm's A fragment is a bf16's bits << 16: for every finite
+    bf16 value that is the f32 kernel's hi = rna_tf32(v), and its lo =
+    rna_tf32(v - hi) is 0, so the f32 kernel's lo*hi product adds exact
+    zeros and the two-product loop equals the three-product one on
+    x.float(), bit for bit."""
+    v = _bf16_values()
+    hi, lo = _split_tf32(v)
+    assert np.array_equal(hi.view(np.uint32), v.view(np.uint32))
+    assert not lo.any()
+    rng = np.random.default_rng(11)
+    for m, k, n in ((32, 96, 64), (16, 300, 24)):
+        x = rng.standard_normal((m, k)).astype(np.float32)
+        x = (x.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)  # bf16 values
+        w = rng.standard_normal((k, n)).astype(np.float32)
+        (xh, xl), (wh, wl) = _split_tf32(x), _split_tf32(w)
+        three = _mma_emulated(x, w, [(xl, wh), (xh, wl), (xh, wh)], promote=True)
+        two = _mma_emulated(x, w, [(xh, wl), (xh, wh)], promote=True)
+        assert np.array_equal(two, three)
+
+
+# gemm_tiles.cuh: a bf16 A tile's row stride (kAStrideBf16) and the CTA's threads
+BF16_A_STRIDE = KBK + 8
+TILE_THREADS = 128
+
+
+def test_bf16_a_fragment_reads_are_ptx_layout_and_free_of_bank_conflicts():
+    """tf32x3_sum's bf16 fragment: lane (gid, tig) reads rows gid and gid + 8,
+    columns tig and tig + 4 of the 80-byte rows, which is PTX's m16n8k8 .tf32
+    A layout (a0 (gid, tig), a1 (gid + 8, tig), a2 (gid, tig + 4), a3 (gid +
+    8, tig + 4)); each read's 32 lanes touch distinct banks or share a word."""
+    lane = np.arange(32)
+    gid, tig = lane // 4, lane % 4
+    reads = [(gid, tig), (gid + 8, tig), (gid, tig + 4), (gid + 8, tig + 4)]
+    ptx = [(gid + 8 * (e % 2), tig + 4 * (e // 2)) for e in range(4)]
+    for (r, c), (pr, pc) in zip(reads, ptx):
+        assert np.array_equal(r, pr) and np.array_equal(c, pc)
+        word = (r * BF16_A_STRIDE + c) * 2 // 4
+        for bank in range(32):
+            assert len(set(word[word % 32 == bank])) <= 1, bank
+
+
+def _copy_width(base: int, k: int, elem: int) -> int:
+    """gemm_tiles.cuh:copy_width: 16-byte copies where the row bytes and the
+    base are 16-byte aligned, else 4 where they are 4-byte aligned, else one
+    element (bf16's synchronous loads)."""
+    row = k * elem
+    if row % 16 == 0 and base % 16 == 0:
+        return 16
+    if row % 4 == 0 and base % 4 == 0:
+        return 4
+    return elem
+
+
+def _a_copies(k: int, k0: int, copy: int, elem: int = 2, bm: int = 32):
+    """load_tiles' copies of one bm x 32 A tile at K offset k0: (row, col,
+    elements, in range) for every thread and step, with a thread's column
+    fixed across its steps."""
+    per = copy // elem
+    across = KBK // per
+    rows_a_step = TILE_THREADS // across
+    out = []
+    for tid in range(TILE_THREADS):
+        r, c = tid // across, tid % across * per
+        for j in range(bm // rows_a_step):
+            out.append((r + j * rows_a_step, c, per, k0 + c < k))
+    return out
+
+
+# (k, base offset in bf16 elements): aligned, odd K, even K with a 4- but not
+# 16-byte row, and views one or two elements into their storage
+COPY_CASES = [(1024, 0), (300, 0), (301, 0), (5, 0), (1024, 1), (1024, 2), (6, 8), (128, 3)]
+
+
+@pytest.mark.parametrize("k,offset", COPY_CASES)
+def test_bf16_load_pick_keeps_every_copy_aligned_and_whole(k, offset):
+    """The pick of copy_width for a bf16 x: every copy of every A tile starts
+    on a multiple of its size in device memory (the row's start from the
+    view's base) and in the padded shared tile, lies all inside K or all
+    outside it (zero-filled), and the copies cover the tile once.  Odd K and
+    2-byte-aligned views take the synchronous 2-byte loads: any cp.async
+    there would split an element pair or start off its size."""
+    base = 256 + 2 * offset  # a storage allocation is 256-byte aligned
+    copy = _copy_width(base, k, 2)
+    if k % 2 or offset % 2:
+        assert copy == 2
+    elif k % 8 == 0 and offset % 8 == 0:
+        assert copy == 16
+    else:
+        assert copy == 4
+    for k0 in range(0, k, KBK):
+        copies = _a_copies(k, k0, copy)
+        covered = sorted((r, c + e) for r, c, n, _ in copies for e in range(n))
+        assert covered == [(r, c) for r in range(32) for c in range(KBK)]
+        for r, c, n, ok in copies:
+            assert (r * BF16_A_STRIDE + c) * 2 % copy == 0  # shared address
+            if ok:
+                assert (base + 2 * (r * k + k0 + c)) % copy == 0  # device address
+                assert k0 + c + n <= k  # all in
+    # wider copies would break one of those rules exactly where the pick refuses them
+    for wider in (16, 4):
+        if wider > copy:
+            bad = [(base + 2 * (r * k + c)) % wider or c + n > k
+                   for r, c, n, ok in _a_copies(k, 0, wider) if ok]
+            assert any(bad), wider
 
 if __name__ == "__main__":
     # the emulation's worst error at the LM's K, as a share of max|ref| and of
