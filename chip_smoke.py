@@ -91,9 +91,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  13. ``[lm bf16]``: qwen3-0.6b as registered (bf16 activations on the same
      f32 weights) serving the same requests: tokens equal, exactly, each
      request served alone at the same 4 slots, and its batch-1 greedy run
-     except counted near ties under ``bf16_logit_tol`` (batch 1 places the
+     except counted near ties under ``BF16_TIE_GAP`` (batch 1 places the
      one-row projections on the VPE); launches as in 11, times beside the
-     f32 run's; ``[lm bf16 card vs cpu]`` as 12 within ``bf16_logit_tol``;
+     f32 run's; ``[lm bf16 card vs cpu]`` as 12 within ``BF16_LOGIT_TOL``,
+     with the request in all 4 slots held to the batch-1 card run the same
+     way, and the f32-compute control's distance printed beside them;
  14. ``[lm gemma3-1b]``: gemma3-1b at full width as registered (head_dim 256,
      the 512-token window, vocab 262144; its embed_scale makes the stack f32)
      serving 4 requests, one past the window: tokens equal the single-request
@@ -167,16 +169,27 @@ GEMMA_SERVE = dict(batch_slots=4, cache_len=1024)
 GEMMA_PROMPTS, GEMMA_MAX_NEW = (700, 37, 256, 530), 16
 
 
-def bf16_logit_tol(cfg) -> float:
-    """LM logits in bf16 compute, two runs whose f32 sums differ in order
-    (card against CPU, or a batch-1 run whose one-row projections the router
-    places on the VPE against the 4-slot serve's mm_fused), as a share of
-    max|logit|: each of the stack's bf16 roundings (matmul outputs, norms,
-    rope, attention outputs, residual adds) can land one bf16 step (at most
-    2^-7 of the value) apart where the f32 value sits at a rounding boundary;
-    half a step of the largest logit for every layer (tests/test_torch_bf16.py
-    states the same bound).  qwen3-0.6b: 28 layers, 0.109."""
-    return cfg.num_layers * 2.0**-8
+# qwen3-0.6b's logits in bf16 compute (28 layers), as shares of max|logit|.
+# Two runs of the same bf16 stack whose f32 sums differ in order (the card
+# against the CPU; batch 1, whose one-row decode projections the router
+# places on the VPE, against 4 slots on mm_fused) round some values to the
+# other neighbouring bf16 value, and the layers carry those flips to the
+# logits.  ``[lm bf16 card vs cpu]`` prints the readings every run; on an
+# H100 (700 W) they were 1.783e-02 card against CPU and 1.497e-02 4 slots
+# against batch 1, and the limit sits above them.  Its control, the same
+# weights and tokens in f32 compute against the CPU's bf16 run, read
+# 1.832e-02: inside the sound spread, so at full depth this check sees only
+# faults larger than bf16's own noise.  The roundings themselves are held
+# by the kernels' bit-for-bit checks and, against the JAX reference, at
+# reduced depth (tests/test_torch_bf16.py), where the readings lie 5 orders
+# apart.
+BF16_LOGIT_TOL = 2.5e-2
+# A token of two sound bf16 runs may differ only where the reference run's
+# top two logits are closer than this share of max|logit|: the largest gap at
+# a differing token seen on an H100 was 1.457e-02 (a batch-1 run against the
+# serve), and logits that each move by the 4-slot reading can swap no pair
+# farther apart than twice it (2.99e-02).
+BF16_TIE_GAP = 2e-2
 # LM logits, card against CPU, as a share of max|logit|.  The f32 matmuls sum
 # in another order on each device (last bits, ~1e-6 of a value), and 28
 # layers carry that forward; decode then reads the bf16 KV cache, where a
@@ -1027,45 +1040,70 @@ def profile_serve(torch, serving, cfg, params, prompts, label: str = "") -> None
         log(f"  {e.self_device_time_total:11.1f} us  {e.count:6d} calls  {e.key[:90]}")
 
 
-def lm_card_vs_cpu(torch, lm_mod, cfg, params, rng, tol: float = LM_LOGIT_TOL) -> None:
-    """One request, batch 1: prefill of a ``LM_CPU_PROMPT``-token prompt and
-    ``LM_CPU_DECODES`` decode steps on the card and on the CPU (plain
-    twins), both fed the CPU's greedy tokens.  Logits within ``tol`` of
-    max|logit|; the two argmaxes equal except where the CPU's top two logits
-    are that close (counted)."""
-    cpu_params = _tree_to(params, "cpu")
-    models = (lm_mod.LM(cfg, device=CARD), lm_mod.LM(cfg, device="cpu"))
-    caches = [m.init_cache(1, LM_SERVE["cache_len"]) for m in models]
+def lm_card_vs_cpu(torch, lm_mod, cfg, params, rng, tol: float = LM_LOGIT_TOL,
+                   tie: float | None = None, control_cfg=None) -> None:
+    """One request: prefill of a ``LM_CPU_PROMPT``-token prompt and
+    ``LM_CPU_DECODES`` decode steps, every run fed the CPU's greedy tokens,
+    at batch 1 on the card and on the CPU (plain twins).  The card's logits
+    lie within ``tol`` of max|logit| of the CPU's, and its argmax equals the
+    CPU's except where the CPU's top two logits are closer than ``tie``
+    (``tol`` by default; counted).  With ``control_cfg`` (the f32-compute
+    config of a bf16 ``cfg``) two more runs on the card: the request in each
+    of ``LM_SERVE``'s slots, whose decode projections run on mm_fused where
+    batch 1 places them on the VPE, held to the batch-1 card run as the card
+    is to the CPU; and the control, the same weights and tokens in
+    ``control_cfg``, whose distance from the CPU's bf16 logits is printed
+    beside the others (see ``BF16_LOGIT_TOL``)."""
+    tie = tol if tie is None else tie
+    slots = LM_SERVE["batch_slots"]
+    runs = {"card": (lm_mod.LM(cfg, device=CARD), params, 1),
+            "cpu": (lm_mod.LM(cfg, device="cpu"), _tree_to(params, "cpu"), 1)}
+    if control_cfg is not None:
+        runs["slots"] = (lm_mod.LM(cfg, device=CARD), params, slots)
+        runs["control"] = (lm_mod.LM(control_cfg, device=CARD), params, 1)
+    caches = {name: m.init_cache(b, LM_SERVE["cache_len"]) for name, (m, _, b) in runs.items()}
+    # (run, the run it is held to): the largest distance a step
+    pairs = [("card", "cpu")] + ([("slots", "card"), ("control", "cpu")]
+                                 if control_cfg is not None else [])
+    worst, ties = dict.fromkeys(pairs, 0.0), 0
     tokens = rng.integers(0, cfg.vocab_size, (1, LM_CPU_PROMPT))
-    worst, ties = 0.0, 0
     for step in range(1 + LM_CPU_DECODES):
-        run = "prefill" if step == 0 else "decode_step"
-        out = []
-        for i, (m, p) in enumerate(zip(models, (params, cpu_params))):
-            logits, caches[i] = getattr(m, run)(p, {"tokens": torch.as_tensor(tokens).to(m.device)},
-                                                caches[i])
-            out.append(logits[0, -1, :cfg.vocab_size].float().cpu())
-        g, c = out
+        call = "prefill" if step == 0 else "decode_step"
+        out = {}
+        for name, (m, p, b) in runs.items():
+            batch = torch.as_tensor(tokens.repeat(b, axis=0)).to(m.device)
+            logits, caches[name] = getattr(m, call)(p, {"tokens": batch}, caches[name])
+            out[name] = logits[0, -1, :cfg.vocab_size].float().cpu()
+        g = out["card"]
         if not (torch.isfinite(g).all() and g.shape == (cfg.vocab_size,)):
-            raise AssertionError(f"{run} {step}: card logits not finite or of shape {g.shape}")
+            raise AssertionError(f"{call} {step}: card logits not finite or of shape {g.shape}")
+        dist = {}
+        for a, b in pairs:
+            scale = out[b].abs().max().item()
+            dist[a, b] = (out[a] - out[b]).abs().max().item() / scale
+            worst[a, b] = max(worst[a, b], dist[a, b])
+        c = out["cpu"]
         scale = c.abs().max().item()
-        rel = (g - c).abs().max().item() / scale
-        worst = max(worst, rel)
         top2 = c.topk(2).values
-        tie = (top2[0] - top2[1]).item() < tol * scale
-        if rel > tol:
-            raise AssertionError(f"{run} {step}: logits differ by {rel:.3e} of max|logit|")
-        if int(g.argmax()) != int(c.argmax()):
-            if not tie:
-                raise AssertionError(f"{run} {step}: tokens {int(g.argmax())} != {int(c.argmax())}")
-            ties += 1
-        log(f"  {run} {step}: max|card - cpu| {rel:.3e} of max|logit| ({scale:.4f}), token "
-            f"card {int(g.argmax())} cpu {int(c.argmax())}, cpu top-2 gap "
-            f"{(top2[0] - top2[1]).item() / scale:.3e}")
+        gap = (top2[0] - top2[1]).item() / scale
+        log(f"  {call} {step}: " + ", ".join(f"max|{a} - {b}| {d:.3e}" for (a, b), d in dist.items())
+            + f" of max|logit| ({scale:.4f}); token card {int(g.argmax())} cpu {int(c.argmax())}"
+            f", cpu top-2 gap {gap:.3e}")
+        for a, b in pairs[:2]:
+            if dist[a, b] > tol:
+                raise AssertionError(f"{call} {step}: {a} logits differ from {b} by "
+                                     f"{dist[a, b]:.3e} of max|logit|")
+        for a, b in pairs[:2]:
+            if int(out[a].argmax()) != int(out[b].argmax()):
+                top2 = out[b].topk(2).values
+                if (top2[0] - top2[1]).item() >= tie * out[b].abs().max().item():
+                    raise AssertionError(f"{call} {step}: {a} token {int(out[a].argmax())} != "
+                                         f"{b} {int(out[b].argmax())}")
+                ties += 1
         tokens = c.argmax().reshape(1, 1).numpy()
-    log(f"  worst {worst:.3e} of max|logit| (tolerance {tol:.3e}); tokens identical "
-        f"except {ties} near ties")
-    del cpu_params
+    log("  worst " + ", ".join(f"{a} vs {b} {w:.3e}" for (a, b), w in worst.items())
+        + f" of max|logit| (tolerance {tol:.3e}); tokens identical except {ties} near ties "
+        f"(top-2 gap under {tie:.3e})")
 
 
 def _leaves(tree):
@@ -1401,12 +1439,11 @@ def main() -> int:
     # -- 13. LM serving at the registered compute dtype: bf16 activations on
     # the same f32 weights, the config from get_config unmodified
     bf_cfg = get_config(LM_ARCH)
-    tol = bf16_logit_tol(bf_cfg)
     log(f"[lm bf16] {LM_ARCH} as registered (compute {bf_cfg.compute_dtype}, params "
         f"{bf_cfg.param_dtype}), the same weights, requests and ServeConfig; near ties under "
-        f"{tol:.4f} of max|logit| counted")
+        f"{BF16_TIE_GAP} of max|logit| counted")
     bf_counts, st16, singles, _ = serve_lm(torch, kernels, record_routes, lm_mod, serving, bf_cfg,
-                                           lm_params, prompts, near_tie=tol, alone=True)
+                                           lm_params, prompts, near_tie=BF16_TIE_GAP, alone=True)
     for label, a, b in (("prefill ms per admit", st32.prefill_s / st32.prefills,
                          st16.prefill_s / st16.prefills),
                         ("decode ms per step", st32.decode_s / st32.decode_steps,
@@ -1421,7 +1458,8 @@ def main() -> int:
         profile_serve(torch, serving, bf_cfg, lm_params, prompts[:4], " bf16")
     log(f"[lm bf16 card vs cpu] batch 1, a {LM_CPU_PROMPT}-token prompt, prefill + "
         f"{LM_CPU_DECODES} decode steps at full depth")
-    lm_card_vs_cpu(torch, lm_mod, bf_cfg, lm_params, lm_rng, tol=tol)
+    lm_card_vs_cpu(torch, lm_mod, bf_cfg, lm_params, lm_rng, tol=BF16_LOGIT_TOL,
+                   tie=BF16_TIE_GAP, control_cfg=lm_cfg)
     del lm_params
     torch.cuda.empty_cache()
 

@@ -336,30 +336,27 @@ struct Tile {
   static constexpr int kThreads = (BM / WM) * (BN / WN) * 32;
 };
 
-// f(Copies<kX, kW>{}): copies of kX bytes of x (16, 4, or 2 for bf16's
-// synchronous loads) and 16-byte copies of w where vec_w, else 4-byte ones.
+// f(Copies<kX, kW>{}): copies of kX bytes of x (16 or 4, or 2 for a bf16 x's
+// synchronous loads; copy_width picks it) and 16-byte copies of w where vec_w,
+// else 4-byte ones.
 template <int kX, int kW>
 struct Copies {
   static constexpr int X = kX, W = kW;
 };
 
-template <typename F>
+template <typename TA, typename F>
 cudaError_t with_copies(int copy_x, bool vec_w, F f) {
   switch (copy_x) {
     case 16:
       return vec_w ? f(Copies<16, 16>{}) : f(Copies<16, 4>{});
     case 4:
       return vec_w ? f(Copies<4, 16>{}) : f(Copies<4, 4>{});
+    case 2:
+      if constexpr (sizeof(TA) == 2) return vec_w ? f(Copies<2, 16>{}) : f(Copies<2, 4>{});
+      else return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-// with_copies for a bf16 x, which also takes the 2-byte synchronous loads.
-template <typename F>
-cudaError_t with_bf16_copies(int copy_x, bool vec_w, F f) {
-  if (copy_x == 2) return vec_w ? f(Copies<2, 16>{}) : f(Copies<2, 4>{});
-  return with_copies(copy_x, vec_w, f);
 }
 
 // The widest copy of an (M, K) operand of `elem`-byte elements at `p` that

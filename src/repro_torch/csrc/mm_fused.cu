@@ -274,8 +274,7 @@ cudaError_t launch_plan(const void* xp, const float* w, void* outp, int m, int k
     auto launch = [&](auto c) {
       return launch_tf32x3<decltype(t), decltype(c)>(x, w, out, m, k, n, act, s);
     };
-    if constexpr (sizeof(TA) == 2) return octo::with_bf16_copies(copy_x, vec_w, launch);
-    else return octo::with_copies(copy_x, vec_w, launch);
+    return octo::with_copies<TA>(copy_x, vec_w, launch);
   });
 }
 
@@ -284,9 +283,10 @@ cudaError_t launch_plan(const void* xp, const float* w, void* outp, int m, int k
 // One launch of the plan's tile, an index into kernels/arype_matmul/ops.py:
 // MM_FUSED_TILES (0-1 skinny, 8 rows by 64 or 128 columns; 2-4 tf32x3, 32 rows
 // by 128, 64 or 32), split over `split` K ranks, on x of x_dtype into out of
-// out_dtype (octo::Dtype: kF32 or kBF16 each; w is f32).  A plan this file
+// out_dtype (octo::Dtype: f32 x into f32, bf16 x into f32 or bf16; w is f32;
+// f32 x into bf16 runs on no path and is not built).  A plan this file
 // cannot run (a tile out of range or of the wrong variant for M, C outside
-// 1..8 or not 1 for tf32x3, a grid past its limits, an unknown dtype) is
+// 1..8 or not 1 for tf32x3, a grid past its limits, another dtype pair) is
 // refused with cudaErrorInvalidValue and launches nothing.
 extern "C" int mm_fused_launch(const void* xp, const void* wp, void* outp, int m, int k, int n,
                                int act, int tile, int split, int x_dtype, int out_dtype,
@@ -294,21 +294,19 @@ extern "C" int mm_fused_launch(const void* xp, const void* wp, void* outp, int m
   const float* w = static_cast<const float*>(wp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool skinny = tile == 0 || tile == 1;
-  const bool dtypes = (x_dtype == octo::kF32 || x_dtype == octo::kBF16) &&
-                      (out_dtype == octo::kF32 || out_dtype == octo::kBF16);
+  const bool dtypes = x_dtype == octo::kBF16 ? out_dtype == octo::kF32 || out_dtype == octo::kBF16
+                                             : x_dtype == octo::kF32 && out_dtype == octo::kF32;
   if (m <= 0 || n <= 0 || k < 0 || tile < 0 || tile > 4 || skinny != (m <= kSkinnyRows) ||
       split < 1 || split > (skinny ? kMaxCluster : 1) || (m + 31) / 32 > 65535 || !dtypes)
     return static_cast<int>(cudaErrorInvalidValue);
-  using bf16 = __nv_bfloat16;
   cudaError_t err;
   if (x_dtype == octo::kF32)
-    err = out_dtype == octo::kF32
-              ? launch_plan<float, float>(xp, w, outp, m, k, n, act, tile, split, s)
-              : launch_plan<float, bf16>(xp, w, outp, m, k, n, act, tile, split, s);
+    err = launch_plan<float, float>(xp, w, outp, m, k, n, act, tile, split, s);
   else
     err = out_dtype == octo::kF32
               ? launch_plan<octo::bf16_bits, float>(xp, w, outp, m, k, n, act, tile, split, s)
-              : launch_plan<octo::bf16_bits, bf16>(xp, w, outp, m, k, n, act, tile, split, s);
+              : launch_plan<octo::bf16_bits, __nv_bfloat16>(xp, w, outp, m, k, n, act, tile,
+                                                            split, s);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }

@@ -195,10 +195,10 @@ extern "C" int mm_fused_q_launch(const void* xp, const void* wp, float scale_x,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m <= 0 || n <= 0 || k < 0 || (m + 31) / 32 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec_x = k % 4 == 0 && octo::aligned(x, 16);
+  const int copy_x = octo::copy_width(x, k, sizeof(float));
   const bool vec_w = n % 4 == 0 && octo::aligned(w, 16);
   const cudaError_t err = with_q_tile(tile, [&](auto t) {
-    return octo::with_copies(vec_x ? 16 : 4, vec_w, [&](auto c) {
+    return octo::with_copies<float>(copy_x, vec_w, [&](auto c) {
       return launch_q<decltype(t), decltype(c)>(x, w, scale_x, sw, o, m, k, n, act, s);
     });
   });

@@ -153,10 +153,11 @@ extern "C" int mm_unfused_partials_launch(const void* xp, const void* wp, void* 
   if (m <= 0 || n <= 0 || k <= 0 || bk <= 0 || (m + 31) / 32 > 65535 ||
       (k - 1) / bk + 1 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec_x = k % 4 == 0 && bk % 4 == 0 && octo::aligned(x, 16);
+  // each K block's rows start bk floats in: 16-byte copies need bk % 4 == 0
+  const int copy_x = bk % 4 == 0 ? octo::copy_width(x, k, sizeof(float)) : 4;
   const bool vec_w = n % 4 == 0 && octo::aligned(w, 16);
   const cudaError_t err = octo::with_tile(tile, [&](auto t) {
-    return octo::with_copies(vec_x ? 16 : 4, vec_w, [&](auto c) {
+    return octo::with_copies<float>(copy_x, vec_w, [&](auto c) {
       return launch_partials<decltype(t), decltype(c)>(x, w, p, m, k, n, bk, s);
     });
   });

@@ -65,16 +65,15 @@ void launch(const void* x, const void* w, void* out, int m, int k, int n, int ac
 
 }  // namespace
 
-// x of x_dtype, out of out_dtype (octo::Dtype: kF32 or kBF16 each; w f32); an
-// unknown dtype is refused with cudaErrorInvalidValue and launches nothing.
+// x of x_dtype, out of out_dtype (octo::Dtype: f32 x into f32, bf16 x into f32
+// or bf16; w f32); another pair is refused with cudaErrorInvalidValue and
+// launches nothing.
 extern "C" int vpe_mm_launch(const void* x, const void* w, void* out, int m, int k, int n,
                              int act, int x_dtype, int out_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (x_dtype == octo::kF32 && out_dtype == octo::kF32)
     launch<float, float>(x, w, out, m, k, n, act, s);
-  else if (x_dtype == octo::kF32 && out_dtype == octo::kBF16)
-    launch<float, bf16>(x, w, out, m, k, n, act, s);
   else if (x_dtype == octo::kBF16 && out_dtype == octo::kF32)
     launch<octo::bf16_bits, float>(x, w, out, m, k, n, act, s);
   else if (x_dtype == octo::kBF16 && out_dtype == octo::kBF16)

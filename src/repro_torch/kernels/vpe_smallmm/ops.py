@@ -54,13 +54,15 @@ def check_matmul_operands(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
 def mixed_out_dtype(name: str, x: torch.Tensor, w: torch.Tensor,
                     out_dtype: Optional[torch.dtype]) -> torch.dtype:
     """The output type of an f32 engine matmul, x's by default, refusing on
-    any device what its kernels do not run: x f32 or bf16, w f32, the
-    output f32 or bf16 (the bf16 x bf16 arm is :data:`BF16_ROADMAP`)."""
+    any device what its kernels do not run: w f32, and f32 x into f32 or
+    bf16 x into f32 or bf16 (the bf16 x bf16 arm and f32 x into bf16, which
+    no path runs, are :data:`BF16_ROADMAP`)."""
     out_dtype = out_dtype or x.dtype
-    if x.dtype not in DTYPES or w.dtype != torch.float32 or out_dtype not in DTYPES:
-        raise ValueError(f"{name}: runs float32 or bfloat16 x on float32 w into float32 or "
-                         f"bfloat16, got {x.dtype} @ {w.dtype} -> {out_dtype} (other types "
-                         f"are not ported: {BF16_ROADMAP})")
+    if (x.dtype not in DTYPES or w.dtype != torch.float32 or out_dtype not in DTYPES
+            or (x.dtype, out_dtype) == (torch.float32, torch.bfloat16)):
+        raise ValueError(f"{name}: runs float32 x into float32 or bfloat16 x into float32 or "
+                         f"bfloat16, on float32 w; got {x.dtype} @ {w.dtype} -> {out_dtype} "
+                         f"(other types are not ported: {BF16_ROADMAP})")
     return out_dtype
 
 

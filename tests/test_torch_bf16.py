@@ -16,7 +16,7 @@ with the option on, and agree with the port (and with the reference run
 eagerly, ``jax.disable_jit``) within 1.2e-7 with it off.  The port rounds
 wherever the reference's source does.
 
-Tolerances, fixed before the comparisons were first run:
+Tolerances (none widened after a comparison ran):
 
 * Engine twins against Pallas, on the same bf16 x and f32 w.  f32 out: rtol
   1e-5, atol 1e-5 * max|ref| (only the order of the f32 sums and the
@@ -26,20 +26,23 @@ Tolerances, fixed before the comparisons were first run:
   round an f32 value once, and those values differ only where the f32 sums
   or the activation differ, which can move one across a rounding boundary.
   The share of elements that differ is reported (``record_property``).
-* LM logits, bf16 stack (qwen3): ``num_layers * 2^-8`` of max|logit|.  Each
-  routed matmul, norm, rope, attention output and residual add rounds to
-  bf16, and the two sides compute the same f32 value up to the order of its
-  sums; where that value sits at a rounding boundary one side is a bf16 step
-  (at most 2^-7 of the value) away.  Half a step of the largest logit for
-  every layer that can carry such a flip to the head bounds the divergence
-  (reduced qwen3: 2 layers, 2^-7).
+* LM logits, bf16 stack (qwen3): ``BF16_LOGIT_TOL`` = 1e-4 of max|logit|,
+  set between two readings of this file's model test on reduced qwen3
+  (both policies), which records them (``record_property``): the port
+  against the reference, at most 1.2e-7 (prefill, decode, forward); and the
+  control, the port in f32 compute, which skips every bf16 rounding
+  (1.06e-2 and 1.10e-2 on the forward; the jitted reference with excess
+  precision on moves as far, above).  The test fails if the control comes
+  within the limit.
 * LM logits, f32 stack (gemma3: ``embed_scale`` promotes the bf16 embedding
   to f32, so only the embedding's rounding is bf16, the same on both sides):
   the f32 tolerances of ``test_torch_lm.py``, rtol 1e-5, and 2e-3 of
   max|logit| for decode from each side's own bf16 KV cache.
 * Engine scenarios: the reference engine's tokens, except where the
-  reference's top two logits at the first token that differs are within the
-  logit tolerance; such near ties are counted and reported.
+  reference's top two logits at the first token that differs are closer
+  than ``TIE_GAP`` = 2 * ``BF16_LOGIT_TOL`` of max|logit| (logits that each
+  move by at most the limit can swap only so close a pair); such near ties
+  are counted and reported.
 """
 import functools
 
@@ -82,9 +85,8 @@ def exact_jit(fn, **kw):
     return jax.jit(fn, compiler_options=EXACT, **kw)
 
 
-def logit_tol(cfg) -> float:
-    """Share of max|logit| the port's logits may differ by (see above)."""
-    return cfg.num_layers * 2.0**-8
+BF16_LOGIT_TOL = 1e-4  # share of max|logit|, bf16 stack (see above)
+TIE_GAP = 2 * BF16_LOGIT_TOL
 
 
 def bf16_step(v: np.ndarray) -> np.ndarray:
@@ -160,7 +162,8 @@ def test_engines_refuse_what_they_do_not_run():
     x, w = torch.zeros(4, 3), torch.zeros(3, 2)
     for engine in (arype_matmul, vpe_matmul):
         for xx, ww, od in ((x.half(), w, None), (x, w.bfloat16(), None),
-                           (x.bfloat16(), w.bfloat16(), None), (x, w, torch.float16)):
+                           (x.bfloat16(), w.bfloat16(), None), (x, w, torch.float16),
+                           (x, w, torch.bfloat16)):
             with pytest.raises(ValueError, match="ROADMAP Queue 2 item 1"):
                 engine(xx, ww, out_dtype=od)
 
@@ -274,37 +277,51 @@ def models(request):
         to_np(jp), device="cpu")
 
 
-def _close(got: torch.Tensor, want, tol: float) -> None:
+def _dist(got: torch.Tensor, want) -> float:
+    """max|got - want| as a share of max|want|."""
     want = np.asarray(want, np.float32)
-    got = got.float().numpy()
-    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * np.abs(want).max())
+    return float(np.abs(got.float().numpy() - want).max() / np.abs(want).max())
 
 
-def test_prefill_decode_and_forward_match_the_reference(models):
+def _close(got: torch.Tensor, want, tol: float) -> float:
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                               atol=tol * np.abs(want).max())
+    return _dist(got, want)
+
+
+def test_prefill_decode_and_forward_match_the_reference(models, record_property):
     jcfg, jm, jp, cfg, m, p = models
     bf16_stack = not cfg.embed_scale
-    tol = logit_tol(cfg) if bf16_stack else F32_RTOL
-    own = logit_tol(cfg) if bf16_stack else OWN_CACHE_TOL
+    tol = BF16_LOGIT_TOL if bf16_stack else F32_RTOL
+    own = BF16_LOGIT_TOL if bf16_stack else OWN_CACHE_TOL
     rng = np.random.default_rng(1)
     toks = rng.integers(0, cfg.vocab_size, (2, 21))  # past gemma3's reduced window of 16
     jtoks = {"tokens": jnp.asarray(toks, jnp.int32)}
     jl, jc = exact_jit(jm.prefill)(jp, jtoks, jm.init_cache(2, 32))
     pl, pc = m.prefill(p, {"tokens": torch.from_numpy(toks)}, m.init_cache(2, 32))
     assert pl.dtype == torch.float32 and pl.shape == (2, 1, cfg.padded_vocab)
-    _close(pl, jl, tol)
+    seen = [_close(pl, jl, tol)]
     nxt = np.array(jnp.argmax(jl[:, -1, :cfg.vocab_size], axis=-1))[:, None]
     jl2, _ = exact_jit(jm.decode_step)(jp, {"tokens": jnp.asarray(nxt, jnp.int32)}, jc)
     # from the reference's own cache: identical inputs
     pl2, _ = m.decode_step(p, {"tokens": torch.from_numpy(nxt)},
                            convert.lm_cache_from_numpy(to_np(jc), device="cpu"))
-    _close(pl2, jl2, tol)
+    seen.append(_close(pl2, jl2, tol))
     # from the port's own cache
     pl3, _ = m.decode_step(p, {"tokens": torch.from_numpy(nxt)}, pc)
-    _close(pl3, jl2, own)
+    seen.append(_close(pl3, jl2, own))
     jf, _ = exact_jit(jm.forward)(jp, jtoks)
     pf, _ = m.forward(p, {"tokens": torch.from_numpy(toks)})
     assert pf.dtype == torch.float32
-    _close(pf, jf, tol)
+    seen.append(_close(pf, jf, tol))
+    record_property("worst_share_of_max_logit", max(seen))
+    if bf16_stack:
+        # the control: the same weights in f32 compute lie beyond the limit
+        control, _ = LM(cfg.replace(compute_dtype="float32"), device="cpu").forward(
+            p, {"tokens": torch.from_numpy(toks)})
+        record_property("control_f32_compute", _dist(control, jf))
+        assert _dist(control, jf) > tol
 
 
 def test_hidden_state_dtype_follows_the_reference(models, monkeypatch):
@@ -355,13 +372,13 @@ def _exact_forward(jm):
 
 def _near_tie(qwen, prompt, ref_tokens, t: int) -> bool:
     """Whether the reference's top two logits for token ``t`` of a request
-    (after its prompt and first ``t`` tokens) are within the tolerance."""
+    (after its prompt and first ``t`` tokens) are closer than ``TIE_GAP``."""
     jcfg, jm, jp, cfg, _ = qwen
     seq = np.concatenate([prompt, np.asarray(ref_tokens[:t], prompt.dtype)])[None]
     logits = np.asarray(_exact_forward(jm)(jp, {"tokens": jnp.asarray(seq, jnp.int32)})[0])
     last = logits[-1, :cfg.vocab_size]
     top2 = np.sort(last)[-2:]
-    return top2[1] - top2[0] < logit_tol(cfg) * np.abs(last).max()
+    return top2[1] - top2[0] < TIE_GAP * np.abs(last).max()
 
 
 def serve_both(qwen, prompts, max_new, record_property, eos_id=-1, **sc):

@@ -16,10 +16,13 @@ from repro_torch.core import flow_tracker as ft
 from repro_torch.core.collaborative import collaborative_forward, plan_stack, usecase2_layers
 from repro_torch.core.feature_extractor import packet_meta_features
 from repro_torch.data.traffic import TrafficConfig, TrafficGenerator
+from repro_torch.common.util import DTYPES
 from repro_torch.kernels.arype_matmul.ops import (
+    MM_FUSED,
     arype_matmul,
     arype_matmul_q,
     arype_matmul_unfused,
+    card_plan,
     mm_fused,
     mm_fused_q,
     mm_unfused,
@@ -30,7 +33,8 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_attention.ops import valid_pairs
 from repro_torch.kernels.flow_features import ops as ff
-from repro_torch.kernels.vpe_smallmm.ops import vpe_matmul, vpe_matmul_q, vpe_mm, vpe_mm_q
+from repro_torch.kernels.build import stream_of
+from repro_torch.kernels.vpe_smallmm.ops import VPE_MM, vpe_matmul, vpe_matmul_q, vpe_mm, vpe_mm_q
 from repro_torch.launch.calibrate import calibrate_quant_scales
 from repro_torch.models.paper_models import init_paper_model
 from repro_torch.runtime import RuntimeConfig, record_routes
@@ -189,6 +193,17 @@ def test_engines_refuse_bf16_weights_on_the_card(cuda):
     for engine in (arype_matmul, vpe_matmul):
         with pytest.raises(ValueError, match="ROADMAP Queue 2 item 1"):
             engine(x.bfloat16(), w.bfloat16())
+        with pytest.raises(ValueError, match="ROADMAP Queue 2 item 1"):
+            engine(x, w, out_dtype=torch.bfloat16)
+    # the launchers themselves refuse f32 x into bf16 (not built): no launch
+    out = torch.empty(4, 3, dtype=torch.bfloat16, device=cuda)
+    plan = card_plan(x.device, 4, 8, 3)
+    before = kernels.launches()
+    for kernel, args in ((MM_FUSED, (0, plan.tile, plan.split)), (VPE_MM, (0,))):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernel(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), 4, 8, 3, *args,
+                   DTYPES[torch.float32], DTYPES[torch.bfloat16], stream_of(x))
+    assert kernels.launches() == before
     with pytest.raises(ValueError, match="ROADMAP Queue 2 item 1"):
         arype_matmul_q(x.bfloat16(), w, scale_x=0.1, scale_w=0.1)
 
