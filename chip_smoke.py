@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile  # also trace 8 steps of the f32/int8 CNN and transformer
                                      # pipelines and a short LM serve for the device-busy share
     python3 chip_smoke.py --kernel-times [--src DIR] [--label NAME]
-                                     # only time the AryPE kernels (see kernel_times)
+                                     # only time the engine and flash kernels (see kernel_times)
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -36,12 +36,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``x.float()``, within one bf16 step of the plain twin, beside
      ``torch.matmul(x.float(), w).to(out)`` and its 2 x 2MKN tf32 bound; the
      bf16 decode forward cold; ``vpe_mm``'s mixed arm at the batch-1 decode
-     projections the router places on the VPE.  Each pipeline phase and the
-     serve check that their matmuls are the shapes checked here.  ``[flash]``:
-     ``flash_fwd`` against its plain twin in f32 (rtol = atol 2e-5) and bf16
-     (rtol 2^-7, one bf16 step; atol 1e-5) over every mask, ragged Sq/Sk, kv_len < Sk, fully masked rows
-     (exactly 0), GQA and D 8-256, then at the LM phase's prefill shapes,
-     with times of the kernel, the twin and ``scaled_dot_product_attention``;
+     projections the router places on the VPE, where both arms (M <= 8: the
+     AryPE's skinny split-K) equal ``arype_matmul`` bit for bit, and the f32
+     arm's time there.  Each pipeline phase and the serve check that their
+     matmuls are the shapes checked here.  ``[flash]``: ``flash_fwd`` against
+     its plain twin in f32 (the SIMT kernel; rtol = atol 2e-5) and bf16 (the
+     tensor-core kernel; rtol 2^-7, one bf16 step; atol 1e-5) over every
+     mask, ragged Sq/Sk, kv_len < Sk, fully masked rows (exactly 0), GQA and
+     D 8-256, then at the LM phase's prefill shapes in both, with times of
+     the kernel, the twin and ``scaled_dot_product_attention`` (a record for
+     each type);
   3. the f32 streaming pipeline at the paper's 8k flow table (batch 1024,
      256 drained flows per step, CNN flow model, seeded random weights) for
      64 steps, with every kernel launch counted;
@@ -91,8 +95,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  13. ``[lm bf16]``: qwen3-0.6b as registered (bf16 activations on the same
      f32 weights) serving the same requests: tokens equal, exactly, each
      request served alone at the same 4 slots, and its batch-1 greedy run
-     except counted near ties under ``BF16_TIE_GAP`` (batch 1 places the
-     one-row projections on the VPE); launches as in 11, times beside the
+     except counted near ties under ``BF16_TIE_GAP`` (batch 1's plain decode
+     attention sums in another order); launches as in 11, times beside the
      f32 run's; ``[lm bf16 card vs cpu]`` as 12 within ``BF16_LOGIT_TOL``,
      with the request in all 4 slots held to the batch-1 card run the same
      way, and the f32-compute control's distance printed beside them;
@@ -171,12 +175,14 @@ GEMMA_PROMPTS, GEMMA_MAX_NEW = (700, 37, 256, 530), 16
 
 # qwen3-0.6b's logits in bf16 compute (28 layers), as shares of max|logit|.
 # Two runs of the same bf16 stack whose f32 sums differ in order (the card
-# against the CPU; batch 1, whose one-row decode projections the router
-# places on the VPE, against 4 slots on mm_fused) round some values to the
-# other neighbouring bf16 value, and the layers carry those flips to the
-# logits.  ``[lm bf16 card vs cpu]`` prints the readings every run; on an
-# H100 (700 W) they were 1.783e-02 card against CPU and 1.497e-02 4 slots
-# against batch 1, and the limit sits above them.  Its control, the same
+# against the CPU; batch 1 against 4 slots, whose matmuls give the same bits
+# since the VPE runs mm_fused's skinny kernel at M <= 8, but whose plain
+# PyTorch decode attention does not: its f32 sums differ in the last bit
+# between batch 1 and 4 on the card) round some values to the other
+# neighbouring bf16 value, and the layers carry those flips to the logits.
+# ``[lm bf16 card vs cpu]`` prints the readings every run; on an H100 (700 W)
+# they were 1.783e-02 card against CPU and 1.497e-02 4 slots against batch 1
+# (1.605e-02 once the matmuls agreed), and the limit sits above them.  Its control, the same
 # weights and tokens in f32 compute against the CPU's bf16 run, read
 # 1.832e-02: inside the sound spread, so at full depth this check sees only
 # faults larger than bf16's own noise.  The roundings themselves are held
@@ -188,7 +194,7 @@ BF16_LOGIT_TOL = 2.5e-2
 # top two logits are closer than this share of max|logit|: the largest gap at
 # a differing token seen on an H100 was 1.457e-02 (a batch-1 run against the
 # serve), and logits that each move by the 4-slot reading can swap no pair
-# farther apart than twice it (2.99e-02).
+# farther apart than twice it (3.21e-02 at 1.605e-02).
 BF16_TIE_GAP = 2e-2
 # LM logits, card against CPU, as a share of max|logit|.  The f32 matmuls sum
 # in another order on each device (last bits, ~1e-6 of a value), and 28
@@ -682,38 +688,36 @@ def flash_case(torch, fa, gen, case, dtype, *, lm_layout: bool = False) -> dict:
                 flops=flops)
 
 
-def check_flash(torch, fa, gen, prompt_lens, cfg) -> dict:
+def check_flash(torch, fa, gen, prompt_lens, cfg) -> tuple[dict, dict]:
     """Every case of ``FLASH_CASES`` in f32 and bf16, then the LM phase's own
-    prefill shapes (one per prompt length: B = the slots, causal, f32, LM
-    layout).  The record sums one call at each LM shape (one layer's flash
-    calls over the serve run's prefills)."""
-    err = 0.0
+    prefill shapes (one per prompt length: B = the slots, causal, LM layout)
+    in both.  Returns the f32 and the bf16 record (f32 the SIMT kernel, bf16
+    the tensor-core one), each summing one call at each LM shape (one
+    layer's flash calls over the serve run's prefills)."""
+    recs = {dtype: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                        bytes=0, flops=0) for dtype in ("float32", "bfloat16")}
     for case in FLASH_CASES:
-        for dtype in ("float32", "bfloat16"):
-            err = max(err, flash_case(torch, fa, gen, case, dtype)["max_abs_err"])
+        for dtype, rec in recs.items():
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     flash_case(torch, fa, gen, case, dtype)["max_abs_err"])
     slots, hd = LM_SERVE["batch_slots"], cfg.head_dim
-    rec = dict(max_abs_err=err, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-               bytes=0, flops=0)
     log(f"[flash] the LM's prefill shapes ({LM_ARCH}: {slots} slots, {cfg.num_heads} heads over "
         f"{cfg.num_kv_heads} KV heads, D {hd})")
-    bf16 = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
     for p in prompt_lens:
         case = (slots, cfg.num_heads, cfg.num_kv_heads, p, p, hd, "causal", 0, None)
-        r = flash_case(torch, fa, gen, case, "float32", lm_layout=True)
-        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"):
-            rec[key] += r[key]
-        # the registered bf16 compute's prefill (the record stays f32)
-        r = flash_case(torch, fa, gen, case, "bfloat16", lm_layout=True)
-        for key in bf16:
-            bf16[key] += r[key]
-    _, rec["bound_by"] = bound(rec["bytes"], rec["flops"])
-    log(f"  over the {len(prompt_lens)} prefill shapes, one call each: kernel {rec['ms']:.5f} ms, "
-        f"plain {rec['plain_ms']:.5f} ms, sdpa {rec['library_ms']:.5f} ms, bound "
-        f"{rec['bound_ms']:.6f} ms; a prefill runs {cfg.num_layers} such calls")
-    log(f"  the same in bf16: kernel {bf16['ms']:.5f} ms, plain {bf16['plain_ms']:.5f} ms, sdpa "
-        f"{bf16['library_ms']:.5f} ms, bound {bf16['bound_ms']:.6f} ms")
-    return rec
+        for dtype, rec in recs.items():
+            r = flash_case(torch, fa, gen, case, dtype, lm_layout=True)
+            rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"):
+                rec[key] += r[key]
+    for dtype, rec in recs.items():
+        _, rec["bound_by"] = bound(rec["bytes"], rec["flops"],
+                                   BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S)
+        log(f"  {dtype} over the {len(prompt_lens)} prefill shapes, one call each: kernel "
+            f"{rec['ms']:.5f} ms, plain {rec['plain_ms']:.5f} ms, sdpa {rec['library_ms']:.5f} "
+            f"ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}); a prefill runs "
+            f"{cfg.num_layers} such calls; worst error over every case {rec['max_abs_err']:.3e}")
+    return recs["float32"], recs["bfloat16"]
 
 
 def lm_prompts(cfg, rng) -> list:
@@ -836,11 +840,14 @@ def check_lm_matmuls(torch, arype, gen, cfg, longest: int) -> dict:
     return mixed
 
 
-def check_vpe_mixed(torch, vpe_matmul, vpe_mm, gen, cfg) -> dict:
+def check_vpe_mixed(torch, vpe_matmul, vpe_mm, arype_matmul, gen, cfg) -> dict:
     """The VPE's mixed arm at the one-row projections the router places there
     (a batch-1 decode: wq, wk, wv, wo), bit for bit with the f32 arm on
-    x.float(), within one bf16 step of the plain twin; per batch-1 decode
-    forward (the layer's four, ``num_layers`` times)."""
+    x.float(), within one bf16 step of the plain twin; both arms bit for bit
+    with ``arype_matmul`` (M <= 8 runs the AryPE's skinny split-K with its
+    plan); per batch-1 decode forward (the layer's four, ``num_layers``
+    times), the mixed arm's record, and the f32 arm's time beside
+    ``torch.matmul``."""
     d = cfg.d_model
     shapes = [("wq", 1, d, cfg.q_dim), ("wk", 1, d, cfg.kv_dim), ("wv", 1, d, cfg.kv_dim),
               ("wo", 1, cfg.q_dim, d)]
@@ -853,6 +860,22 @@ def check_vpe_mixed(torch, vpe_matmul, vpe_mm, gen, cfg) -> dict:
     log(f"  per batch-1 decode forward ({cfg.num_layers} x 4 calls): kernel {rec['ms']:.4f} ms, "
         f"torch.matmul(x.float(), w).to() {rec['library_ms']:.4f} ms, bound "
         f"{rec['bound_ms']:.4f} ms")
+    t32 = lib32 = 0.0
+    for name, m, k, n in shapes:
+        w = torch.randn(k, n, generator=gen).to(CARD)
+        x = torch.randn(m, k, generator=gen).to(CARD)
+        for xa, od in ((x, torch.float32), (x.bfloat16(), torch.bfloat16),
+                       (x.bfloat16(), torch.float32)):
+            for act in ACTS:
+                if not torch.equal(vpe_matmul(xa, w, activation=act, out_dtype=od),
+                                   arype_matmul(xa, w, activation=act, out_dtype=od)):
+                    raise AssertionError(f"vpe_mm {name} {xa.dtype} -> {od} {act}: differs "
+                                         f"from arype_matmul")
+        t32 += time_ms(lambda: vpe_matmul(x, w))
+        lib32 += time_ms(lambda: torch.matmul(x, w))
+    log(f"  both arms bit for bit with arype_matmul at every shape and activation; the f32 arm "
+        f"per batch-1 decode forward: kernel {cfg.num_layers * t32:.4f} ms, torch.matmul "
+        f"{cfg.num_layers * lib32:.4f} ms")
     return rec
 
 
@@ -945,12 +968,13 @@ def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompt
     prefill.  With ``near_tie`` (a share of max|logit|) a request may leave
     its batch-1 tokens where that run's top two logits were closer than it
     (counted; the rest of that request is not compared): at batch 1 the
-    router places the one-row projections on the VPE, which sums in another
-    order than the serve's ``mm_fused``.  With ``alone`` the tokens must
-    also equal, exactly, each request served alone by an engine of the same
-    config (the same shapes and placements: no kernel's rows depend on the
-    other slots).  Returns (launch counts, the engine's stats, the batch-1
-    runs' launch counts, near ties)."""
+    plain PyTorch decode attention sums in another order than at the
+    serve's slots (the matmuls agree bit for bit: the VPE's one-row
+    projections run ``mm_fused``'s skinny kernel).  With ``alone`` the
+    tokens must also equal, exactly, each request served alone by an engine
+    of the same config (the same shapes and placements: no kernel's rows
+    depend on the other slots).  Returns (launch counts, the engine's stats,
+    the batch-1 runs' launch counts, near ties)."""
     refs_alone = [serve_alone(serving, cfg, params, p, serve, max_new) for p in prompts] \
         if alone else None
     kernels.reset_launches()
@@ -1049,11 +1073,11 @@ def lm_card_vs_cpu(torch, lm_mod, cfg, params, rng, tol: float = LM_LOGIT_TOL,
     CPU's except where the CPU's top two logits are closer than ``tie``
     (``tol`` by default; counted).  With ``control_cfg`` (the f32-compute
     config of a bf16 ``cfg``) two more runs on the card: the request in each
-    of ``LM_SERVE``'s slots, whose decode projections run on mm_fused where
-    batch 1 places them on the VPE, held to the batch-1 card run as the card
-    is to the CPU; and the control, the same weights and tokens in
-    ``control_cfg``, whose distance from the CPU's bf16 logits is printed
-    beside the others (see ``BF16_LOGIT_TOL``)."""
+    of ``LM_SERVE``'s slots (its decode projections on mm_fused, batch 1's
+    on the VPE, the same bits; its plain decode attention not), held to the
+    batch-1 card run as the card is to the CPU; and the control, the same
+    weights and tokens in ``control_cfg``, whose distance from the CPU's
+    bf16 logits is printed beside the others (see ``BF16_LOGIT_TOL``)."""
     tie = tol if tie is None else tie
     slots = LM_SERVE["batch_slots"]
     runs = {"card": (lm_mod.LM(cfg, device=CARD), params, 1),
@@ -1191,9 +1215,11 @@ def main() -> int:
     prompts = lm_prompts(lm_cfg, lm_rng)
     mixed = {"mm_fused": check_lm_matmuls(torch, arype, gen, lm_cfg,
                                           max(len(p) for p in prompts)),
-             "vpe_mm": check_vpe_mixed(torch, vpe_matmul, vpe_mm, gen, lm_cfg)}
+             "vpe_mm": check_vpe_mixed(torch, vpe_matmul, vpe_mm, arype.arype_matmul, gen,
+                                       lm_cfg)}
     log("[flash] flash_fwd against its plain twin on the card")
-    results["flash_fwd"] = check_flash(torch, fa, gen, [len(p) for p in prompts], lm_cfg)
+    results["flash_fwd"], flash_bf16 = check_flash(torch, fa, gen, [len(p) for p in prompts],
+                                                   lm_cfg)
     log("[kernels] mm_fused and mm_fused_q at the transformer flow engine's shapes")
     for name, engine, plain, check, kw in (
             ("mm_fused", arype.arype_matmul, arype.mm_fused, check_matmuls,
@@ -1451,6 +1477,7 @@ def main() -> int:
         log(f"  {label}: f32 {a * 1e3:.3f}, bf16 {b * 1e3:.3f} ({b / a:.3f}x)")
     log(f"  generated tok/s: f32 {st32.tok_per_s:.2f}, bf16 {st16.tok_per_s:.2f}")
     mixed["mm_fused"]["launches"] = bf_counts["mm_fused"]
+    flash_bf16["launches"] = bf_counts["flash_fwd"]
     mixed["vpe_mm"]["launches"] = singles["vpe_mm"]
     if singles["vpe_mm"] == 0:
         raise AssertionError("the batch-1 runs placed no projection on the VPE")
@@ -1499,6 +1526,9 @@ def main() -> int:
     # (its batch-1 single-request runs), timed at the LM's shapes
     record += [dict(name=f"{name} (bf16 x, f32 w)", route="cuda", source=source[name],
                     replaces=replaces[name], **r) for name, r in mixed.items()]
+    # flash_fwd's bf16 tensor-core kernel (the bf16 serve's prefill)
+    record.append(dict(name="flash_fwd (bf16)", route="cuda", source=source["flash_fwd"],
+                       replaces=replaces["flash_fwd"], **flash_bf16))
     log(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1509,7 +1539,7 @@ def main() -> int:
 
 def kernel_times(argv) -> int:
     """``--kernel-times [--src DIR] [--label NAME]``: device times of the
-    AryPE engine kernels at the shapes the smoke checks, each beside one
+    engine and flash kernels at the shapes the smoke checks, each beside one
     library call, and nothing else, to compare two source trees on one card
     in turns (a, b, b, a).  ``--src`` is the ``src`` directory whose
     ``repro_torch`` is timed (this checkout's by default), so an older tree
@@ -1520,11 +1550,14 @@ def kernel_times(argv) -> int:
     mixed arm ``mm_fused_bf16x`` on bf16 x into bf16, beside
     ``torch.matmul(x.float(), w).to(torch.bfloat16)``, where the tree has it), and the
     unfused matmul at UNFUSED_SHAPES and Table 6's layers (bk 32) and at
-    Table 6's (bk 128).  Prints one JSON object a line: ``{"label",
-    "kernel", "name", "shape", "ms", "library_ms"}``, the library call
-    ``torch.matmul`` (f32, and for the unfused matmul, which adds
-    ``plain_ms``) or ``torch._int_mm`` on operands quantized beforehand
-    (int8, where cuBLASLt takes the shape)."""
+    Table 6's (bk 128); ``vpe_mm`` (:func:`kernel_times_vpe`) and
+    ``flash_fwd`` (:func:`kernel_times_flash`) at the LM's shapes.  Prints
+    one JSON object a line: ``{"label", "kernel", "name", "shape", "ms",
+    "library_ms"}``, the library call ``torch.matmul`` (f32, and for the
+    unfused matmul, which adds ``plain_ms``), ``torch._int_mm`` on operands
+    quantized beforehand (int8, where cuBLASLt takes the shape) or
+    ``scaled_dot_product_attention`` (flash); a sum over a forward or over
+    the prefill shapes has ``shape`` null."""
     import argparse
     import inspect
 
@@ -1593,7 +1626,93 @@ def kernel_times(argv) -> int:
                  time_ms(lambda: arype.arype_matmul_unfused(x, w, bk=bk)),
                  time_ms(lambda: torch.matmul(x, w)),
                  plain_ms=time_ms(lambda: arype.mm_unfused(x, w, bk=bk)))
+    gemma = get_config(GEMMA_ARCH)
+    kernel_times_vpe(torch, gen, emit, cfg, gemma)
+    kernel_times_flash(torch, gen, emit, cfg, gemma, longest)
     return 0
+
+
+def kernel_times_vpe(torch, gen, emit, cfg, g) -> None:
+    """``vpe_mm`` in f32 and in the mixed arm (bf16 x into bf16) at the
+    batch-1 decode projections of qwen3-0.6b and gemma3-1b (wq, wk = wv, wo)
+    (``g``) and at the pipelines' shapes, beside ``torch.matmul`` (the mixed
+    arm's: ``torch.matmul(x.float(), w).to(torch.bfloat16)``), the mixed arm
+    where the tree has it; then both summed over a batch-1 qwen3-0.6b decode
+    forward (4 calls a layer)."""
+    import inspect
+
+    from repro_torch.kernels.vpe_smallmm import ops as vpe
+
+    mixed = "out_dtype" in inspect.signature(vpe.vpe_matmul).parameters
+    shapes = [(f"{LM_ARCH}/batch1/{name}", 1, k, n)
+              for name, k, n in (("wq", cfg.d_model, cfg.q_dim), ("wk", cfg.d_model, cfg.kv_dim),
+                                 ("wo", cfg.q_dim, cfg.d_model))]
+    shapes += [(f"{GEMMA_ARCH}/batch1/{name}", 1, k, n)
+               for name, k, n in (("wq", g.d_model, g.q_dim), ("wk", g.d_model, g.kv_dim),
+                                  ("wo", g.q_dim, g.d_model))]
+    shapes += VPE_SHAPES
+    per_layer = {"wq": 1, "wk": 2, "wo": 1}  # wv is wk's shape
+    forward = {}
+    for name, m, k, n in shapes:
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        w = torch.randn(k, n, generator=gen, device="cuda")
+        arms = [("vpe_mm", lambda: vpe.vpe_matmul(x, w), lambda: torch.matmul(x, w))]
+        if mixed:
+            xb = x.bfloat16()
+            arms.append(("vpe_mm_bf16x", lambda: vpe.vpe_matmul(xb, w),
+                         lambda: torch.matmul(xb.float(), w).to(torch.bfloat16)))
+        for kernel, fn, lib in arms:
+            t, tl = time_ms(fn), time_ms(lib)
+            emit(kernel, name, (m, k, n), t, tl)
+            if name.startswith(f"{LM_ARCH}/batch1/"):
+                times = forward.setdefault(kernel, [0.0, 0.0])
+                reps = cfg.num_layers * per_layer[name.rsplit("/", 1)[1]]
+                times[0] += reps * t
+                times[1] += reps * tl
+    for kernel, (t, tl) in forward.items():
+        emit(kernel, f"{LM_ARCH}/batch1 decode forward ({cfg.num_layers} x 4 calls)", None, t, tl)
+
+
+def kernel_times_flash(torch, gen, emit, cfg, g, longest: int) -> None:
+    """``flash_fwd`` in f32 and bf16 at the qwen3-0.6b prefill shapes the
+    smoke serves (4 slots, 16 heads over 8, D 128, causal, the LM's strided
+    (B, S, H, D) views) and summed over them, and at gemma3-1b's (``g``: 4
+    slots, 4 heads over 1, D 256) for its prompts, local (window 512) and
+    global (causal), beside ``scaled_dot_product_attention`` on the same
+    views."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    slots = LM_SERVE["batch_slots"]
+    lens = sorted(map(len, lm_prompts(cfg, np.random.default_rng(0))))
+    cases = [(f"{LM_ARCH}/prefill{s}", cfg.num_heads, cfg.num_kv_heads, s, cfg.head_dim,
+              "causal", 0) for s in lens]
+    cases += [(f"{GEMMA_ARCH}/prefill{s}/{kind}", g.num_heads, g.num_kv_heads, s, g.head_dim,
+               mask, g.window_size if mask == "local" else 0)
+              for s in GEMMA_PROMPTS for kind, mask in (("local", "local"), ("global", "causal"))]
+    for dtype in (torch.float32, torch.bfloat16):
+        label = "flash_fwd" if dtype == torch.float32 else "flash_fwd_bf16"
+        total = [0.0, 0.0]
+        for name, hq, hkv, s, d, mask, window in cases:
+            q, k, v = (torch.randn(slots, s, h, d, generator=gen, device="cuda").to(dtype)
+                       .transpose(1, 2) for h in (hq, hkv, hkv))
+            if mask == "causal":
+                sdpa = dict(is_causal=True)
+            else:
+                pos = torch.arange(s, device="cuda")
+                sdpa = dict(attn_mask=fa.valid_pairs(mask, window, s, pos[:, None], pos[None]))
+            t = time_ms(lambda: fa.flash_attention(q, k, v, mask=mask, window=window))
+            tl = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=hq != hkv,
+                                                                **sdpa))
+            emit(label, name, (slots, hq, hkv, s, d), t, tl)
+            if name.startswith(f"{LM_ARCH}/"):
+                total[0] += t
+                total[1] += tl
+        emit(label, f"{LM_ARCH}/prefill shapes summed ({len(lens)}, longest {longest})", None,
+             *total)
+
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ gives zeros, not NaN.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -122,7 +122,62 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 FLASH_FWD = CudaKernel("flash_fwd_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_int64] * 12 + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+# the tiles of csrc/flash_fwd.cu, (variant, query rows, keys, width) a block, in
+# the order of the index its entry point takes: the f32 SIMT kernel, whose
+# width is the 32 lanes' acc values a row (32 x DT), then the bf16 tensor-core
+# kernel's, whose width DP is the zero-filled head width of its shared tiles
+FLASH_TILES = tuple([("simt", 64, 32, 32 * dt) for dt in range(1, 9)]
+                    + [("mma", 64, 32, dp) for dp in (16, 32, 64, 128, 256)])
+MMA_STAGES = 2  # the bf16 kernel's K/V ring
+GRID_Y_MAX = 65535
+
+
+class FlashPlan(NamedTuple):
+    """How ``flash_fwd`` runs a head width: the kernel ``variant`` ("simt"
+    for f32, "mma" for bf16), ``bq`` query rows and ``bk`` keys a tile, and
+    ``width``: the SIMT kernel's 32 x DT acc values a row, or the mma
+    kernel's DP, D zero-filled to it in shared memory."""
+    variant: str
+    bq: int
+    bk: int
+    width: int
+
+    @property
+    def tile(self) -> int:
+        """The tile's index in :data:`FLASH_TILES`, as the kernel takes it."""
+        return FLASH_TILES.index(tuple(self))
+
+    def smem_bytes(self, d: int) -> int:
+        """Dynamic shared memory of a block at head width ``d``: the SIMT
+        kernel's f32 query tile and one K (rows padded by one) and V tile;
+        the mma kernel's bf16 query tile and a 2-stage K/V ring, rows of DP +
+        8 (csrc/flash_fwd.cu:mma_smem_bytes)."""
+        if self.variant == "simt":
+            return 4 * (self.bq * d + self.bk * (d + 1) + self.bk * d)
+        return 2 * (self.width + 8) * (self.bq + MMA_STAGES * 2 * self.bk)
+
+    def grid(self, bh: int, sq: int) -> tuple[int, int]:
+        """(x, y) of the launch grid: query tiles, then batch x heads."""
+        return -(-sq // self.bq), bh
+
+
+def flash_plan(d: int, dtype: torch.dtype) -> FlashPlan:
+    """The one place that picks the flash kernel's tile, from the head width
+    and the type alone.  f32 takes the SIMT kernel with ceil(D / 32) acc
+    values a lane.  bf16 takes the tensor-core kernel at the narrowest DP of
+    16, 32, 64, 128, 256 that holds D, 32 keys a tile (on the H100 64-key
+    tiles took 1.5x as long at the LM's D 128: fewer blocks resident); the
+    LM's D are 128 (qwen3-0.6b) and 256 (gemma3-1b)."""
+    if d <= 0 or d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} is not a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}")
+    if dtype == torch.float32:
+        return FlashPlan("simt", 64, 32, 32 * -(-d // 32))
+    if dtype == torch.bfloat16:
+        return FlashPlan(*next(t for t in FLASH_TILES if t[0] == "mma" and t[3] >= d))
+    raise ValueError(f"flash_attention: needs float32 or bfloat16, got {dtype}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: str, window: int,
@@ -149,9 +204,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On CPU tensors this is the plain :func:`flash_attention_plain` at the
     reference wrapper's default 128 x 128 blocks.  On CUDA tensors one launch
-    of the kernel at its own 64 x 32 tiles: f32 or bf16, D a multiple of 8 up
-    to 256, any strides with D contiguous, GQA and ragged Sq/Sk handled in
-    place, so nothing is copied or padded."""
+    of the kernel at the tile :func:`flash_plan` picks (f32: SIMT, bf16:
+    tensor cores; 64 query rows by 32 keys): D a multiple of 8 up to 256, any
+    strides with D contiguous, GQA and ragged Sq/Sk handled in place, so
+    nothing is copied or padded."""
     kv_len = k.shape[2] if kv_len is None else kv_len
     _check(q, k, v, mask, window, kv_len)
     if q.device.type == "cpu":
@@ -168,7 +224,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{MAX_HEAD_DIM}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the kernel needs D contiguous")
-    if b * hq > 65535:
+    if b * hq > GRID_Y_MAX:
         raise ValueError(f"flash_attention: B*Hq={b * hq} exceeds the kernel's grid")
     if max(q.shape[2], k.shape[2]) >= 2**31:
         raise ValueError("flash_attention: sequence too long for the kernel's int rows")
@@ -177,8 +233,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # written as (B, Sq, Hq, D): the LM's layout, so moving heads back is free
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel():
+        plan = flash_plan(d, q.dtype)
         FLASH_FWD(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   int(q.dtype == torch.bfloat16), b, hq, hkv, sq, sk, d,
                   *(s for t in (q, k, v, out) for s in t.stride()[:3]),
-                  MASKS[mask], window, kv_len, 1.0 / (d ** 0.5), stream_of(q))
+                  MASKS[mask], window, kv_len, 1.0 / (d ** 0.5), plan.tile, stream_of(q))
     return out

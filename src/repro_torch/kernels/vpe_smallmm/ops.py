@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,8 +28,41 @@ def vpe_mm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
     return apply_activation(out, activation).to(out_dtype or x.dtype)
 
 
-VPE_MM = CudaKernel("vpe_mm_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+VPE_MM = CudaKernel("vpe_mm_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                     + [ctypes.c_void_p])
+
+
+class VpePlan(NamedTuple):
+    """How ``vpe_mm`` runs one (M, K) @ (K, N): ``variant`` "skinny" (the
+    cluster split-K of ``csrc/skinny.cuh``, in slabs of ``bn`` columns over
+    ``split`` K ranks) or "thread" (one thread an output; ``bn`` 0, ``split``
+    1), passed to the kernel as (bn, split)."""
+    variant: str
+    bn: int
+    split: int
+
+
+def vpe_plan(m: int, k: int, n: int) -> VpePlan:
+    """The one place that picks how ``vpe_mm`` runs a shape, from the shape
+    alone.
+
+    M <= 8 takes the skinny split-K with the slab and K ranks that
+    ``arype_matmul.ops.mm_fused_plan`` gives (K, N), so the VPE and the AryPE
+    run the same code in the same K order there: the same bits at every M
+    <= 8, and rows that do not depend on M.  Why 8: those are the skinny
+    kernel's accumulator rows, and the VPE's rows that low come from one-row
+    projections: a batch-1 LM decode gives M 1 (qwen3-0.6b's wq/wk/wv/wo at
+    K 1024-2048, N 1024-2048, where one thread an output would run a K-deep
+    FMA chain on 4-8 CTAs), and the reduced serve tests' collaborative
+    placements 1-2 slots.  Every M > 8 (the pipelines' MLP and conv1, M
+    1024-5120 at K 3-12) keeps one thread an output, where the launch
+    dominates and a K of 3-12 leaves nothing to split."""
+    from repro_torch.kernels.arype_matmul.ops import SKINNY_MAX_M, mm_fused_plan
+
+    if m <= SKINNY_MAX_M:
+        plan = mm_fused_plan(m, k, n)
+        return VpePlan("skinny", plan.bn, plan.split)
+    return VpePlan("thread", 0, 1)
 
 
 def check_matmul_shapes(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
@@ -71,8 +104,9 @@ def vpe_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
     """(M, K) @ (K, N) -> (M, N) on the VPE engine: x f32 or bf16, w f32, the
     sum and the activation in f32, the output ``out_dtype`` (x's by
     default).  On CPU tensors this is the plain :func:`vpe_mm`; on CUDA
-    tensors it launches the kernel on the tensors as they are (no cast
-    around it), which masks the ragged M edge itself (no padding)."""
+    tensors it launches the kernel :func:`vpe_plan` picks on the tensors as
+    they are (no cast around it), which masks the ragged edges itself (no
+    padding)."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {tuple(ACTIVATIONS)}, got {activation!r}")
     out_dtype = mixed_out_dtype("vpe_matmul", x, w, out_dtype)
@@ -84,8 +118,10 @@ def vpe_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
     (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m * n:
+        plan = vpe_plan(m, k, n)
         VPE_MM(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-               ACTIVATIONS[activation], DTYPES[x.dtype], DTYPES[out_dtype], stream_of(x))
+               ACTIVATIONS[activation], plan.bn, plan.split, DTYPES[x.dtype],
+               DTYPES[out_dtype], stream_of(x))
     return out
 
 

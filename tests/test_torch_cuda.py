@@ -34,7 +34,14 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.flash_attention.ops import valid_pairs
 from repro_torch.kernels.flow_features import ops as ff
 from repro_torch.kernels.build import stream_of
-from repro_torch.kernels.vpe_smallmm.ops import VPE_MM, vpe_matmul, vpe_matmul_q, vpe_mm, vpe_mm_q
+from repro_torch.kernels.vpe_smallmm.ops import (
+    VPE_MM,
+    vpe_matmul,
+    vpe_matmul_q,
+    vpe_mm,
+    vpe_mm_q,
+    vpe_plan,
+)
 from repro_torch.launch.calibrate import calibrate_quant_scales
 from repro_torch.models.paper_models import init_paper_model
 from repro_torch.runtime import RuntimeConfig, record_routes
@@ -188,6 +195,37 @@ def test_vpe_mixed_arm_equals_the_f32_kernel_on_upcast_x(cuda, m, k, n, act, out
     assert torch.equal(got, vpe_matmul(x.float(), w, activation=act).to(OUTS[out]))
 
 
+# (k, n) of the one-row projections a batch-1 decode places on the VPE:
+# qwen3-0.6b's wq, wk (= wv), wo; gemma3-1b's wq, wk (= wv), wo
+BATCH1_KN = [(1024, 2048), (1024, 1024), (2048, 1024), (1152, 1024), (1152, 256), (1024, 1152)]
+
+
+@pytest.mark.parametrize("k,n", BATCH1_KN)
+@pytest.mark.parametrize("arm", ["f32", "bf16 x -> bf16", "bf16 x -> f32"])
+def test_vpe_equals_arype_at_up_to_8_rows(cuda, k, n, arm):
+    """At M 1-8 the VPE runs the AryPE's skinny split-K with the same plan:
+    one vpe_mm launch, the same bits as arype_matmul, in both arms and under
+    every activation, and each row equal to a one-row call on it."""
+    gen = torch.Generator().manual_seed(k + n)
+    w = torch.randn(k, n, generator=gen).to(cuda)
+    x8 = torch.randn(8, k, generator=gen).to(cuda)
+    x8 = x8 if arm == "f32" else x8.bfloat16()
+    od = torch.float32 if arm.endswith("f32") else torch.bfloat16
+    for m in range(1, 9):
+        x = x8[:m].contiguous()
+        for act in ("none", "relu", "silu", "gelu"):
+            before = kernels.launches()
+            got = vpe_matmul(x, w, activation=act, out_dtype=od)
+            after = kernels.launches()
+            assert after["vpe_mm"] == before["vpe_mm"] + 1
+            assert sum(after.values()) == sum(before.values()) + 1
+            assert torch.equal(got, arype_matmul(x, w, activation=act, out_dtype=od)), (m, act)
+        full = vpe_matmul(x, w, out_dtype=od)
+        for r in range(m):
+            assert torch.equal(vpe_matmul(x[r:r + 1].contiguous(), w, out_dtype=od),
+                               full[r:r + 1]), (m, r)
+
+
 def test_engines_refuse_bf16_weights_on_the_card(cuda):
     x, w = torch.randn(4, 8, device=cuda), torch.randn(8, 3, device=cuda)
     for engine in (arype_matmul, vpe_matmul):
@@ -199,7 +237,9 @@ def test_engines_refuse_bf16_weights_on_the_card(cuda):
     out = torch.empty(4, 3, dtype=torch.bfloat16, device=cuda)
     plan = card_plan(x.device, 4, 8, 3)
     before = kernels.launches()
-    for kernel, args in ((MM_FUSED, (0, plan.tile, plan.split)), (VPE_MM, (0,))):
+    vplan = vpe_plan(4, 8, 3)
+    for kernel, args in ((MM_FUSED, (0, plan.tile, plan.split)),
+                         (VPE_MM, (0, vplan.bn, vplan.split))):
         with pytest.raises(RuntimeError, match="CUDA error"):
             kernel(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), 4, 8, 3, *args,
                    DTYPES[torch.float32], DTYPES[torch.bfloat16], stream_of(x))
@@ -327,7 +367,15 @@ def test_unfused_at_bk_32_equals_fused(cuda, m, k, n, act):
     (2, 2, 2, 300, 300, 32, "local", 64, None), (1, 8, 4, 256, 512, 64, "causal", 0, None),
     (1, 2, 2, 64, 64, 128, "local", 16, None), (1, 4, 1, 128, 384, 16, "full", 0, 200),
     (1, 4, 1, 77, 190, 256, "local", 20, 5), (1, 2, 2, 50, 70, 8, "full", 0, 33),
-    (4, 16, 8, 161, 161, 128, "causal", 0, None), (1, 1, 1, 1, 1, 16, "causal", 0, None)])
+    (4, 16, 8, 161, 161, 128, "causal", 0, None), (1, 1, 1, 1, 1, 16, "causal", 0, None),
+    # the bf16 kernel's widths (D zero-filled to 16, 32, 64, 128 or 256) and
+    # ragged edges of its 64-row and 64- or 32-key tiles: D 24 to 200 between
+    # them, kv_len inside a tile, Sq past Sk, and a local window with kv_len 20
+    # that leaves rows 27.. of D 48 fully masked
+    (1, 2, 1, 33, 97, 24, "causal", 0, None), (2, 4, 2, 129, 70, 40, "full", 0, 50),
+    (1, 4, 4, 100, 100, 72, "local", 30, None), (1, 2, 1, 65, 131, 136, "causal", 0, 100),
+    (1, 2, 2, 70, 257, 200, "local", 64, 190), (1, 2, 1, 90, 90, 48, "local", 8, 20),
+    (4, 16, 8, 258, 258, 128, "causal", 0, None), (1, 4, 1, 300, 300, 256, "local", 64, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 def test_flash_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d, mask, window, kv_len, dtype,
@@ -358,6 +406,25 @@ def test_flash_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d, mask, window, k
                         torch.arange(sq, device=cuda)[:, None],
                         torch.arange(sk, device=cuda)[None]).any(dim=1)
     assert (out[:, :, dead] == 0).all()
+
+
+@pytest.mark.parametrize("offset", [4, 8, 1024])
+@pytest.mark.parametrize("d", [8, 128])
+def test_flash_bf16_takes_unaligned_views(cuda, offset, d):
+    """bf16 q, k, v as views ``offset`` elements into their storage: 8 and
+    1024 keep every row 16-byte aligned (cp.async copies), 4 leaves them 8-byte
+    aligned (element loads); the same values either way."""
+    gen = torch.Generator().manual_seed(offset + d)
+    shape = (2, 4, 75, d)
+    n = 2 * 4 * 75 * d
+    views = [torch.randn(n + offset, generator=gen).to(cuda, torch.bfloat16)[offset:].view(shape)
+             for _ in range(3)]
+    dense = [t.clone() for t in views]
+    for mask, kv_len in (("causal", None), ("full", 40)):
+        out = flash_attention(*views, mask=mask, kv_len=kv_len)
+        assert torch.equal(out, flash_attention(*dense, mask=mask, kv_len=kv_len))
+        ref = flash_attention_plain(*dense, mask=mask, kv_len=kv_len)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-7, atol=1e-5)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):

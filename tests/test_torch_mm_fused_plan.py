@@ -43,8 +43,11 @@ from repro_torch.kernels.arype_matmul.ops import (
     mm_unfused_plan,
     sum_partials,
 )
-from repro_torch.kernels.vpe_smallmm.ops import vpe_mm_q
+from repro_torch.configs import reduced_config
+from repro_torch.kernels.vpe_smallmm.ops import VpePlan, vpe_mm_q, vpe_plan
+from repro_torch.runtime import RuntimeConfig
 from repro_torch.runtime.quant import pick_scale
+from repro_torch.runtime.routing import route_matmul
 
 ROOT = Path(__file__).resolve().parent.parent
 KBK = 32  # the tf32x3 variant's K tile (csrc/mm_fused.cu kBK)
@@ -176,6 +179,67 @@ def test_plan_grid_and_cluster_within_hardware_limits():
         else:
             assert m > SKINNY_MAX_M and plan.split == 1
             assert (plan.bm, plan.bn) in TF32X3_TILES
+
+
+# ----------------------------------------------------- the VPE's plan (M <= 8)
+
+
+def _vpe_shapes() -> list:
+    """(label, m, k, n) of every matmul the router places on the VPE in what
+    ``chip_smoke.py`` and the reduced serve tests run: the pipelines' MLP and
+    conv1, the collaborative stack's, and every LM matmul (full width and
+    reduced, qwen3-0.6b and gemma3-1b) at 1, 2 and 4 slots of decode (the
+    head included) and at prefills of 20-300 tokens, under the collaborative
+    policy; the router decides, as ``router.matmul`` asks it."""
+    shapes = [(name, m, k, n) for name, m, k, n in smoke.VPE_SHAPES]
+    stack = smoke.COLLAB_STACK
+    shapes += [("collab", stack[0][0], k, n) for k, n in stack[1:]
+               if route_matmul(stack[0][0], k, n).path == "vpe"]
+    for arch in (smoke.LM_ARCH, smoke.GEMMA_ARCH):
+        for cfg in (get_config(arch), reduced_config(get_config(arch))):
+            rcfg = RuntimeConfig.from_arch(cfg)
+            for rows in (1, 2, SLOTS, 20, 2 * 26, SLOTS * 300):
+                for name, _, k, n in smoke.lm_matmul_shapes(cfg, rows):
+                    m = min(rows, SLOTS) if name == "lm_head" else rows
+                    if route_matmul(m, k, n, config=rcfg).path == "vpe":
+                        shapes.append((f"{arch}/{name}", m, k, n))
+    return shapes
+
+
+def test_vpe_plan_of_every_placed_shape():
+    """Every VPE matmul of the smoke config and the reduced LMs maps to the
+    skinny split-K at M <= 8 (the batch-1 decode projections) and to one
+    thread an output above it (the pipelines); both kinds occur."""
+    shapes = _vpe_shapes()
+    variants = set()
+    for label, m, k, n in shapes:
+        plan = vpe_plan(m, k, n)
+        assert plan.variant == ("skinny" if m <= SKINNY_MAX_M else "thread"), (label, m, k, n)
+        variants.add(plan.variant)
+    assert variants == {"skinny", "thread"}
+    # the batch-1 decode of both LMs at full width: wq, wk, wv, wo on the VPE
+    one_row = {(k, n) for label, m, k, n in shapes if m == 1 and "/" in label}
+    assert {(1024, 2048), (1024, 1024), (2048, 1024), (1152, 1024), (1152, 256),
+            (1024, 1152)} <= one_row
+
+
+def test_pipelines_keep_one_thread_an_output():
+    for name, m, k, n in smoke.VPE_SHAPES:
+        assert vpe_plan(m, k, n) == VpePlan("thread", 0, 1), name
+
+
+@pytest.mark.parametrize("k,n", sorted({(k, n) for _, m, k, n in _vpe_shapes() if m <= 8}
+                                       | set(LM_LAYER_KN) | set(OTHER_KN)))
+def test_vpe_split_and_k_order_are_mm_fused_plans(k, n):
+    """At M <= 8 the VPE launches the skinny kernel with mm_fused_plan's slab
+    and K ranks, which come from (K, N) alone: the two engines sum in one
+    order, so they give the same bits, and no row depends on M."""
+    plans = {vpe_plan(m, k, n) for m in range(1, SKINNY_MAX_M + 1)}
+    assert len(plans) == 1
+    (plan,) = plans
+    fused = mm_fused_plan(1, k, n)
+    assert plan == VpePlan("skinny", fused.bn, fused.split)
+    assert vpe_plan(SKINNY_MAX_M + 1, k, n).variant == "thread"
 
 
 # ------------------------------------------------ why three tf32 products
