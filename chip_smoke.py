@@ -315,7 +315,8 @@ def check_quant_matmuls(torch, engine, plain, shapes, gen, plan=None) -> dict:
     null unless every shape has one, and ``taken`` names the shapes that
     have one, with the kernel's (``taken_ms``) and the library's
     (``taken_library_ms``) time summed over them.  With ``plan``
-    (``mm_fused_q_plan``) each shape's tile is logged."""
+    (``mm_fused_q_plan`` on this card's SMs, ``vpe_q_plan``) each shape's
+    tile is logged."""
     from repro_torch.runtime.quant import pick_scale, quantize_i8
 
     err, ms, plain_ms, lib_ms, bound_ms, ops, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0
@@ -356,7 +357,7 @@ def check_quant_matmuls(torch, engine, plain, shapes, gen, plan=None) -> dict:
         lib = f"{tl:.5f} ms" if tl is not None else "none (shape not taken by cuBLASLt)"
         how = ""
         if plan is not None:
-            p = plan(m, k, n, sms=torch.cuda.get_device_properties(x.device).multi_processor_count)
+            p = plan(m, k, n)
             how = f" [{p.bm}x{p.bn}, grid {p.grid(m, n)}]"
         log(f"  {engine.__name__} {name} ({m},{k},{n}){how}: kernel {t:.5f} ms, plain {tp:.5f} "
             f"ms, torch._int_mm {lib}, bound {b:.6f} ms")
@@ -420,34 +421,61 @@ def check_unfused(torch, arype, shapes, gen, bk: int | None) -> dict:
 def check_flow_update(torch, ff, gen) -> dict:
     """flow_update vs its plain fold, bit for bit: the default program on
     pipeline-shaped input, a random program whose hist_src crosses lanes with
-    every op and wrapping values, and long colliding segments."""
-    F, P = PIPE["table_size"], PIPE["batch_size"]
+    every op and wrapping values, long colliding segments, one packet, the
+    plan's cap + 1 (the chunked variant) and every slot dropped; each call
+    one port kernel launch, its input table untouched.  Times of the wrapper
+    and of its kernel alone (on an output allocated once) at the pipeline's
+    P and F, spread and colliding."""
+    F, P, cap = PIPE["table_size"], PIPE["batch_size"], ff.FLOW_CAP
     rand32 = lambda *shape: torch.randint(-2**31, 2**31, shape, generator=gen,
                                           dtype=torch.int64).to(torch.int32)
     cross = torch.stack([torch.arange(16) % 7, torch.randint(0, 13, (16,), generator=gen),
                          (torch.arange(16) * 5 + 3) % 16], dim=1).to(torch.int32)
+    default = ff.default_program("cpu")
     cases = [
-        ("default", ff.default_program("cpu"), torch.randint(0, F + 1, (P,), generator=gen)),
+        ("default", default, torch.randint(0, F + 1, (P,), generator=gen)),
         ("cross-lane", cross, torch.randint(0, F + 1, (P,), generator=gen)),
         ("colliding", cross, torch.randint(0, 4, (P,), generator=gen)),
+        ("one packet", cross, torch.randint(0, F, (1,), generator=gen)),
+        (f"cap + 1 ({ff.flow_plan(cap + 1, F).variant})", cross,
+         torch.randint(0, F + 1, (cap + 1,), generator=gen)),
+        ("all dropped", cross, torch.full((P,), F)),
     ]
     for name, program, slots in cases:
-        args = [program, slots.to(torch.int32), rand32(P, 13), rand32(F, 16)]
-        ref = ff.flow_feature_update_plain(*(a.cuda() for a in args))
-        out = ff.flow_feature_update(*(a.cuda() for a in args))
+        p = slots.shape[0]
+        args = [a.cuda() for a in (program, slots.to(torch.int32), rand32(p, 13), rand32(F, 16))]
+        table = args[3].clone()
+        ref = ff.flow_feature_update_plain(*args)
+        before = ff.FLOW_UPDATE.launches
+        out = ff.flow_feature_update(*args)
+        launches = ff.FLOW_UPDATE.launches - before
         torch.cuda.synchronize()
         if not torch.equal(out, ref):
             raise AssertionError(f"flow_update {name}: {(out != ref).sum().item()} lanes differ")
-        log(f"  flow_update {name}: bit-exact over {P} packets")
-    args = [a.cuda() for a in (ff.default_program("cpu"), cases[0][2].to(torch.int32),
-                               rand32(P, 13), rand32(F, 16))]
-    t = time_ms(lambda: ff.flow_feature_update(*args))
+        if launches != 1 or not torch.equal(args[3], table):
+            raise AssertionError(f"flow_update {name}: {launches} launches, input table "
+                                 f"{'kept' if torch.equal(args[3], table) else 'changed'}")
+        log(f"  flow_update {name}: bit-exact over {p} packets, 1 launch, input table kept")
+    times = {}
+    for name, hi in (("spread", F + 1), ("colliding", 3)):
+        args = [a.cuda() for a in (default, torch.randint(0, hi, (P,), generator=gen)
+                                   .to(torch.int32), rand32(P, 13), rand32(F, 16))]
+        out = torch.empty_like(args[3])
+        plan = ff.flow_plan(P, F, torch.cuda.get_device_properties(0).multi_processor_count)
+        kernel = lambda: ff.FLOW_UPDATE(out.device, *(a.data_ptr() for a in args),
+                                        out.data_ptr(), P, F, ff.META_WIDTH, plan.ctas, plan.cap,
+                                        torch.cuda.current_stream().cuda_stream)
+        times[name] = (time_ms(lambda: ff.flow_feature_update(*args)), time_ms(kernel))
+        log(f"  flow_update {name} (P={P}, F={F}, {plan.variant}, {plan.ctas} CTAs of "
+            f"{plan.rows} rows): wrapper {times[name][0]:.6f} ms, 1 launch a call, "
+            f"kernel alone {times[name][1]:.6f} ms")
+    args = [a.cuda() for a in (default, cases[0][2].to(torch.int32), rand32(P, 13),
+                               rand32(F, 16))]
     tp = time_ms(lambda: ff.flow_feature_update_plain(*args), calls=5)
     nbytes = 4 * (16 * 3 + P + 13 * P + 16 * F) + 4 * 16 * F
     b, by = bound(nbytes, 16 * P)  # 32-bit ALU ops at the f32 rate
-    log(f"  flow_update (P={P}, F={F}): wrapper {t:.5f} ms, plain {tp:.5f} ms, "
-        f"bound {b:.6f} ms ({nbytes} bytes)")
-    return dict(max_abs_err=0, ms=t, plain_ms=tp, bound_ms=b, bound_by=by,
+    log(f"  flow_update (P={P}, F={F}): plain {tp:.5f} ms, bound {b:.6f} ms ({nbytes} bytes)")
+    return dict(max_abs_err=0, ms=times["spread"][0], plain_ms=tp, bound_ms=b, bound_by=by,
                 library_ms=None, bytes=nbytes, flops=16 * P)
 
 
@@ -1174,7 +1202,13 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.arype_matmul import ops as arype
     from repro_torch.kernels.flow_features import ops as ff
-    from repro_torch.kernels.vpe_smallmm.ops import vpe_matmul, vpe_matmul_q, vpe_mm, vpe_mm_q
+    from repro_torch.kernels.vpe_smallmm.ops import (
+        vpe_matmul,
+        vpe_matmul_q,
+        vpe_mm,
+        vpe_mm_q,
+        vpe_q_plan,
+    )
     from repro_torch.launch.calibrate import calibrate_quant_scales, quant_divergence_report
     from repro_torch import serving
     from repro_torch.configs import get_config
@@ -1198,15 +1232,17 @@ def main() -> int:
 
     # -- 2. kernels vs plain versions
     gen = torch.Generator().manual_seed(0)
+    fused_q_plan = lambda m, k, n: arype.mm_fused_q_plan(m, k, n, arype.sm_count(torch.device(0)))
     log("[kernels] each kernel against its plain version on the card")
     results = {
         "flow_update": check_flow_update(torch, ff, gen),
         "vpe_mm": check_matmuls(torch, vpe_matmul, vpe_mm, VPE_SHAPES, gen),
         "mm_fused": check_matmuls(torch, arype.arype_matmul, arype.mm_fused, ARYPE_SHAPES, gen,
                                   plan=arype.card_plan),
-        "vpe_mm_q": check_quant_matmuls(torch, vpe_matmul_q, vpe_mm_q, VPE_SHAPES, gen),
+        "vpe_mm_q": check_quant_matmuls(torch, vpe_matmul_q, vpe_mm_q, VPE_SHAPES, gen,
+                                        plan=vpe_q_plan),
         "mm_fused_q": check_quant_matmuls(torch, arype.arype_matmul_q, arype.mm_fused_q,
-                                          ARYPE_SHAPES, gen, plan=arype.mm_fused_q_plan),
+                                          ARYPE_SHAPES, gen, plan=fused_q_plan),
         "mm_unfused_partials": check_unfused(torch, arype, UNFUSED_SHAPES, gen, UNFUSED_BK),
         "mm_partials_sum": check_partials_sum(torch, arype, gen, UNFUSED_BK),
     }
@@ -1225,7 +1261,7 @@ def main() -> int:
             ("mm_fused", arype.arype_matmul, arype.mm_fused, check_matmuls,
              dict(plan=arype.card_plan)),
             ("mm_fused_q", arype.arype_matmul_q, arype.mm_fused_q, check_quant_matmuls,
-             dict(plan=arype.mm_fused_q_plan))):
+             dict(plan=fused_q_plan))):
         r = check(torch, engine, plain, TF_ARYPE_SHAPES, gen, **kw)
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], r["max_abs_err"])
         log(f"  {name} per transformer step (6 layers): kernel {r['ms']:.5f} ms, plain "
@@ -1550,7 +1586,8 @@ def kernel_times(argv) -> int:
     mixed arm ``mm_fused_bf16x`` on bf16 x into bf16, beside
     ``torch.matmul(x.float(), w).to(torch.bfloat16)``, where the tree has it), and the
     unfused matmul at UNFUSED_SHAPES and Table 6's layers (bk 32) and at
-    Table 6's (bk 128); ``vpe_mm`` (:func:`kernel_times_vpe`) and
+    Table 6's (bk 128); the launch floor, ``flow_update`` and ``vpe_mm_q``
+    (:func:`kernel_times_fold`); ``vpe_mm`` (:func:`kernel_times_vpe`) and
     ``flash_fwd`` (:func:`kernel_times_flash`) at the LM's shapes.  Prints
     one JSON object a line: ``{"label", "kernel", "name", "shape", "ms",
     "library_ms"}``, the library call ``torch.matmul`` (f32, and for the
@@ -1626,10 +1663,88 @@ def kernel_times(argv) -> int:
                  time_ms(lambda: arype.arype_matmul_unfused(x, w, bk=bk)),
                  time_ms(lambda: torch.matmul(x, w)),
                  plain_ms=time_ms(lambda: arype.mm_unfused(x, w, bk=bk)))
+    kernel_times_fold(torch, gen, emit)
     gemma = get_config(GEMMA_ARCH)
     kernel_times_vpe(torch, gen, emit, cfg, gemma)
     kernel_times_flash(torch, gen, emit, cfg, gemma, longest)
     return 0
+
+
+def kernel_times_fold(torch, gen, emit) -> None:
+    """``launch_floor``: ``torch.cuda._sleep(0)``, a launch that does nothing.
+    ``flow_update`` through ``flow_feature_update`` at the pipeline's P and F,
+    slots spread over [0, F] and on 3 slots, with the port kernel launches a
+    call; and, as ``flow_update part``, the stable ``torch.sort`` of the slots
+    and the table's ``clone`` (what an older wrapper ran beside its kernel) and the kernel
+    alone: on the sorted slots in place in a tree whose kernel takes them so,
+    else on an output allocated once, and there also at other CTA counts.
+    ``vpe_mm_q`` through ``vpe_matmul_q`` at each VPE_SHAPES entry, dense
+    inputs and per-channel scales as ``check_quant_matmuls`` makes them, and
+    their sum, one pipeline step (``torch._int_mm`` takes none of them); in a
+    tree with ``vpe_q_plan``, also its kernel at the plan's tile and at other
+    rows a CTA (``vpe_mm_q tile``): a quarter to 4x the plan's, one CTA an
+    SM, one and two outputs a thread, one staging round's most."""
+    from repro_torch.kernels.flow_features import ops as ff
+    from repro_torch.kernels.vpe_smallmm import ops as vpe
+    from repro_torch.runtime.quant import pick_scale
+
+    emit("launch_floor", "torch.cuda._sleep(0)", None, time_ms(lambda: torch.cuda._sleep(0)),
+         None)
+    F, P = PIPE["table_size"], PIPE["batch_size"]
+    stream = torch.cuda.current_stream().cuda_stream
+    rand32 = lambda *shape: torch.randint(-2**31, 2**31, shape, generator=gen, device="cuda",
+                                          dtype=torch.int64).to(torch.int32)
+    program = ff.default_program("cuda")
+    for name, hi in (("spread", F + 1), ("colliding", 3)):
+        slots = torch.randint(0, hi, (P,), generator=gen, device="cuda").to(torch.int32)
+        meta, table = rand32(P, 13), rand32(F, 16)
+        before = ff.FLOW_UPDATE.launches
+        ff.flow_feature_update(program, slots, meta, table)
+        launches = ff.FLOW_UPDATE.launches - before
+        emit("flow_update", name, (P, F),
+             time_ms(lambda: ff.flow_feature_update(program, slots, meta, table)), None,
+             launches=launches)
+        s_slot, order = torch.sort(slots, stable=True)
+        out = table.clone()
+        if not hasattr(ff, "flow_plan"):  # an older kernel: sorted slots, in place
+            kernel = lambda: ff.FLOW_UPDATE(out.device, program.data_ptr(), s_slot.data_ptr(),
+                                            order.data_ptr(), meta.data_ptr(), out.data_ptr(),
+                                            P, F, ff.META_WIDTH, stream)
+            emit("flow_update part", f"{name}/kernel", (P, F), time_ms(kernel), None)
+        else:
+            for ctas in sorted({32, 64, 128, 256, 512, ff.flow_plan(P, F).ctas}):
+                kernel = lambda: ff.FLOW_UPDATE(out.device, program.data_ptr(), slots.data_ptr(),
+                                                meta.data_ptr(), table.data_ptr(), out.data_ptr(),
+                                                P, F, ff.META_WIDTH, ctas, ff.FLOW_CAP, stream)
+                emit("flow_update part", f"{name}/kernel/{ctas} CTAs", (P, F), time_ms(kernel),
+                     None)
+        emit("flow_update part", f"{name}/torch.sort(stable)", (P,),
+             time_ms(lambda: torch.sort(slots, stable=True)), None)
+    emit("flow_update part", "table.clone()", (F, 16), time_ms(table.clone), None)
+    total = 0.0
+    for name, m, k, n in VPE_SHAPES:
+        x = torch.randn(m, k, generator=gen, device="cuda") * 3
+        w = torch.randn(k, n, generator=gen, device="cuda")
+        sx = pick_scale(x.abs().max().item())
+        sw = tuple(pick_scale(v) for v in w.abs().amax(0).tolist())
+        t = time_ms(lambda: vpe.vpe_matmul_q(x, w, scale_x=sx, scale_w=sw))
+        emit("vpe_mm_q", name, (m, k, n), t, None)
+        total += t
+        if hasattr(vpe, "vpe_q_plan"):  # other rows a CTA against the plan's
+            plan, out = vpe.vpe_q_plan(m, k, n), torch.empty(m, n, device="cuda")
+            row = vpe.scale_row(sw, n, x.device)
+            threads = vpe.Q_THREADS
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            rows = {plan.bm, plan.bm // 4, plan.bm // 2, 2 * plan.bm, 4 * plan.bm,
+                    -(-m // sms), threads // n, (threads - k * n) // k, 2 * threads // n}
+            for bm in sorted(r for r in rows if 0 < r <= m):
+                if bm * plan.bn <= threads * vpe.Q_OUTPUTS:
+                    tile = lambda: vpe.VPE_MM_Q(x.device, x.data_ptr(), w.data_ptr(), sx,
+                                                row.data_ptr(), out.data_ptr(), m, k, n, 0, bm,
+                                                plan.bn, plan.bk, stream)
+                    emit("vpe_mm_q tile", f"{name}/{bm} rows a CTA", (m, k, n), time_ms(tile),
+                         None)
+    emit("vpe_mm_q", f"pipeline step ({len(VPE_SHAPES)} shapes)", None, total, None)
 
 
 def kernel_times_vpe(torch, gen, emit, cfg, g) -> None:

@@ -7,16 +7,26 @@
 // quantizes both on load, and writes the f32 output.
 //
 // Bound: at the shapes the router sends here (K*N small, M up to a few
-// thousand rows) the launch dominates; past it, reading x (M*K*4 bytes) and
-// writing out (M*N*4 bytes), since each thread does K integer multiply-adds.
+// thousand rows) the launch and one memory round trip; past them, reading x
+// (M*K*4 bytes) and writing out (M*N*4 bytes).  Each code costs an IEEE
+// division, so the division count, not the K integer multiply-adds an
+// output, is the arithmetic to keep down.
 //
-// Design: one thread per output element.  The K x N weight codes are
-// quantized once per block into shared memory when they fit 48 KB (else each
-// thread quantizes the weights it reads); each thread quantizes its x row in
-// registers as it reads it.  The sum is int32 and exact (the wrapper checks
-// K * 127^2 < 2^31), so no summation order can change it.  The output is
-// (float)acc * (scale_x * scale_w[n]), one f32 product as the reference's
-// dequant row, then the activation.  The ragged M edge is masked.
+// Design (kernels/vpe_smallmm/ops.py:vpe_q_plan gives the tile): a CTA owns a
+// bm x bn tile of the output and walks K in steps of bk.  A step quantizes the
+// tile's x codes (bm x bk) and weight codes (bk x bn) into shared memory in
+// one pass over all threads, then one barrier, then each thread sums the
+// outputs it owns (at most eight, mapped with 32-bit arithmetic, one
+// division a thread) from the staged codes.  At these sizes the time is the
+// launch and the reads' round trips, so every read is issued before any use
+// of one waits: the weight scales unconditionally, the codes' operands
+// kStage a thread before their quantizes.  Every x element is
+// quantized once a column tile (once in all, where N fits one tile, as at
+// every pipeline shape) and every weight once a CTA.  The sum is int32 and
+// exact (the wrapper checks K * 127^2 < 2^31), so no summation order can
+// change it.  The output is (float)acc * (scale_x * scale_w[n]), one f32
+// product as the reference's dequant row, then the activation.  The ragged
+// M and N edges are masked.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -25,53 +35,121 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxStagedCodes = 48 * 1024 / 4;
+constexpr int kMaxOutputs = 8;          // outputs a thread at most
+constexpr int kStage = 4;               // codes a thread quantizes a staging round
+constexpr int kMaxCodes = 48 * 1024;    // staged codes a CTA, one byte each
 
-template <bool kStageW>
+// kOutputs: the outputs a thread owns, the launcher's least power of two
+// that covers the tile, so a one-output tile runs no loop over others
+template <int kOutputs>
 __global__ void __launch_bounds__(kThreads)
 vpe_mm_q_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 float scale_x, const float* __restrict__ scale_w,
-                float* __restrict__ out, int m, int k, int n, int act) {
-  extern __shared__ int wq_s[];
-  if (kStageW) {
-    for (int i = threadIdx.x; i < k * n; i += kThreads)
-      wq_s[i] = octo::quantize_code(w[i], scale_w[i % n]);
+                float* __restrict__ out, int m, int k, int n, int act,
+                int bm, int bn, int bk) {
+  extern __shared__ int8_t codes[];
+  const int8_t* xs = codes;            // (bm, bk)
+  const int8_t* ws = codes + bm * bk;  // (bk, bn)
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * bm, col0 = blockIdx.y * bn;
+  const int rows = min(bm, m - row0), cols = min(bn, n - col0);
+  // the outputs this thread owns, tid + j * kThreads in the tile: one
+  // division here, then steps of (dr, dc) with a carry
+  int r[kOutputs], c[kOutputs];
+  r[0] = tid / bn;
+  c[0] = tid - r[0] * bn;
+  const int dr = kThreads / bn, dc = kThreads - dr * bn;
+#pragma unroll
+  for (int j = 1; j < kOutputs; ++j) {
+    c[j] = c[j - 1] + dc;
+    r[j] = r[j - 1] + dr + (c[j] >= bn);
+    c[j] -= c[j] >= bn ? bn : 0;
+  }
+  // the outputs' weight scales, read unconditionally (a clamped column) so
+  // no read waits for its use before the codes' reads are issued
+  float sw[kOutputs];
+  int acc[kOutputs];
+#pragma unroll
+  for (int j = 0; j < kOutputs; ++j) {
+    acc[j] = 0;
+    sw[j] = scale_w[col0 + min(c[j], cols - 1)];
+  }
+
+  for (int k0 = 0; k0 < k; k0 += bk) {
+    const int kc = min(bk, k - k0);
+    const int nx = rows * kc, total = nx + kc * cols;
+    // stage the step's codes, kStage a thread a round: all reads first (past
+    // the end a thread reads the last element again), then the quantizes
+    for (int i0 = 0; i0 < total; i0 += kStage * kThreads) {
+      float v[kStage], sv[kStage];
+      int at[kStage];
+#pragma unroll
+      for (int e = 0; e < kStage; ++e) {
+        if (i0 + e * kThreads >= total) break;
+        const int i = min(i0 + e * kThreads + tid, total - 1);
+        if (i < nx) {
+          const int rr = i / kc, kk = i - rr * kc;
+          v[e] = x[static_cast<int64_t>(row0 + rr) * k + k0 + kk];
+          sv[e] = scale_x;
+          at[e] = rr * bk + kk;
+        } else {
+          const int kk = (i - nx) / cols, cc = i - nx - kk * cols;
+          v[e] = w[static_cast<int64_t>(k0 + kk) * n + col0 + cc];
+          sv[e] = scale_w[col0 + cc];
+          at[e] = bm * bk + kk * bn + cc;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kStage; ++e) {
+        if (i0 + e * kThreads >= total) break;
+        if (i0 + e * kThreads + tid < total) {
+          codes[at[e]] = static_cast<int8_t>(octo::quantize_code(v[e], sv[e]));
+        }
+      }
+    }
     __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kOutputs; ++j) {
+      if (r[j] < rows && c[j] < cols) {
+        const int8_t* xr = xs + r[j] * bk;
+        const int8_t* wc = ws + c[j];
+        int sum = 0;
+#pragma unroll 4
+        for (int kk = 0; kk < kc; ++kk) sum += xr[kk] * wc[kk * bn];
+        acc[j] += sum;
+      }
+    }
+    if (k0 + bk < k) __syncthreads();  // the next step overwrites the codes
   }
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= static_cast<int64_t>(m) * n) return;
-  const int64_t row = idx / n;
-  const int col = static_cast<int>(idx % n);
-  const float sw = scale_w[col];
-  const float* xr = x + row * k;
-  int acc = 0;
-  for (int kk = 0; kk < k; ++kk) {
-    const int xq = octo::quantize_code(xr[kk], scale_x);
-    const int wq = kStageW ? wq_s[kk * n + col]
-                           : octo::quantize_code(w[static_cast<int64_t>(kk) * n + col], sw);
-    acc += xq * wq;
+#pragma unroll
+  for (int j = 0; j < kOutputs; ++j) {
+    if (r[j] < rows && c[j] < cols) {
+      out[static_cast<int64_t>(row0 + r[j]) * n + col0 + c[j]] =
+          octo::activate(static_cast<float>(acc[j]) * (scale_x * sw[j]), act);
+    }
   }
-  out[idx] = octo::activate(static_cast<float>(acc) * (scale_x * sw), act);
 }
 
 }  // namespace
 
+// bm, bn, bk come from vpe_q_plan; a tile with more outputs than the CTA's
+// threads hold or more codes than kMaxCodes is refused.
 extern "C" int vpe_mm_q_launch(const void* x, const void* w, float scale_x,
                                const void* scale_w, void* out, int m, int k,
-                               int n, int act, void* stream) {
-  const int64_t total = static_cast<int64_t>(m) * n;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const float*>(x);
-  auto wp = static_cast<const float*>(w);
-  auto sp = static_cast<const float*>(scale_w);
-  auto op = static_cast<float*>(out);
-  if (static_cast<int64_t>(k) * n <= kMaxStagedCodes) {
-    vpe_mm_q_kernel<true><<<blocks, kThreads, k * n * sizeof(int), s>>>(
-        xp, wp, scale_x, sp, op, m, k, n, act);
-  } else {
-    vpe_mm_q_kernel<false><<<blocks, kThreads, 0, s>>>(xp, wp, scale_x, sp, op,
-                                                       m, k, n, act);
+                               int n, int act, int bm, int bn, int bk, void* stream) {
+  if (m < 1 || k < 0 || n < 1 || bm < 1 || bn < 1 || bk < 1 ||
+      static_cast<int64_t>(bm) * bn > kThreads * kMaxOutputs ||
+      (static_cast<int64_t>(bm) + bn) * bk > kMaxCodes || (n + bn - 1) / bn > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const dim3 grid((m + bm - 1) / bm, (n + bn - 1) / bn);
+  const int outputs = (bm * bn + kThreads - 1) / kThreads;
+  auto kernel = outputs <= 1 ? vpe_mm_q_kernel<1>
+              : outputs <= 2 ? vpe_mm_q_kernel<2>
+              : outputs <= 4 ? vpe_mm_q_kernel<4>
+                             : vpe_mm_q_kernel<kMaxOutputs>;
+  kernel<<<grid, kThreads, (bm + bn) * bk, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), scale_x,
+      static_cast<const float*>(scale_w), static_cast<float*>(out), m, k, n, act, bm, bn, bk);
   return static_cast<int>(cudaGetLastError());
 }

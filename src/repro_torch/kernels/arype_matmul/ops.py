@@ -13,13 +13,12 @@ written to memory and the partials are summed in a second pass.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.common.util import ACTIVATIONS, DTYPES, apply_activation, ceil_div
-from repro_torch.kernels.build import CudaKernel, check_cuda, stream_of
+from repro_torch.kernels.build import H100_SMS, CudaKernel, check_cuda, sm_count, stream_of
 from repro_torch.kernels.vpe_smallmm.ops import (
     check_matmul_operands,
     check_matmul_shapes,
@@ -55,7 +54,6 @@ MM_FUSED_TILES = (("skinny", 8, 64), ("skinny", 8, 128),
                   ("tf32x3", 32, 128), ("tf32x3", 32, 64), ("tf32x3", 32, 32))
 TF32X3_TILES = tuple((bm, bn) for variant, bm, bn in MM_FUSED_TILES if variant == "tf32x3")
 SKINNY_MAX_M = 8  # rows of the skinny variant's accumulators
-H100_SMS = 132  # the H100 SXM's streaming multiprocessors: the plan's default
 MAX_CLUSTER = 8  # the portable cluster size, the skinny variant's most K ranks
 # CTAs the skinny variant aims at: two 256-thread CTAs fit an SM, but a
 # cluster must fit inside one GPC, so a grid near 2 x 132 CTAs in clusters of
@@ -172,12 +170,6 @@ def mm_unfused_plan(m: int, k: int, n: int, bk: int, sms: int = H100_SMS) -> Til
     tile picked by :func:`gemm_tile` over all the blocks' CTAs."""
     blocks = ceil_div(k, bk)
     return TilePlan(*gemm_tile(m, min(bk, k), n, sms, blocks), blocks)
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def card_plan(device: torch.device, m: int, k: int, n: int) -> MmFusedPlan:

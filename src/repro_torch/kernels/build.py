@@ -14,6 +14,7 @@ a non-zero value and counts the launches that succeeded.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -98,6 +99,15 @@ def load_library() -> ctypes.CDLL:
             lib.octo_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+H100_SMS = 132  # the H100 SXM's streaming multiprocessors: the plans' default
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -15,13 +15,13 @@ arithmetic wraps.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.common.util import Device, resolve_device, segment_ranks
-from repro_torch.kernels.build import CudaKernel, check_cuda, stream_of
+from repro_torch.common.util import Device, ceil_div, resolve_device, segment_ranks
+from repro_torch.kernels.build import H100_SMS, CudaKernel, check_cuda, sm_count, stream_of
 
 # Meta register layout (int32 lanes; paper Table 2).
 META = {
@@ -147,23 +147,67 @@ def flow_feature_update_plain(program: torch.Tensor, slots: torch.Tensor,
     return ext[:f]
 
 
-FLOW_UPDATE = CudaKernel("flow_update_launch", [ctypes.c_void_p] * 5
-                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+FLOW_CAP = 4096  # packets a chunk: the keys a CTA sorts in shared memory at most
+FLOW_ROWS = 32  # rows a CTA aims at where the table is small
+FLOW_CTAS_PER_SM = 2  # the grid's most CTAs an SM before a CTA takes more rows
+
+
+class FlowPlan(NamedTuple):
+    """How ``flow_update`` folds P packets into an F-row table: ``variant``
+    "single" (P <= ``cap``: one chunk, the rows read from the input table) or
+    "chunked" (the batch in chunks of ``cap`` packets, later chunks reading the
+    rows the CTA stored), over ``ctas`` CTAs that own ``rows`` rows each."""
+    variant: str
+    ctas: int
+    rows: int
+    cap: int
+
+    @property
+    def index_bits(self) -> int:
+        """Low bits of a sort key: the packet's index in its chunk."""
+        return self.cap.bit_length() - 1
+
+
+def flow_plan(p: int, f: int, sms: int = H100_SMS) -> FlowPlan:
+    """The one place that sizes ``flow_update`` for P packets and F >= 1 rows.
+
+    CTA c owns rows [c * rows, (c + 1) * rows) and sorts the keys
+    ``(row - c * rows) << index_bits | index`` of its packets a chunk, so a key
+    is 32 bits at every P and F: :data:`FLOW_ROWS` rows a CTA, up to
+    :data:`FLOW_CTAS_PER_SM` CTAs an SM (the pipeline's 8k table: 256 CTAs of
+    32 rows; on an H100 128-512 CTAs measured within 0.17 us of each other
+    there, 64 and 32 slower, PERF.md §6), then as many rows as the table
+    needs, but never so many that a key
+    reaches the sort's pad 0xFFFFFFFF (rows < 2^(32 - index_bits), which only
+    a table past a billion rows would need more CTAs for).  The chunk is
+    :data:`FLOW_CAP` packets (16 KB of keys): a batch up to it is one chunk,
+    a larger one the "chunked" variant, which the plan picks from P alone."""
+    max_rows = 2 ** (32 - (FLOW_CAP.bit_length() - 1)) - 1
+    ctas = max(min(ceil_div(f, FLOW_ROWS), FLOW_CTAS_PER_SM * sms), ceil_div(f, max_rows))
+    return FlowPlan("single" if p <= FLOW_CAP else "chunked", ctas, ceil_div(f, ctas), FLOW_CAP)
+
+
+FLOW_UPDATE = CudaKernel("flow_update_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
 
 
 def flow_feature_update(program: torch.Tensor, slots: torch.Tensor,
                         meta: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Fold a packet stream (``slots`` (P,), ``meta`` (P, 13)) into a copy of
-    the (F, 16) int32 table.  Slots outside [0, F) are dropped.
+    """Fold a packet stream (``slots`` (P,) in any order, ``meta`` (P, 13))
+    into a new (F, 16) int32 table; the input table is left as it is.  The
+    packets of one slot fold in batch order; slots outside [0, F) are
+    dropped.
 
-    On a CPU table this is the plain fold; on a CUDA table it launches the
-    ``flow_update`` kernel after a stable sort of the slots."""
+    On a CPU table this is the plain fold; on a CUDA table one launch of the
+    ``flow_update`` kernel, which copies the table and orders the packets
+    itself (:func:`flow_plan`): the only other op is the output's
+    allocation (and an empty table launches nothing)."""
     if table.device.type == "cpu":
         return flow_feature_update_plain(program, slots, meta, table)
     if table.device.type != "cuda":
         raise ValueError(f"flow_feature_update: no kernel for {table.device}")
     p, f = slots.shape[0], table.shape[0]
-    if (program.shape != (N_LANES, 3) or table.shape[1:] != (N_LANES,)
+    if (program.shape != (N_LANES, 3) or slots.dim() != 1 or table.shape[1:] != (N_LANES,)
             or meta.shape != (p, META_WIDTH)):
         raise ValueError(f"flow_feature_update: shapes program {tuple(program.shape)}, "
                          f"slots {tuple(slots.shape)}, meta {tuple(meta.shape)}, "
@@ -172,12 +216,12 @@ def flow_feature_update(program: torch.Tensor, slots: torch.Tensor,
         if t.dtype != torch.int32:
             raise ValueError(f"flow_feature_update: needs int32, got {t.dtype}")
     check_cuda("flow_feature_update", program, slots, meta, table)
-    s_slot, order = torch.sort(slots, stable=True)
-    out = table.clone()
-    if p:
-        FLOW_UPDATE(out.device, program.data_ptr(), s_slot.data_ptr(),
-                    order.data_ptr(), meta.data_ptr(), out.data_ptr(), p, f,
-                    META_WIDTH, stream_of(out))
+    out = torch.empty_like(table)
+    if f:
+        plan = flow_plan(p, f, sm_count(table.device))
+        FLOW_UPDATE(out.device, program.data_ptr(), slots.data_ptr(), meta.data_ptr(),
+                    table.data_ptr(), out.data_ptr(), p, f, META_WIDTH, plan.ctas, plan.cap,
+                    stream_of(out))
     return out
 
 

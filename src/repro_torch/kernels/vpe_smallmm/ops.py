@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.common.util import ACTIVATIONS, BF16_ROADMAP, DTYPES, apply_activation
+from repro_torch.common.util import ACTIVATIONS, BF16_ROADMAP, DTYPES, apply_activation, ceil_div
 from repro_torch.kernels.build import CudaKernel, check_cuda, stream_of
 from repro_torch.runtime.quant import I32_MAX_K, dequant_row, quantize_i8
 
@@ -150,7 +150,40 @@ def vpe_mm_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
 
 
 VPE_MM_Q = CudaKernel("vpe_mm_q_launch", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
-                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+Q_THREADS, Q_OUTPUTS = 256, 8  # csrc/vpe_mm_q.cu: threads a CTA, outputs a thread at most
+Q_ROWS = 16  # rows a CTA (see vpe_q_plan)
+Q_MAX_BN = 256  # columns a CTA at most: up to it, every x element is quantized once
+Q_MAX_CODES = 48 * 1024  # one-byte codes a CTA stages, x's and w's
+
+
+class VpeQPlan(NamedTuple):
+    """How ``vpe_mm_q`` runs one (M, K) @ (K, N): a CTA owns a ``bm`` x ``bn``
+    output tile and stages ``bk`` of K a step, as int8 codes."""
+    bm: int
+    bn: int
+    bk: int
+
+    def grid(self, m: int, n: int) -> tuple:
+        return ceil_div(m, self.bm), ceil_div(n, self.bn)
+
+
+def vpe_q_plan(m: int, k: int, n: int) -> VpeQPlan:
+    """The one place that sizes ``vpe_mm_q``'s tile, from the shape alone.
+    All N up to :data:`Q_MAX_BN` columns in one tile, so x is quantized once;
+    :data:`Q_ROWS` rows (fewer where the CTA's threads cannot hold that many
+    outputs); then as much of K as the shared codes take.
+
+    Why 16 rows: at the pipelines' shapes (K 3-12, N 2-32) a call's time is
+    the launch and one round trip of reads, and each CTA adds to it.  On an
+    H100, 16 rows a CTA was among the fastest at each of the five shapes
+    (``chip_smoke.py --kernel-times`` sweeps 2 to 256 rows; PERF.md §6):
+    fewer rows take more CTAs (8 rows, one CTA an SM at M 1024, and 39 at
+    conv1's M 5120 measured up to 0.3 us slower), more rows more outputs a
+    thread or more codes a CTA."""
+    bn = min(n, Q_MAX_BN)
+    bm = max(1, min(Q_ROWS, Q_THREADS * Q_OUTPUTS // bn, m))
+    return VpeQPlan(bm, bn, max(1, min(k, Q_MAX_CODES // (bm + bn))))
 
 
 def check_quant_args(name: str, x: torch.Tensor, w: torch.Tensor, scale_w,
@@ -183,7 +216,8 @@ def vpe_matmul_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
     clip-rounded to int8 on the layer's scales (``scale_w`` a float or a
     per-output-channel tuple), int32 sum, dequant, activation.  On CPU
     tensors this is the plain :func:`vpe_mm_q`; on CUDA tensors one launch of
-    the kernel, which quantizes on load and masks the ragged M edge."""
+    the kernel in the tile :func:`vpe_q_plan` picks, which quantizes on load
+    and masks the ragged edges."""
     check_quant_args("vpe_matmul_q", x, w, scale_w, activation)
     if x.device.type == "cpu":
         return vpe_mm_q(x, w, scale_x=scale_x, scale_w=scale_w, activation=activation)
@@ -193,7 +227,8 @@ def vpe_matmul_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
     (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m * n:
+        plan = vpe_q_plan(m, k, n)
         VPE_MM_Q(x.device, x.data_ptr(), w.data_ptr(), scale_x,
                  scale_row(scale_w, n, x.device).data_ptr(), out.data_ptr(), m, k, n,
-                 ACTIVATIONS[activation], stream_of(x))
+                 ACTIVATIONS[activation], *plan, stream_of(x))
     return out

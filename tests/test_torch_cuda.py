@@ -36,6 +36,8 @@ from repro_torch.kernels.flow_features import ops as ff
 from repro_torch.kernels.build import stream_of
 from repro_torch.kernels.vpe_smallmm.ops import (
     VPE_MM,
+    VPE_MM_Q,
+    scale_row,
     vpe_matmul,
     vpe_matmul_q,
     vpe_mm,
@@ -584,21 +586,163 @@ def test_slice3_pipelines_on_card_match_cpu(cuda, flow_model, runtime_kw):
         assert counts["mm_unfused_partials"] > 0
 
 
-@pytest.mark.parametrize("segments", ["spread", "colliding"])
-@pytest.mark.parametrize("cross_lane", [False, True])
-def test_flow_update_kernel_is_bit_exact(cuda, segments, cross_lane):
-    gen = torch.Generator().manual_seed(int(cross_lane))
-    F, P = 8192, 1024
+# (P, F) of the fold's card checks: the plan's boundaries (cap - 1, cap, cap +
+# 1: the chunked variant, and 3 x cap), P 0 (the copy alone), 1 and 31, F 1,
+# 1000 and 65536, and the pipeline's (1024, 8192)
+FLOW_CAP = ff.FLOW_CAP
+FLOW_SHAPES = [(1024, 8192), (0, 1000), (1, 1000), (31, 1000), (FLOW_CAP - 1, 8192),
+               (FLOW_CAP, 8192), (FLOW_CAP + 1, 8192), (3 * FLOW_CAP, 65536), (300, 1),
+               (1024, 1000), (1024, 65536)]
+
+
+def _flow_args(gen, p, f, segments, cross_lane):
     program = ff.default_program("cpu")
     if cross_lane:
         program = torch.stack([torch.arange(16) % 7, torch.randint(0, 13, (16,), generator=gen),
                                torch.randint(0, 16, (16,), generator=gen)], 1).to(torch.int32)
-    hi = F + 1 if segments == "spread" else 3
-    slots = torch.randint(0, hi, (P,), generator=gen).to(torch.int32)
+    slots = {"spread": lambda: torch.randint(0, f + 1, (p,), generator=gen),
+             "colliding": lambda: torch.randint(0, min(3, f + 1), (p,), generator=gen),
+             "one": lambda: torch.full((p,), f // 2),
+             "dropped": lambda: torch.full((p,), f)}[segments]().to(torch.int32)
     rand32 = lambda *s: torch.randint(-2**31, 2**31, s, generator=gen,
                                       dtype=torch.int64).to(torch.int32)
-    args = [a.to(cuda) for a in (program, slots, rand32(P, 13), rand32(F, 16))]
-    assert torch.equal(ff.flow_feature_update(*args), ff.flow_feature_update_plain(*args))
+    return [program, slots, rand32(p, 13), rand32(f, 16)]
+
+
+@pytest.mark.parametrize("p,f", FLOW_SHAPES)
+@pytest.mark.parametrize("segments", ["spread", "colliding", "one", "dropped"])
+@pytest.mark.parametrize("cross_lane", [False, True])
+def test_flow_update_kernel_is_bit_exact(cuda, p, f, segments, cross_lane):
+    """One launch a call, no op on the card but the output's allocation
+    (no sort), the input table left as it was, bit for bit with the twin."""
+    gen = torch.Generator().manual_seed(p + f + int(cross_lane))
+    args = [a.to(cuda) for a in _flow_args(gen, p, f, segments, cross_lane)]
+    table = args[3].clone()
+    before = ff.FLOW_UPDATE.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = ff.flow_feature_update(*args)
+    assert ff.FLOW_UPDATE.launches == before + 1
+    ops = {e.key for e in prof.key_averages() if e.key.startswith("aten::")}
+    assert ops <= {"aten::empty_like", "aten::empty", "aten::empty_strided"}, ops
+    assert torch.equal(args[3], table)
+    assert torch.equal(out, ff.flow_feature_update_plain(*args))
+
+
+@pytest.mark.parametrize("ctas,cap", [(1, FLOW_CAP), (7, 16), (128, 64), (500, FLOW_CAP),
+                                      (8192, 1), (3, 8192)])
+@pytest.mark.parametrize("segments", ["spread", "colliding"])
+def test_flow_update_kernel_takes_any_plan(cuda, ctas, cap, segments):
+    """The launcher runs any grid and chunk it is given (a cap under P takes
+    the chunked variant), all bit for bit with the twin."""
+    gen = torch.Generator().manual_seed(ctas + cap)
+    p, f = 1024, 8192
+    program, slots, meta, table = (a.to(cuda) for a in _flow_args(gen, p, f, segments, True))
+    out = torch.empty_like(table)
+    ff.FLOW_UPDATE(cuda, program.data_ptr(), slots.data_ptr(), meta.data_ptr(), table.data_ptr(),
+                   out.data_ptr(), p, f, ff.META_WIDTH, ctas, cap, stream_of(out))
+    assert torch.equal(out, ff.flow_feature_update_plain(program, slots, meta, table))
+
+
+@pytest.mark.parametrize("segments", ["spread", "one"])
+def test_flow_update_copies_an_unaligned_table(cuda, segments):
+    """A table view 4 bytes into its storage takes the kernel's 4-byte copy;
+    bit for bit, the storage around it untouched."""
+    gen = torch.Generator().manual_seed(7)
+    p, f = 1024, 1000
+    program, slots, meta, table = _flow_args(gen, p, f, segments, True)
+    flat = torch.cat([torch.tensor([5], dtype=torch.int32), table.flatten()]).to(cuda)
+    view = flat[1:].view(f, 16)
+    assert view.data_ptr() % 16 == 4
+    args = [a.to(cuda) for a in (program, slots, meta)] + [view]
+    out = ff.flow_feature_update(*args)
+    assert torch.equal(out, ff.flow_feature_update_plain(*args))
+    assert flat[0].item() == 5 and torch.equal(view.cpu(), table)
+
+
+@pytest.mark.parametrize("ctas,cap", [(128, 3), (128, 16384), (0, FLOW_CAP), (1, 2**13)])
+def test_flow_update_launcher_refuses_what_it_cannot_run(cuda, ctas, cap):
+    """A cap that is no power of two or past 8192 keys, no CTA, or rows whose
+    keys would reach the sort's pad (F 2^20 on one CTA at cap 8192) raise."""
+    f = 2**20 if ctas == 1 else 8192
+    table = torch.zeros(f, 16, dtype=torch.int32, device=cuda)
+    args = [a.to(cuda) for a in (ff.default_program("cpu"), torch.zeros(4, dtype=torch.int32),
+                                 torch.zeros(4, 13, dtype=torch.int32))]
+    before = ff.FLOW_UPDATE.launches
+    with pytest.raises(RuntimeError, match="flow_update_launch"):
+        ff.FLOW_UPDATE(cuda, *(a.data_ptr() for a in args), table.data_ptr(), table.data_ptr(),
+                       4, f, ff.META_WIDTH, ctas, cap, stream_of(table))
+    assert ff.FLOW_UPDATE.launches == before
+
+
+# vpe_mm_q's rows: one, both sides of a 256-row count, and conv1's 5120
+VPE_Q_ROWS = [1, 255, 257, 5120]
+VPE_Q_COLS = [1, 2, 3, 6, 12, 31, 32, 33, 64, 128, 162]
+
+
+@pytest.mark.parametrize("m", VPE_Q_ROWS)
+@pytest.mark.parametrize("per_channel", [False, True], ids=["tensor", "channel"])
+@pytest.mark.parametrize("act", ["none", "relu", "silu", "gelu"])
+def test_vpe_int8_kernel_is_bit_exact_at_every_small_shape(cuda, m, per_channel, act):
+    """K 1-12 by N 1-162: one launch each, bit for bit with the twin under
+    none/relu; under silu/gelu the pre-activation is bit for bit (the none
+    arm) and the activation's exp/tanh, which differ between the kernel and
+    torch, within rtol 1e-5."""
+    gen = torch.Generator().manual_seed(m)
+    for k in range(1, 13):
+        for n in VPE_Q_COLS:
+            x = (torch.randn(m, k, generator=gen) * 3).to(cuda)
+            w = torch.randn(k, n, generator=gen).to(cuda)
+            sx = pick_scale(x.abs().max().item())
+            sw = (tuple(pick_scale(v) for v in w.abs().amax(0).tolist()) if per_channel
+                  else pick_scale(w.abs().max().item()))
+            before = VPE_MM_Q.launches
+            out = vpe_matmul_q(x, w, scale_x=sx, scale_w=sw, activation=act)
+            assert VPE_MM_Q.launches == before + 1
+            ref = vpe_mm_q(x, w, scale_x=sx, scale_w=sw, activation=act)
+            if act in ("none", "relu"):
+                assert torch.equal(out, ref), (k, n)
+            else:
+                pre = vpe_matmul_q(x, w, scale_x=sx, scale_w=sw)
+                assert torch.equal(pre, vpe_mm_q(x, w, scale_x=sx, scale_w=sw)), (k, n)
+                torch.testing.assert_close(out, ref, rtol=1e-5,
+                                           atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("engine,plain", [(vpe_matmul_q, vpe_mm_q), (arype_matmul_q, mm_fused_q)])
+@pytest.mark.parametrize("m,k,n", [(1024, 6, 12), (5120, 3, 32), (257, 12, 162), (256, 96, 128)])
+@pytest.mark.parametrize("per_channel", [False, True], ids=["tensor", "channel"])
+def test_int8_kernels_round_ties_to_even(cuda, engine, plain, m, k, n, per_channel):
+    """Inputs on the codes' .5 ties, (c + 0.5) * s for c in [-130, 130) (past
+    the clip too): the IEEE quotient lands on or next to the tie, where
+    rounding half to even and the clip decide the code; bit for bit."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    sx = 0.037
+    sw = tuple(0.01 + 0.001 * j for j in range(n)) if per_channel else 0.021
+    codes = lambda *shape: torch.randint(-130, 130, shape, generator=gen).float() + 0.5
+    x = (codes(m, k) * sx).to(cuda)
+    w = (codes(k, n) * torch.tensor(sw, dtype=torch.float32).expand(n)).to(cuda)
+    for act in ("none", "relu"):
+        assert torch.equal(engine(x, w, scale_x=sx, scale_w=sw, activation=act),
+                           plain(x, w, scale_x=sx, scale_w=sw, activation=act))
+
+
+@pytest.mark.parametrize("bm,bn,bk", [(7, 12, 6), (1, 1, 1), (8, 256, 160), (2048, 1, 3)])
+def test_vpe_int8_kernel_takes_any_tile(cuda, bm, bn, bk):
+    """The launcher runs any tile within its limits (K in steps, N in column
+    tiles), bit for bit; one past them (2049 outputs a CTA) raises."""
+    gen = torch.Generator().manual_seed(bm + bn + bk)
+    m, k, n = 1000, 300, 163
+    x = (torch.randn(m, k, generator=gen) * 3).to(cuda)
+    w = torch.randn(k, n, generator=gen).to(cuda)
+    sx, sw = pick_scale(x.abs().max().item()), tuple(pick_scale(v) for v in w.abs().amax(0).tolist())
+    out = torch.empty(m, n, device=cuda)
+    launch = lambda *tile: VPE_MM_Q(cuda, x.data_ptr(), w.data_ptr(), sx,
+                                    scale_row(sw, n, cuda).data_ptr(), out.data_ptr(), m, k, n,
+                                    0, *tile, stream_of(x))
+    launch(bm, bn, bk)
+    assert torch.equal(out, vpe_mm_q(x, w, scale_x=sx, scale_w=sw))
+    with pytest.raises(RuntimeError, match="vpe_mm_q_launch"):
+        launch(2048 // bn + 1, bn, bk)
 
 
 def test_pipeline_on_card_matches_cpu(cuda):

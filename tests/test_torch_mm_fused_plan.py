@@ -44,7 +44,17 @@ from repro_torch.kernels.arype_matmul.ops import (
     sum_partials,
 )
 from repro_torch.configs import reduced_config
-from repro_torch.kernels.vpe_smallmm.ops import VpePlan, vpe_mm_q, vpe_plan
+from repro_torch.kernels.vpe_smallmm.ops import (
+    Q_MAX_BN,
+    Q_MAX_CODES,
+    Q_OUTPUTS,
+    Q_ROWS,
+    Q_THREADS,
+    VpePlan,
+    vpe_mm_q,
+    vpe_plan,
+    vpe_q_plan,
+)
 from repro_torch.runtime import RuntimeConfig
 from repro_torch.runtime.quant import pick_scale
 from repro_torch.runtime.routing import route_matmul
@@ -240,6 +250,29 @@ def test_vpe_split_and_k_order_are_mm_fused_plans(k, n):
     fused = mm_fused_plan(1, k, n)
     assert plan == VpePlan("skinny", fused.bn, fused.split)
     assert vpe_plan(SKINNY_MAX_M + 1, k, n).variant == "thread"
+
+
+def test_vpe_q_plan_of_the_pipeline_shapes():
+    """vpe_mm_q at the pipelines' shapes: 16 rows a CTA with all of N and K
+    (x quantized once, one K step), one output a thread at most but conv1's
+    two, and the tile's codes within one staging round (4 a thread)."""
+    for name, m, k, n in smoke.VPE_SHAPES:
+        plan = vpe_q_plan(m, k, n)
+        assert plan == (Q_ROWS, n, k), name
+        assert plan.grid(m, n) == (m // Q_ROWS, 1)
+        assert -(-plan.bm * n // Q_THREADS) <= (2 if name == "flow/conv1" else 1)
+        assert plan.bm * k + k * n <= 4 * Q_THREADS
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (1, 2048, 1024), (33, 300, 163), (256, 128, 162),
+                                   (5120, 12, 1000), (1, 133144, 1), (70000, 3, 2)])
+def test_vpe_q_plan_stays_within_the_kernel(m, k, n):
+    """What the launcher takes: the CTA's outputs in its threads' registers,
+    the codes in 48 KB, one column tile up to Q_MAX_BN columns."""
+    plan = vpe_q_plan(m, k, n)
+    assert plan.bm * plan.bn <= Q_THREADS * Q_OUTPUTS
+    assert (plan.bm + plan.bn) * plan.bk <= Q_MAX_CODES and 1 <= plan.bk <= k
+    assert plan.grid(m, n)[1] == -(-n // Q_MAX_BN) <= 65535
 
 
 # ------------------------------------------------ why three tf32 products
