@@ -464,6 +464,7 @@ def check_flow_update(torch, ff, gen) -> dict:
         plan = ff.flow_plan(P, F, torch.cuda.get_device_properties(0).multi_processor_count)
         kernel = lambda: ff.FLOW_UPDATE(out.device, *(a.data_ptr() for a in args),
                                         out.data_ptr(), P, F, ff.META_WIDTH, plan.ctas, plan.cap,
+                                        plan.variant == "chunked",
                                         torch.cuda.current_stream().cuda_stream)
         times[name] = (time_ms(lambda: ff.flow_feature_update(*args)), time_ms(kernel))
         log(f"  flow_update {name} (P={P}, F={F}, {plan.variant}, {plan.ctas} CTAs of "
@@ -1675,15 +1676,11 @@ def kernel_times_fold(torch, gen, emit) -> None:
     ``flow_update`` through ``flow_feature_update`` at the pipeline's P and F,
     slots spread over [0, F] and on 3 slots, with the port kernel launches a
     call; and, as ``flow_update part``, the stable ``torch.sort`` of the slots
-    and the table's ``clone`` (what an older wrapper ran beside its kernel) and the kernel
-    alone: on the sorted slots in place in a tree whose kernel takes them so,
-    else on an output allocated once, and there also at other CTA counts.
+    and the table's ``clone`` (what an older wrapper ran beside its kernel;
+    the smoke's ``flow_update`` check times this tree's kernel alone).
     ``vpe_mm_q`` through ``vpe_matmul_q`` at each VPE_SHAPES entry, dense
     inputs and per-channel scales as ``check_quant_matmuls`` makes them, and
-    their sum, one pipeline step (``torch._int_mm`` takes none of them); in a
-    tree with ``vpe_q_plan``, also its kernel at the plan's tile and at other
-    rows a CTA (``vpe_mm_q tile``): a quarter to 4x the plan's, one CTA an
-    SM, one and two outputs a thread, one staging round's most."""
+    their sum, one pipeline step (``torch._int_mm`` takes none of them)."""
     from repro_torch.kernels.flow_features import ops as ff
     from repro_torch.kernels.vpe_smallmm import ops as vpe
     from repro_torch.runtime.quant import pick_scale
@@ -1691,7 +1688,6 @@ def kernel_times_fold(torch, gen, emit) -> None:
     emit("launch_floor", "torch.cuda._sleep(0)", None, time_ms(lambda: torch.cuda._sleep(0)),
          None)
     F, P = PIPE["table_size"], PIPE["batch_size"]
-    stream = torch.cuda.current_stream().cuda_stream
     rand32 = lambda *shape: torch.randint(-2**31, 2**31, shape, generator=gen, device="cuda",
                                           dtype=torch.int64).to(torch.int32)
     program = ff.default_program("cuda")
@@ -1704,20 +1700,6 @@ def kernel_times_fold(torch, gen, emit) -> None:
         emit("flow_update", name, (P, F),
              time_ms(lambda: ff.flow_feature_update(program, slots, meta, table)), None,
              launches=launches)
-        s_slot, order = torch.sort(slots, stable=True)
-        out = table.clone()
-        if not hasattr(ff, "flow_plan"):  # an older kernel: sorted slots, in place
-            kernel = lambda: ff.FLOW_UPDATE(out.device, program.data_ptr(), s_slot.data_ptr(),
-                                            order.data_ptr(), meta.data_ptr(), out.data_ptr(),
-                                            P, F, ff.META_WIDTH, stream)
-            emit("flow_update part", f"{name}/kernel", (P, F), time_ms(kernel), None)
-        else:
-            for ctas in sorted({32, 64, 128, 256, 512, ff.flow_plan(P, F).ctas}):
-                kernel = lambda: ff.FLOW_UPDATE(out.device, program.data_ptr(), slots.data_ptr(),
-                                                meta.data_ptr(), table.data_ptr(), out.data_ptr(),
-                                                P, F, ff.META_WIDTH, ctas, ff.FLOW_CAP, stream)
-                emit("flow_update part", f"{name}/kernel/{ctas} CTAs", (P, F), time_ms(kernel),
-                     None)
         emit("flow_update part", f"{name}/torch.sort(stable)", (P,),
              time_ms(lambda: torch.sort(slots, stable=True)), None)
     emit("flow_update part", "table.clone()", (F, 16), time_ms(table.clone), None)
@@ -1730,20 +1712,6 @@ def kernel_times_fold(torch, gen, emit) -> None:
         t = time_ms(lambda: vpe.vpe_matmul_q(x, w, scale_x=sx, scale_w=sw))
         emit("vpe_mm_q", name, (m, k, n), t, None)
         total += t
-        if hasattr(vpe, "vpe_q_plan"):  # other rows a CTA against the plan's
-            plan, out = vpe.vpe_q_plan(m, k, n), torch.empty(m, n, device="cuda")
-            row = vpe.scale_row(sw, n, x.device)
-            threads = vpe.Q_THREADS
-            sms = torch.cuda.get_device_properties(0).multi_processor_count
-            rows = {plan.bm, plan.bm // 4, plan.bm // 2, 2 * plan.bm, 4 * plan.bm,
-                    -(-m // sms), threads // n, (threads - k * n) // k, 2 * threads // n}
-            for bm in sorted(r for r in rows if 0 < r <= m):
-                if bm * plan.bn <= threads * vpe.Q_OUTPUTS:
-                    tile = lambda: vpe.VPE_MM_Q(x.device, x.data_ptr(), w.data_ptr(), sx,
-                                                row.data_ptr(), out.data_ptr(), m, k, n, 0, bm,
-                                                plan.bn, plan.bk, stream)
-                    emit("vpe_mm_q tile", f"{name}/{bm} rows a CTA", (m, k, n), time_ms(tile),
-                         None)
     emit("vpe_mm_q", f"pipeline step ({len(VPE_SHAPES)} shapes)", None, total, None)
 
 

@@ -15,10 +15,11 @@
 // - CTA c owns the rows [c * rows, (c + 1) * rows) and is their only writer:
 //   it copies them from the input table (16-byte stores where both tables are
 //   16-byte aligned), then folds the packets of its rows over the copy.
-// - It walks the batch in chunks of at most `cap` packets (one chunk when
-//   P <= cap).  Every thread reads a share of the chunk's slots and appends
-//   each packet of an owned row as the 32-bit key (row - c * rows) << log2(cap)
-//   | (i - chunk start), through one shared atomic a warp.  The key carries
+// - It walks the batch in chunks of at most `cap` packets: one chunk in the
+//   "single" variant (P <= cap), several in the "chunked" one.  Every thread
+//   reads a share of the chunk's slots and appends each packet of an owned
+//   row as the 32-bit key (row - c * rows) << log2(cap) | (i - chunk start),
+//   through one shared atomic a warp.  The key carries
 //   the packet's index, so the order of the appends does not matter.
 // - A sort of the n keys orders them by row, then by batch index: up to one
 //   key a thread, each key's rank among them (two barriers); past that, a
@@ -129,7 +130,7 @@ flow_update_kernel(const int32_t* __restrict__ program,  // (16, 3)
   const int hsrc = program[lane * 3 + 2];
   const unsigned half = 0xFFFFu << (tid & 16);
 
-  for (int base = 0; base == 0 || base < p; base += cap) {
+  for (int base = 0;; base += cap) {
     const int chunk = min(cap, p - base);
     // append the owned packets of this chunk
     for (int i0 = 0; i0 < chunk; i0 += kSlotsAhead * kThreads) {
@@ -174,7 +175,8 @@ flow_update_kernel(const int32_t* __restrict__ program,  // (16, 3)
     const int n = count;
     if (n <= kThreads) {
       // rank sort: thread i's key goes to the count of smaller keys, two
-      // barriers in all (a bitonic network of n keys takes one a stage)
+      // barriers in all (the bitonic network alone, a barrier a stage,
+      // measured about 1.1 us slower at spread slots; PERF.md §6)
       uint32_t mine = 0;
       int rank = 0;
       if (tid < n) {
@@ -237,39 +239,34 @@ flow_update_kernel(const int32_t* __restrict__ program,  // (16, 3)
       }
       out[at] = h;
     }
-    if (!kChunked) break;
+    if (!kChunked || p - base <= cap) break;  // the last chunk
     __syncthreads();  // this chunk's folds land before the next one reads them
   }
 }
 
 }  // namespace
 
-// rows and cap come from flow_plan: cap a power of two up to kMaxCap, and
-// every key below the sort's pad ((rows - 1) << log2(cap) | (cap - 1) <
-// 0xFFFFFFFF).  A grid that leaves rows unowned is refused too.
+// ctas, cap and the variant come from flow_plan: cap a power of two up to
+// kMaxCap, and every key below the sort's pad ((rows - 1) << log2(cap) |
+// (cap - 1) < 0xFFFFFFFF).  A grid that leaves rows unowned, or the single
+// variant on more than one chunk, is refused too.
 extern "C" int flow_update_launch(const void* program, const void* slots, const void* meta,
                                   const void* table, void* out, int p, int f, int meta_width,
-                                  int ctas, int cap, void* stream) {
+                                  int ctas, int cap, int chunked, void* stream) {
   const int ib = __builtin_ctz(static_cast<unsigned>(cap > 0 ? cap : 1));
   const int64_t rows = ctas > 0 ? (static_cast<int64_t>(f) + ctas - 1) / ctas : 0;
   if (p < 0 || f < 1 || meta_width < 1 || ctas < 1 || cap < 1 || cap > kMaxCap ||
       (cap & (cap - 1)) != 0 || rows >= (int64_t{1} << (32 - ib)) ||
-      static_cast<int64_t>(ctas) * rows < f) {
+      static_cast<int64_t>(ctas) * rows < f || (!chunked && p > cap)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto s = static_cast<cudaStream_t>(stream);
+  // the single variant is its own instantiation: the chunk test at run time
+  // measured 0.3 us slower at P 1024 (PERF.md §6)
+  auto kernel = chunked ? flow_update_kernel<true> : flow_update_kernel<false>;
   const size_t smem = static_cast<size_t>(cap) * sizeof(uint32_t);
-  auto pr = static_cast<const int32_t*>(program);
-  auto sl = static_cast<const int32_t*>(slots);
-  auto me = static_cast<const int32_t*>(meta);
-  auto tb = static_cast<const int32_t*>(table);
-  auto ou = static_cast<int32_t*>(out);
-  if (p <= cap) {
-    flow_update_kernel<false><<<ctas, kThreads, smem, s>>>(pr, sl, me, tb, ou, p, f, meta_width,
-                                                          static_cast<int>(rows), cap);
-  } else {
-    flow_update_kernel<true><<<ctas, kThreads, smem, s>>>(pr, sl, me, tb, ou, p, f, meta_width,
-                                                         static_cast<int>(rows), cap);
-  }
+  kernel<<<ctas, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(program), static_cast<const int32_t*>(slots),
+      static_cast<const int32_t*>(meta), static_cast<const int32_t*>(table),
+      static_cast<int32_t*>(out), p, f, meta_width, static_cast<int>(rows), cap);
   return static_cast<int>(cudaGetLastError());
 }

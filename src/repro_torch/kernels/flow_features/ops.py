@@ -156,7 +156,8 @@ class FlowPlan(NamedTuple):
     """How ``flow_update`` folds P packets into an F-row table: ``variant``
     "single" (P <= ``cap``: one chunk, the rows read from the input table) or
     "chunked" (the batch in chunks of ``cap`` packets, later chunks reading the
-    rows the CTA stored), over ``ctas`` CTAs that own ``rows`` rows each."""
+    rows the CTA stored), over ``ctas`` CTAs that own ``rows`` rows each.  The
+    launcher runs the variant it is given."""
     variant: str
     ctas: int
     rows: int
@@ -187,7 +188,7 @@ def flow_plan(p: int, f: int, sms: int = H100_SMS) -> FlowPlan:
     return FlowPlan("single" if p <= FLOW_CAP else "chunked", ctas, ceil_div(f, ctas), FLOW_CAP)
 
 
-FLOW_UPDATE = CudaKernel("flow_update_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+FLOW_UPDATE = CudaKernel("flow_update_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p])
 
 
@@ -221,7 +222,7 @@ def flow_feature_update(program: torch.Tensor, slots: torch.Tensor,
         plan = flow_plan(p, f, sm_count(table.device))
         FLOW_UPDATE(out.device, program.data_ptr(), slots.data_ptr(), meta.data_ptr(),
                     table.data_ptr(), out.data_ptr(), p, f, META_WIDTH, plan.ctas, plan.cap,
-                    stream_of(out))
+                    plan.variant == "chunked", stream_of(out))
     return out
 
 

@@ -632,14 +632,30 @@ def test_flow_update_kernel_is_bit_exact(cuda, p, f, segments, cross_lane):
                                       (8192, 1), (3, 8192)])
 @pytest.mark.parametrize("segments", ["spread", "colliding"])
 def test_flow_update_kernel_takes_any_plan(cuda, ctas, cap, segments):
-    """The launcher runs any grid and chunk it is given (a cap under P takes
+    """The launcher runs any grid and chunk it is given (a cap under P with
     the chunked variant), all bit for bit with the twin."""
     gen = torch.Generator().manual_seed(ctas + cap)
     p, f = 1024, 8192
     program, slots, meta, table = (a.to(cuda) for a in _flow_args(gen, p, f, segments, True))
     out = torch.empty_like(table)
     ff.FLOW_UPDATE(cuda, program.data_ptr(), slots.data_ptr(), meta.data_ptr(), table.data_ptr(),
-                   out.data_ptr(), p, f, ff.META_WIDTH, ctas, cap, stream_of(out))
+                   out.data_ptr(), p, f, ff.META_WIDTH, ctas, cap, p > cap, stream_of(out))
+    assert torch.equal(out, ff.flow_feature_update_plain(program, slots, meta, table))
+
+
+@pytest.mark.parametrize("p", [0, 1, 1024, FLOW_CAP])
+@pytest.mark.parametrize("segments", ["spread", "colliding"])
+def test_flow_update_chunked_variant_runs_one_chunk(cuda, p, segments):
+    """The chunked variant on a batch of one chunk (P <= cap), as the plan's
+    grid at the pipeline's table gives it, is bit for bit with the twin."""
+    gen = torch.Generator().manual_seed(p)
+    f = 8192
+    program, slots, meta, table = (a.to(cuda) for a in _flow_args(gen, p, f, segments, True))
+    plan, out = ff.flow_plan(p, f), torch.empty_like(table)
+    assert plan.variant == "single"
+    ff.FLOW_UPDATE(cuda, program.data_ptr(), slots.data_ptr(), meta.data_ptr(), table.data_ptr(),
+                   out.data_ptr(), p, f, ff.META_WIDTH, plan.ctas, plan.cap, True,
+                   stream_of(out))
     assert torch.equal(out, ff.flow_feature_update_plain(program, slots, meta, table))
 
 
@@ -670,7 +686,22 @@ def test_flow_update_launcher_refuses_what_it_cannot_run(cuda, ctas, cap):
     before = ff.FLOW_UPDATE.launches
     with pytest.raises(RuntimeError, match="flow_update_launch"):
         ff.FLOW_UPDATE(cuda, *(a.data_ptr() for a in args), table.data_ptr(), table.data_ptr(),
-                       4, f, ff.META_WIDTH, ctas, cap, stream_of(table))
+                       4, f, ff.META_WIDTH, ctas, cap, True, stream_of(table))
+    assert ff.FLOW_UPDATE.launches == before
+
+
+@pytest.mark.parametrize("p,cap", [(17, 16), (FLOW_CAP + 1, FLOW_CAP)])
+def test_flow_update_launcher_refuses_single_past_the_cap(cuda, p, cap):
+    """The single variant folds one chunk, so a batch past the cap given to
+    it raises instead of dropping packets."""
+    f = 8192
+    args = [a.to(cuda) for a in _flow_args(torch.Generator().manual_seed(p), p, f, "spread",
+                                          False)]
+    out = torch.empty_like(args[3])
+    before = ff.FLOW_UPDATE.launches
+    with pytest.raises(RuntimeError, match="flow_update_launch"):
+        ff.FLOW_UPDATE(cuda, *(a.data_ptr() for a in args), out.data_ptr(), p, f, ff.META_WIDTH,
+                       256, cap, False, stream_of(out))
     assert ff.FLOW_UPDATE.launches == before
 
 
