@@ -83,24 +83,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      identical except near ties, which are counted;
  10. the placement reports (``OctopusPipeline.explain``) of the CNN and the
      transformer pipelines;
- 11. ``[lm]``: LM serving, qwen3-0.6b at full width and depth in f32 compute
+ 11. ``[pipeline two-level]``: the CNN f32 loop at the 8k table on traffic of
+     65536 live flows (8 a hot slot), 64 steps through ``prefetch``, hot-only
+     and with a 2^20-entry cold table (``cold_policy`` "age"), each at
+     ``scan_len`` 1 and 4, ``overlap`` off and on, and "lru" at scan_len 1
+     eager and scan_len 4 overlapped: launch counts as ``record_routes``
+     predicts (``flow_update`` once a step), every mode's tracker state, rule
+     table and counters equal the eager run's, spills and promotions happen;
+     under both policies the drained rows of every step equal between eager
+     steps and scan_len 4 handles, and the first 16 steps equal the CPU's
+     (hot and cold leaves, drained rows); step us (host / exposed device),
+     cold occupancy, and the host's waits a step (the collision check, the
+     cold store's rounds) on this traffic and on a collision attack;
+ 12. ``[pipeline masked]``: ``warm_bucket`` at 256 and 8192 packets, then
+     ``step_masked`` on ragged keep masks at both sizes, card against CPU:
+     tracker state and drained rows bit for bit, decisions identical except
+     near ties; the 8192 bucket runs ``flow_update``'s chunked variant;
+ 13. ``[lm]``: LM serving, qwen3-0.6b at full width and depth in f32 compute
      with seeded port-initialised weights: ``ServeEngine`` (4 slots, 512
      cache rows) serves 8 requests of 16-300 prompt tokens and 32 new tokens;
      every request's tokens equal its single-request greedy run, and the
      launch counts equal the prediction (197 ``mm_fused`` a forward, 28
      ``flash_fwd`` a prefill); prefill ms, decode ms a step and tok/s;
- 12. ``[lm card vs cpu]``: one 160-token request through ``LM.prefill`` and
+ 14. ``[lm card vs cpu]``: one 160-token request through ``LM.prefill`` and
      4 ``decode_step``s on the card and on the CPU, logits within
      ``LM_LOGIT_TOL`` of max|logit|, tokens identical except counted near ties;
- 13. ``[lm bf16]``: qwen3-0.6b as registered (bf16 activations on the same
+ 15. ``[lm bf16]``: qwen3-0.6b as registered (bf16 activations on the same
      f32 weights) serving the same requests: tokens equal, exactly, each
      request served alone at the same 4 slots, and its batch-1 greedy run
      except counted near ties under ``BF16_TIE_GAP`` (batch 1's plain decode
-     attention sums in another order); launches as in 11, times beside the
-     f32 run's; ``[lm bf16 card vs cpu]`` as 12 within ``BF16_LOGIT_TOL``,
+     attention sums in another order); launches as in 13, times beside the
+     f32 run's; ``[lm bf16 card vs cpu]`` as 14 within ``BF16_LOGIT_TOL``,
      with the request in all 4 slots held to the batch-1 card run the same
      way, and the f32-compute control's distance printed beside them;
- 14. ``[lm gemma3-1b]``: gemma3-1b at full width as registered (head_dim 256,
+ 16. ``[lm gemma3-1b]``: gemma3-1b at full width as registered (head_dim 256,
      the 512-token window, vocab 262144; its embed_scale makes the stack f32)
      serving 4 requests, one past the window: tokens equal the single-request
      runs except counted near ties under ``LM_LOGIT_TOL``, launches as
@@ -171,6 +187,14 @@ LM_CPU_PROMPT, LM_CPU_DECODES = 160, 4
 GEMMA_ARCH = "gemma3-1b"
 GEMMA_SERVE = dict(batch_slots=4, cache_len=1024)
 GEMMA_PROMPTS, GEMMA_MAX_NEW = (700, 37, 256, 530), 16
+# the two-level table: a 2^20-entry cold bank behind the 8k hot table, on
+# traffic of 65536 live flows (8 a hot slot), so evictions spill and return
+COLD_SIZE = 1 << 20
+SPILL_TRAFFIC = dict(batch_size=1024, active_flows=65536, table_size=8192,
+                     collision_free=False, seed=0)
+TWO_LEVEL_STEPS, TWO_LEVEL_CPU_STEPS, CHUNK = 64, 16, 4
+# masked buckets: a small request batch, and one past flow_update's chunk
+BUCKETS, MASKED_STEPS = (256, 8192), 6
 
 
 # qwen3-0.6b's logits in bf16 compute (28 layers), as shares of max|logit|.
@@ -1159,6 +1183,261 @@ def lm_card_vs_cpu(torch, lm_mod, cfg, params, rng, tol: float = LM_LOGIT_TOL,
         f"(top-2 gap under {tie:.3e})")
 
 
+def on_cpu(state):
+    """A copy of a tracker state (hot-only or two-level) on the CPU."""
+    return type(state)(*(on_cpu(x) if isinstance(x, tuple) else x.to("cpu", copy=True)
+                         for x in state))
+
+
+def same_tree(torch, label: str, a, b) -> None:
+    """Raise unless two states or drain results are equal bit for bit."""
+    for name, x, y in zip(a._fields, a, b):
+        if isinstance(x, tuple):
+            same_tree(torch, f"{label}.{name}", x, y)
+        elif not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{label}.{name} differs")
+
+
+def same_run(torch, label: str, ref, pipe) -> None:
+    """``pipe`` ended where the eager ``ref`` did: state, rules, counters."""
+    same_tree(torch, f"{label} state", ref.state, pipe.state)
+    if ref.rules.rules != pipe.rules.rules or ref.rules.generation != pipe.rules.generation:
+        raise AssertionError(f"{label}: rule tables differ")
+    for name in ("packets", "steps", "flows", "new_flows", "evicted", "spilled", "promoted",
+                 "fallback_steps"):
+        if getattr(ref.stats, name) != getattr(pipe.stats, name):
+            raise AssertionError(f"{label}: stats.{name} {getattr(pipe.stats, name)}, eager "
+                                 f"{getattr(ref.stats, name)}")
+
+
+def run_mode(kernels, record_routes, prefetch, cs, pipe, batches, label: str, card: str):
+    """Warm up, record one step's matmuls, then run the batches through
+    ``prefetch`` with the launch counts set to 0 just before and read just
+    after: they must equal what the recorded routes launch plus one
+    ``flow_update`` a step.  Returns the stats."""
+    pipe.warmup()
+    with record_routes() as routes:
+        out = pipe.step(batches[0])
+        if pipe.cfg.overlap:
+            out.wait()
+    pipe.reset()
+    kernels.reset_launches()
+    stats = pipe.run(prefetch(iter(batches), depth=2), steps=len(batches))
+    counts = kernels.launches()
+    want = kernels.matmul_launches(routes, len(batches))
+    want["flow_update"] += len(batches)
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts}, expected {want}")
+    occupancy = int(cs.cold_occupancy(pipe.state.cold)) if pipe.cfg.cold_size else 0
+    log(f"  {label}: step {stats.step_us:.1f} us (host {stats.host_s / stats.steps * 1e6:.1f} / "
+        f"exposed device {stats.device_s / stats.steps * 1e6:.1f}), {stats.dispatches} "
+        f"dispatches of {stats.dispatch_us:.1f} us, p99 {stats.p99_us:.1f} us, "
+        f"{stats.pkt_per_s:.1f} pkt/s; flows {stats.flows}, evicted {stats.evicted}, spilled "
+        f"{stats.spilled}, promoted {stats.promoted}, cold occupancy {occupancy}; launches "
+        f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+    return stats
+
+
+def host_waits(torch, cs, pipe, batches) -> dict:
+    """The host's waits inside eager steps, from a CPU-side torch.profiler
+    trace: reads of a device value (``aten::_local_scalar_dense``: the
+    collision check, the cold store's record counts) and ``aten::nonzero``
+    (a cold round's records), each call's time including its wait; and the
+    cold store's rounds beyond the first of each walk (the ordered part)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    walks = dict(walks=0, rounds=0)
+    plain_rounds = cs._rounds
+
+    def counting(touch, active):
+        n = 0
+        for sel in plain_rounds(touch, active):
+            n += 1
+            yield sel
+        walks["walks"] += n > 0
+        walks["rounds"] += n
+
+    cs._rounds = counting
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for batch in batches:
+                pipe.step(batch)
+    finally:
+        cs._rounds = plain_rounds
+    res = dict(walks, reads=0, read_us=0.0, nonzero=0, nonzero_us=0.0)
+    for e in prof.key_averages():
+        if e.key == "aten::_local_scalar_dense":
+            res["reads"], res["read_us"] = e.count, e.cpu_time_total
+        elif e.key == "aten::nonzero":
+            res["nonzero"], res["nonzero_us"] = e.count, e.cpu_time_total
+    return {k: v / len(batches) for k, v in res.items()}
+
+
+def track_parts(torch, cs, pipe, batches) -> dict:
+    """Device-synchronised wall time (us a step) of each part of the tracker
+    step: the merge, and with a cold table the promote walk, the spill walk
+    and the scrub.  Each part is bracketed by ``torch.cuda.synchronize``, so
+    the parts run serialised; their sum is not the overlapped step time."""
+    spent = dict(merge=0.0, promote=0.0, spill=0.0, scrub=0.0)
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    plain = {name: getattr(cs, name) for name in ("promote_pass", "apply_spills", "scrub_live")}
+    cs.promote_pass = timed("promote", plain["promote_pass"])
+    cs.apply_spills = timed("spill", plain["apply_spills"])
+    cs.scrub_live = timed("scrub", plain["scrub_live"])
+    pipe._merge = timed("merge", pipe._merge)
+    try:
+        for batch in batches:
+            pipe.step(batch)
+    finally:
+        for name, fn in plain.items():
+            setattr(cs, name, fn)
+        del pipe._merge
+    return {name: t / len(batches) * 1e6 for name, t in spent.items()}
+
+
+def two_level_phase(torch, kernels, record_routes, cs, prefetch, TrafficConfig,
+                    TrafficGenerator, OctopusPipeline, PipelineConfig, mlp, cnn, card) -> None:
+    """The loop's dispatch modes and the two-level table at the 8k hot table
+    and a 2^20-entry cold bank, on traffic with 8 live flows a hot slot."""
+    batches = make_batches(TrafficConfig, TrafficGenerator, SPILL_TRAFFIC, TWO_LEVEL_STEPS, "cpu")
+    log(f"[pipeline two-level] CNN f32, {PIPE}, cold_size {COLD_SIZE}, traffic {SPILL_TRAFFIC}, "
+        f"{TWO_LEVEL_STEPS} steps through prefetch; each mode against scan_len 1, overlap off")
+    modes = ((1, False), (CHUNK, False), (1, True), (CHUNK, True))
+    for cold, policy, wanted in ((0, "age", modes), (COLD_SIZE, "age", modes),
+                                 (COLD_SIZE, "lru", (modes[0], modes[3]))):
+        eager = None
+        for scan_len, overlap in wanted:
+            cfg = PipelineConfig(**PIPE, cold_size=cold, cold_policy=policy, scan_len=scan_len,
+                                 overlap=overlap)
+            label = (f"{'two-level ' + policy if cold else 'hot-only'}, scan_len {scan_len}, "
+                     f"overlap {'on' if overlap else 'off'}")
+            pipe = OctopusPipeline(mlp, cnn, cfg)
+            stats = run_mode(kernels, record_routes, prefetch, cs, pipe, batches, label, card)
+            if cold and not (stats.spilled and stats.promoted):
+                raise AssertionError(f"{label}: spilled {stats.spilled}, promoted "
+                                     f"{stats.promoted}")
+            if eager is None:
+                eager = pipe
+            else:
+                same_run(torch, label, eager, pipe)
+                del pipe
+        del eager
+        torch.cuda.empty_cache()
+    # step by step: eager outputs against handles waited one behind, and the
+    # first steps against the CPU at the full cold bank
+    for policy in ("age", "lru"):
+        cfg = dict(PIPE, cold_size=COLD_SIZE, cold_policy=policy)
+        eager = OctopusPipeline(mlp, cnn, PipelineConfig(**cfg))
+        drained = []
+        for step, batch in enumerate(batches):
+            drained.append(on_cpu(eager.step(batch).drained))
+            if step + 1 == TWO_LEVEL_CPU_STEPS:
+                snapshot = on_cpu(eager.state)
+        ovl = OctopusPipeline(mlp, cnn, PipelineConfig(**cfg, scan_len=CHUNK, overlap=True))
+        pending, outs = None, []
+        for k in range(0, len(batches), CHUNK):
+            handle = ovl.step_many(batches[k:k + CHUNK])
+            if pending is not None:
+                outs.append(pending.wait())
+            pending = handle
+        outs.append(pending.wait())
+        for step in range(len(batches)):
+            out = outs[step // CHUNK].drained
+            same_tree(torch, f"{policy} step {step} drained (overlapped chunk)",
+                      drained[step], type(out)(*(leaf[step % CHUNK] for leaf in out)))
+        same_run(torch, f"{policy} handles", eager, ovl)
+        del eager, ovl
+        torch.cuda.empty_cache()
+        cpu = OctopusPipeline(mlp, cnn, PipelineConfig(**cfg), device="cpu")
+        for step, batch in enumerate(batches[:TWO_LEVEL_CPU_STEPS]):
+            same_tree(torch, f"{policy} step {step} drained (card vs cpu)", drained[step],
+                      cpu.step(batch).drained)
+        same_tree(torch, f"{policy} state after {TWO_LEVEL_CPU_STEPS} steps (card vs cpu)",
+                  snapshot, cpu.state)
+        log(f"  {policy}: drained rows of {len(batches)} steps equal between eager steps and "
+            f"scan_len {CHUNK} handles; hot and cold leaves, drained rows and counts equal the "
+            f"CPU's over {TWO_LEVEL_CPU_STEPS} steps (spilled {cpu.stats.spilled}, promoted "
+            f"{cpu.stats.promoted}, cold occupancy {int(cs.cold_occupancy(cpu.state.cold))})")
+        del cpu, snapshot
+    # the host's waits and the tracker's parts a step, and the cold store's
+    # ordered part under attack
+    attack = make_batches(TrafficConfig, TrafficGenerator, ATTACK, 24, "cpu")
+    for label, cold, source in (("hot-only", 0, batches), ("two-level age", COLD_SIZE, batches),
+                                ("hot-only, collision attack", 0, attack),
+                                ("two-level age, collision attack", COLD_SIZE, attack)):
+        pipe = OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE, cold_size=cold))
+        pipe.warmup()
+        stats = pipe.run(source[:8], steps=8)
+        log(f"  {label}, eager: steps 1-8 {stats.step_us:.1f} us (host {stats.host_us:.1f} / "
+            f"exposed device {stats.device_us:.1f}), spilled {stats.spilled}, promoted "
+            f"{stats.promoted} [{card}]")
+        w = host_waits(torch, cs, pipe, source[8:16])
+        log(f"    host waits a step (steps 9-16, profiled): {w['reads']:.1f} value reads "
+            f"{w['read_us']:.1f} us, {w['nonzero']:.1f} nonzero {w['nonzero_us']:.1f} us; cold "
+            f"walks {w['walks']:.2f}, their rounds {w['rounds']:.2f}")
+        parts = track_parts(torch, cs, pipe, source[16:24])
+        log("    tracker parts, us a step (steps 17-24, each synchronised): " + ", ".join(
+            f"{name} {us:.1f}" for name, us in parts.items() if cold or name == "merge"))
+        del pipe
+        torch.cuda.empty_cache()
+
+
+def masked_phase(torch, ff, fx, ft, TrafficConfig, TrafficGenerator, OctopusPipeline,
+                 PipelineConfig, mlp, cnn, card) -> None:
+    """Bucketed, keep-masked steps at 256 and 8192 packets, card against
+    CPU; the 8192 bucket folds through ``flow_update``'s chunked variant."""
+    log(f"[pipeline masked] CNN f32, {PIPE}; warm_bucket{BUCKETS}, step_masked on ragged keep "
+        f"masks, card vs CPU")
+    gpu = OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE))
+    cpu = OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), device="cpu")
+    for bucket in BUCKETS:
+        gpu.warm_bucket(bucket)
+    gen = TrafficGenerator(TrafficConfig(**TRAFFIC), device="cpu")
+    rng = torch.Generator().manual_seed(5)
+    near = flipped = 0
+    for step in range(MASKED_STEPS):
+        bucket = BUCKETS[step % len(BUCKETS)]
+        parts = [gen.next_batch() for _ in range(max(1, bucket // TRAFFIC["batch_size"]))]
+        batch = ft.PacketBatch(*(torch.cat(leaves)[:bucket] for leaves in zip(*parts)))
+        keep = torch.rand(bucket, generator=rng) < (0.5 + 0.4 * torch.rand(1, generator=rng))
+        plan = ff.flow_plan(bucket, PIPE["table_size"])
+        before = ff.FLOW_UPDATE.launches
+        out_g = gpu.step_masked(batch, keep)
+        launched = ff.FLOW_UPDATE.launches - before
+        out_c = cpu.step_masked(batch, keep)
+        if launched != 1:
+            raise AssertionError(f"bucket {bucket}: {launched} flow_update launches")
+        same_tree(torch, f"masked step {step} state", gpu.state, cpu.state)
+        same_tree(torch, f"masked step {step} drained", out_g.drained, out_c.drained)
+        logits = cpu.packet_engine.fn(cpu.packet_engine.params, fx.packet_meta_features(batch))
+        tie = (logits[:, 1] - logits[:, 0]).abs() < NEAR_TIE
+        differ = (out_g.pkt_actions.cpu() != out_c.pkt_actions) & keep
+        if (differ & ~tie).any() or not torch.equal(out_g.flow_cls.cpu(), out_c.flow_cls):
+            raise AssertionError(f"masked step {step}: decisions differ away from a near tie")
+        near += int((tie & keep).sum())
+        flipped += int(differ.sum())
+        log(f"  bucket {bucket} ({plan.variant} flow_update, {plan.ctas} CTAs): "
+            f"{int(keep.sum())} kept, state and drained rows equal the CPU's")
+    if not flipped and gpu.rules.rules != cpu.rules.rules:
+        raise AssertionError("masked: rule tables differ with identical decisions")
+    if ff.flow_plan(BUCKETS[-1], PIPE["table_size"]).variant != "chunked":
+        raise AssertionError("the largest bucket did not take flow_update's chunked variant")
+    s = gpu.stats
+    log(f"  {s.steps} masked steps: {s.packets} packets, {s.padded} padding rows, {s.flows} "
+        f"flows; decisions identical except {flipped} of {near} near ties; step "
+        f"{s.step_us:.1f} us (host {s.host_us:.1f} / exposed device {s.device_us:.1f}) [{card}]")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1199,7 +1478,8 @@ def main() -> int:
         usecase2_layers,
         usecase2_plan,
     )
-    from repro_torch.data.traffic import TrafficConfig, TrafficGenerator
+    from repro_torch.core import cold_store as cs
+    from repro_torch.data.traffic import TrafficConfig, TrafficGenerator, prefetch
     from repro_torch.kernels import build
     from repro_torch.kernels.arype_matmul import ops as arype
     from repro_torch.kernels.flow_features import ops as ff
@@ -1480,7 +1760,15 @@ def main() -> int:
         log(f"[plan] {label}")
         log(OctopusPipeline(mlp, params, PipelineConfig(**pcfg)).explain())
 
-    # -- 11. LM serving: qwen3-0.6b at full width and depth
+    # -- 11. the dispatch modes and the two-level flow table
+    two_level_phase(torch, kernels, record_routes, cs, prefetch, TrafficConfig,
+                    TrafficGenerator, OctopusPipeline, PipelineConfig, mlp, cnn, card)
+
+    # -- 12. masked buckets
+    masked_phase(torch, ff, fx, ft, TrafficConfig, TrafficGenerator, OctopusPipeline,
+                 PipelineConfig, mlp, cnn, card)
+
+    # -- 13. LM serving: qwen3-0.6b at full width and depth
     t0 = time.perf_counter()
     lm_params = lm_mod.LM(lm_cfg, device=CARD).init(torch.Generator(device=CARD).manual_seed(0))
     torch.cuda.synchronize()
@@ -1494,12 +1782,12 @@ def main() -> int:
     if profile:
         profile_serve(torch, serving, lm_cfg, lm_params, prompts[:4], " f32")
 
-    # -- 12. LM card vs CPU
+    # -- 14. LM card vs CPU
     log(f"[lm card vs cpu] batch 1, a {LM_CPU_PROMPT}-token prompt, prefill + {LM_CPU_DECODES} "
         f"decode steps at full depth")
     lm_card_vs_cpu(torch, lm_mod, lm_cfg, lm_params, lm_rng)
 
-    # -- 13. LM serving at the registered compute dtype: bf16 activations on
+    # -- 15. LM serving at the registered compute dtype: bf16 activations on
     # the same f32 weights, the config from get_config unmodified
     bf_cfg = get_config(LM_ARCH)
     log(f"[lm bf16] {LM_ARCH} as registered (compute {bf_cfg.compute_dtype}, params "
@@ -1527,7 +1815,7 @@ def main() -> int:
     del lm_params
     torch.cuda.empty_cache()
 
-    # -- 14. gemma3-1b at full width, as registered
+    # -- 16. gemma3-1b at full width, as registered
     g_cfg = get_config(GEMMA_ARCH)
     t0 = time.perf_counter()
     g_params = lm_mod.LM(g_cfg, device=CARD).init(torch.Generator(device=CARD).manual_seed(0))
@@ -1545,7 +1833,7 @@ def main() -> int:
     del g_params
     torch.cuda.empty_cache()
 
-    # -- 15. records
+    # -- 17. records
     source = {name: f"src/repro_torch/csrc/{name}.cu" for name in results}
     source["mm_partials_sum"] = "src/repro_torch/csrc/mm_unfused_partials.cu"
     replaces = {"flow_update": "src/repro/kernels/flow_features/flow_features.py:78",

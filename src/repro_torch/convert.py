@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.util import Device, resolve_device
+from repro_torch.core.cold_store import ColdState, TwoLevelState
 from repro_torch.core.flow_tracker import PacketBatch, TrackerState
 from repro_torch.models.layers import AttnCache
 from repro_torch.runtime.quant import QuantScales
@@ -49,6 +50,18 @@ def _leaves(leaves: Iterable, device: Device) -> list[torch.Tensor]:
 
 def tracker_state_from_numpy(leaves: Iterable, *, device: Device = None) -> TrackerState:
     return TrackerState(*_leaves(leaves, device))
+
+
+def cold_state_from_numpy(leaves: Iterable, *, device: Device = None) -> ColdState:
+    """A reference ``ColdState`` seen leaf by leaf (``tick`` a 0-d array)."""
+    return ColdState(*_leaves(leaves, device))
+
+
+def two_level_state_from_numpy(hot: Iterable, cold: Iterable, *,
+                               device: Device = None) -> TwoLevelState:
+    """A reference ``TwoLevelState`` from its ``hot`` and ``cold`` leaves."""
+    return TwoLevelState(tracker_state_from_numpy(hot, device=device),
+                         cold_state_from_numpy(cold, device=device))
 
 
 def packet_batch_from_numpy(leaves: Iterable, *, device: Device = None) -> PacketBatch:

@@ -84,10 +84,16 @@ def _scatter_drop(table: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
 
 def segmented_update(state: ft.TrackerState, packets: ft.PacketBatch,
                      program: Optional[torch.Tensor] = None, *, top_n: int,
-                     keep: Optional[torch.Tensor] = None, fallback: str = "auto"
-                     ) -> tuple[ft.TrackerState, SegmentedOut]:
+                     keep: Optional[torch.Tensor] = None, fallback: str = "auto",
+                     with_spills: bool = False):
     """Merge a whole microbatch into the live tracker state in one pass,
-    bit-identical to scanning it packet by packet.
+    bit-identical to scanning it packet by packet.  Returns ``(state,
+    SegmentedOut)``, and with ``with_spills`` also the merge's
+    :class:`~repro_torch.core.flow_tracker.SpillRecords`, the same as the scan
+    oracle's: a non-colliding slot's eviction happens at its segment head, so
+    the pre-batch occupant goes to that packet's batch position; colliding
+    slots take the fallback's records.  ``state`` is read, never written (the
+    records read its rows after the fold).
 
     ``keep`` (optional (P,) bool) drops packets without changing shapes:
     dropped packets sort to the sentinel slot F, which every reduction and
@@ -168,21 +174,47 @@ def segmented_update(state: ft.TrackerState, packets: ft.PacketBatch,
         features=feats, series=series, sizes=sizes, payload=payload)
     new_flows = (establish & ~collide).sum().to(torch.int32)
     evicted = (evicted_f & ~collide).sum().to(torch.int32)
+    spills = _head_spills(state, s_slot, order, first, evicted_f) if with_spills else None
 
     if fallback == "always" or (fallback == "auto" and bool(collide.any())):
-        scan_state, outs = ft.process_packets(state, packets, program,
-                                              top_n=top_n, keep=keep)
+        scan = ft.process_packets(state, packets, program, top_n=top_n, keep=keep,
+                                  with_spills=with_spills)
+        scan_state, outs = scan[:2]
 
-        def pick(seg_leaf: torch.Tensor, scan_leaf: torch.Tensor) -> torch.Tensor:
-            m = collide.view(F, *[1] * (seg_leaf.dim() - 1))
-            return torch.where(m, scan_leaf, seg_leaf)
+        def pick(mask: torch.Tensor, seg_leaf: torch.Tensor,
+                 scan_leaf: torch.Tensor) -> torch.Tensor:
+            return torch.where(mask.view(-1, *[1] * (seg_leaf.dim() - 1)), scan_leaf, seg_leaf)
 
-        seg_state = ft.TrackerState(*map(pick, seg_state, scan_state))
+        seg_state = ft.TrackerState(*(pick(collide, a, b) for a, b in zip(seg_state, scan_state)))
         pkt_collides = collide[slots.long()]  # original batch order
         new_flows = new_flows + (outs.new_flow & pkt_collides).sum().to(torch.int32)
         evicted = evicted + (outs.evicted & pkt_collides).sum().to(torch.int32)
-    return seg_state, SegmentedOut(new_flows=new_flows, evicted=evicted,
-                                   fallback_slots=collide.sum().to(torch.int32))
+        if with_spills:
+            spills = ft.SpillRecords(*(pick(pkt_collides, a, b)
+                                       for a, b in zip(spills, scan[2])))
+    out = SegmentedOut(new_flows=new_flows, evicted=evicted,
+                       fallback_slots=collide.sum().to(torch.int32))
+    return (seg_state, out, spills) if with_spills else (seg_state, out)
+
+
+def _head_spills(state: ft.TrackerState, s_slot: torch.Tensor, order: torch.Tensor,
+                 first: torch.Tensor, evicted_f: torch.Tensor) -> ft.SpillRecords:
+    """The spill records of the non-colliding slots: each evicting segment
+    head's pre-batch occupant at the head's batch position.  Non-heads write
+    a scratch row P that is sliced off, so nothing waits on the host."""
+    F, P = state.tuple_id.shape[0], s_slot.shape[0]
+    live = s_slot < F
+    safe = torch.where(live, s_slot, 0).long()
+    ev_head = first & live & evicted_f[safe]
+    pos = torch.where(ev_head, order, P)
+    rec = ft.empty_spills(state, P + 1)
+    rec.mask[pos] = ev_head
+    rec.slot[pos] = torch.where(ev_head, s_slot, F).to(torch.int32)
+    for name in ("tuple_id", "count", "last_ts", "features", "series", "sizes", "payload"):
+        rows = getattr(state, name)[safe]
+        getattr(rec, name)[pos] = torch.where(
+            ev_head.view(-1, *[1] * (rows.dim() - 1)), rows, 0)
+    return ft.SpillRecords(*(leaf[:P] for leaf in rec))
 
 
 def derive_whole_features(feats: torch.Tensor) -> torch.Tensor:

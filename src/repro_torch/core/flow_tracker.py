@@ -113,16 +113,47 @@ class StepOut(NamedTuple):
     arv_intv: torch.Tensor  # inter-arrival time seen by the tracker (0 at establish)
 
 
+class SpillRecords(NamedTuple):
+    """One row per batch packet: the flow state an eviction overwrote, read
+    before the establishing write (the cold store's insert feed).  Rows with
+    ``mask == False`` are padding (slot == table_size, data zeros); the scan
+    and segmented trackers emit the same records."""
+
+    mask: torch.Tensor  # (P,) bool — this packet evicted a live flow
+    slot: torch.Tensor  # (P,) int32; table_size for padding rows
+    tuple_id: torch.Tensor  # (P,) int32
+    count: torch.Tensor  # (P,) int32
+    last_ts: torch.Tensor  # (P,) int32
+    features: torch.Tensor  # (P, 16) int32
+    series: torch.Tensor  # (P, top_n) int32
+    sizes: torch.Tensor  # (P, top_n) int32
+    payload: torch.Tensor  # (P, top_k, pay_bytes) int32
+
+
+def empty_spills(state: TrackerState, p: int) -> SpillRecords:
+    """``p`` padding rows shaped like ``state``'s leaves."""
+    z = lambda leaf: leaf.new_zeros((p, *leaf.shape[1:]))
+    return SpillRecords(
+        mask=torch.zeros(p, dtype=torch.bool, device=state.count.device),
+        slot=torch.full((p,), state.tuple_id.shape[0], dtype=torch.int32,
+                        device=state.count.device),
+        tuple_id=z(state.tuple_id), count=z(state.count), last_ts=z(state.last_ts),
+        features=z(state.features), series=z(state.series), sizes=z(state.sizes),
+        payload=z(state.payload))
+
+
 def process_packets(state: TrackerState, packets: PacketBatch, program: torch.Tensor,
-                    *, top_n: int, keep: Optional[torch.Tensor] = None
-                    ) -> tuple[TrackerState, StepOut]:
+                    *, top_n: int, keep: Optional[torch.Tensor] = None,
+                    with_spills: bool = False):
     """Order-exact oracle: the FPGA's serial per-packet semantics.
 
     Only packets of one slot depend on each other, so packets sort by slot
     (stable) and run round by round: round r applies the r-th packet of every
     slot at once.  A packet with ``keep == False`` is a complete no-op on the
     table and its :class:`StepOut` row is neutral (slot == table_size, all
-    flags False)."""
+    flags False).  Returns ``(state, StepOut)``; with ``with_spills`` also the
+    :class:`SpillRecords`, each evicted occupant read in its round before the
+    round writes its slot."""
     F = state.tuple_id.shape[0]
     top_k = state.payload.shape[1]
     P = packets.ts.shape[0]
@@ -142,6 +173,7 @@ def process_packets(state: TrackerState, packets: PacketBatch, program: torch.Te
     new_flow = torch.zeros_like(ready)
     evicted = torch.zeros_like(ready)
     arv_out = torch.zeros(P, dtype=torch.int32, device=dev)
+    spills = empty_spills(state, P) if with_spills else None
     rounds = int(rank.max()) + 1 if n_kept else 0
     for r in range(rounds):
         sel = order[rank == r]  # batch positions; their slots are distinct
@@ -157,6 +189,15 @@ def process_packets(state: TrackerState, packets: PacketBatch, program: torch.Te
         pay0 = torch.where(is_new[:, None, None], 0, st.payload[sl])
 
         arv = torch.where(count0 > 0, pkt.ts - st.last_ts[sl], 0).to(torch.int32)
+        if with_spills:  # the occupant, before this round's writes below
+            ev = occupied & ~hit
+            spills.mask[sel] = ev
+            spills.slot[sel] = torch.where(ev, sl, F).to(torch.int32)
+            for name in ("tuple_id", "count", "last_ts", "features", "series", "sizes",
+                         "payload"):
+                rows = getattr(st, name)[sl]
+                getattr(spills, name)[sel] = torch.where(
+                    ev.view(-1, *[1] * (rows.dim() - 1)), rows, 0)
         feats1 = apply_alu_program(program, build_meta(pkt, arv), feats0)
         # the vector memories keep the first top_n / top_k packets
         row = torch.arange(sel.shape[0], device=dev)
@@ -180,8 +221,9 @@ def process_packets(state: TrackerState, packets: PacketBatch, program: torch.Te
         new_flow[sel] = is_new
         evicted[sel] = occupied & ~hit
         arv_out[sel] = arv
-    return st, StepOut(slot=slot_eff.to(torch.int32), ready=ready,
-                       new_flow=new_flow, evicted=evicted, arv_intv=arv_out)
+    out = StepOut(slot=slot_eff.to(torch.int32), ready=ready, new_flow=new_flow,
+                  evicted=evicted, arv_intv=arv_out)
+    return (st, out, spills) if with_spills else (st, out)
 
 
 def _row_mask(slots: torch.Tensor, table_size: int) -> torch.Tensor:

@@ -195,3 +195,46 @@ class TrafficGenerator:
 
     def __iter__(self) -> Iterator[PacketBatch]:
         return self.batches(None)
+
+
+def prefetch(iterable, depth: int = 2) -> Iterator:
+    """Pull ``iterable`` on a background thread, staying up to ``depth``
+    items ahead of the consumer (a bounded queue: the producer blocks when
+    the consumer falls behind, so memory stays O(depth)).
+
+    The consumer sees exactly the source sequence, so a prefetched pipeline
+    run gives the same results; a producer error is raised again at the
+    consumer's next pull.  Use it with the overlapped pipeline to move batch
+    generation off the dispatch thread::
+
+        pipe.run(prefetch(gen.batches(steps), depth=2), steps=steps)
+
+    The producer runs ahead by up to ``depth`` items, so wrap only bounded
+    iterators you own.  The thread is a daemon and starts at the first
+    ``next()``, so an unconsumed prefetch costs nothing and an abandoned one
+    never blocks interpreter exit."""
+    import queue
+    import threading
+
+    if depth <= 0:
+        raise ValueError(f"depth must be positive, got {depth}")
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    end = object()  # sentinel: (end, exception-or-None) closes the stream
+
+    def produce() -> None:
+        try:
+            for item in iterable:
+                q.put(item)
+        except BaseException as e:  # noqa: BLE001 — raised again in the consumer
+            q.put((end, e))
+            return
+        q.put((end, None))
+
+    threading.Thread(target=produce, name="traffic-prefetch", daemon=True).start()
+    while True:
+        item = q.get()
+        if isinstance(item, tuple) and len(item) == 2 and item[0] is end:
+            if item[1] is not None:
+                raise item[1]
+            return
+        yield item

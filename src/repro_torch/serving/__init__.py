@@ -1,5 +1,6 @@
 from repro_torch.serving.packet_path import FlowEngine, PacketEngine, PathStats
 from repro_torch.serving.pipeline import (
+    InflightDispatch,
     LatencyReservoir,
     OctopusPipeline,
     PipelineConfig,

@@ -835,3 +835,68 @@ def test_int8_pipeline_on_card_matches_cpu(cuda):
     want = dict.fromkeys(counts, 0)
     want.update(flow_update=steps, vpe_mm_q=7 * steps, mm_fused_q=2 * steps)
     assert counts == want
+
+
+@pytest.mark.parametrize("policy", ["age", "lru"])
+def test_cold_store_on_card_matches_cpu(cuda, policy):
+    """promote, merge with spills, apply spills and scrub on the card against
+    the CPU, bit for bit, on a storm whose records share cold slots; the
+    card's cold leaves keep their storage."""
+    from repro_torch.core import cold_store as cs
+    from repro_torch.core.feature_extractor import segmented_update
+
+    F, C = 16, 13
+    states = {dev: cs.init_two_level(F, C, 4, 3, 4, device=dev) for dev in ("cpu", cuda)}
+    ptrs = [leaf.data_ptr() for leaf in states[cuda].cold]
+    rng = np.random.default_rng(7)
+    tuples = rng.integers(1, 10_000, size=40)
+    clock = 0
+    for rnd in range(10):
+        ts = clock + np.cumsum(rng.integers(1, 30, size=32))
+        clock = int(ts[-1])
+        leaves = [ts, rng.integers(40, 1500, 32), rng.integers(0, 2, 32), rng.integers(0, 64, 32),
+                  rng.integers(0, 3, 32), rng.choice(tuples, size=32), rng.integers(0, 256, (32, 4))]
+        keep = torch.as_tensor(rng.random(32) < 0.8)
+        for dev in ("cpu", cuda):
+            batch = ft.PacketBatch(*(torch.as_tensor(np.asarray(a, np.int32), device=dev)
+                                     for a in leaves))
+            k = keep.to(dev)
+            hot, cold, _ = cs.promote_pass(*states[dev], batch, k, policy=policy)
+            hot, _, spills = segmented_update(hot, batch, top_n=4, keep=k, with_spills=True)
+            cold, _ = cs.apply_spills(cold, spills, policy=policy)
+            states[dev] = cs.TwoLevelState(hot, cs.scrub_live(cold, hot, batch, k))
+        for level in ("hot", "cold"):
+            for a, b in zip(getattr(states[cuda], level), getattr(states["cpu"], level)):
+                assert torch.equal(a.cpu(), b), (rnd, level)
+    assert int(cs.cold_occupancy(states[cuda].cold)) > 0
+    assert [leaf.data_ptr() for leaf in states[cuda].cold] == ptrs
+
+
+def test_overlapped_chunked_two_level_pipeline_on_card_matches_eager(cuda):
+    """scan_len 4 with overlap on the card ends where the eager card loop
+    does (hot and cold leaves, rules, counters) and where the CPU does
+    (leaves, counters)."""
+    from repro_torch.data.traffic import prefetch
+
+    mlp = init_paper_model("mlp", torch.Generator().manual_seed(1), device="cpu")
+    cnn = init_paper_model("cnn", torch.Generator().manual_seed(2), device="cpu")
+    shape = dict(batch_size=256, max_ready=64, table_size=256, cold_size=4096)
+    gen = TrafficGenerator(TrafficConfig(batch_size=256, active_flows=2048, table_size=256,
+                                         collision_free=False), device="cpu")
+    batches = [gen.next_batch() for _ in range(12)]
+    pipes = [OctopusPipeline(mlp, cnn, PipelineConfig(**shape)),
+             OctopusPipeline(mlp, cnn, PipelineConfig(**shape, scan_len=4, overlap=True)),
+             OctopusPipeline(mlp, cnn, PipelineConfig(**shape), device="cpu")]
+    pipes[0].run(batches, steps=12)
+    pipes[1].run(prefetch(iter(batches)), steps=12)
+    pipes[2].run(batches, steps=12)
+    for pipe in pipes[1:]:
+        for level in ("hot", "cold"):
+            for a, b in zip(getattr(pipes[0].state, level), getattr(pipe.state, level)):
+                assert torch.equal(a.cpu(), b.cpu())
+        if pipe.device.type == "cuda":  # the CPU may decide near ties otherwise
+            assert pipe.rules.rules == pipes[0].rules.rules
+        assert (pipe.stats.spilled, pipe.stats.promoted) == (pipes[0].stats.spilled,
+                                                             pipes[0].stats.promoted)
+    assert pipes[0].stats.spilled > 0 and pipes[0].stats.promoted > 0
+    assert pipes[1].stats.dispatches == 3

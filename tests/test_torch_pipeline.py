@@ -126,13 +126,24 @@ def test_step_records_scoped_placement_and_path_stats_drop_empty_calls():
     assert (stats.calls, stats.items, stats.latency_us) == (1, 10, 5e5)
 
 
-@pytest.mark.parametrize("kw", [dict(scan_len=2), dict(overlap=True), dict(cold_size=64),
-                                dict(overlap=True, scan_len=3)])
-def test_pipeline_config_refuses_what_is_not_ported(kw):
-    with pytest.raises(NotImplementedError):
-        PipelineConfig(**kw)
-    with pytest.raises(ValueError, match="tracker"):
-        PipelineConfig(tracker="pallas")
+@pytest.mark.parametrize("kw", [
+    dict(scan_len=0), dict(cold_size=-1), dict(cold_size=8, cold_policy="fifo"),
+    dict(tracker="pallas"), dict(scan_len=2, overlap=True),
+    dict(scan_len=4, overlap=True, cold_size=1 << 20, cold_policy="lru"),
+], ids=["scan_len_0", "cold_size_negative", "bad_policy", "tracker_pallas", "overlap_chunks",
+        "two_level"])
+def test_pipeline_config_accepts_and_refuses_what_the_reference_does(kw):
+    try:
+        want = JPipelineConfig(**kw)
+    except ValueError as theirs:
+        with pytest.raises(ValueError) as ours:
+            PipelineConfig(**kw)
+        assert str(ours.value) == str(theirs)
+        return
+    got = PipelineConfig(**kw)
+    for name in ("scan_len", "overlap", "cold_size", "cold_policy", "tracker", "top_k",
+                 "pay_bytes"):
+        assert getattr(got, name) == getattr(want, name), name
 
 
 def test_pipeline_config_takes_the_transformer_with_the_reference_checks():
