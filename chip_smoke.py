@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # from the root of a checkout, on a machine with one card
     python3 chip_smoke.py --profile  # also trace 8 steps of the f32/int8 CNN and transformer
-                                     # pipelines and a short LM serve for the device-busy share
+                                     # pipelines, of 1, 2 and 4 sharded lanes and a short LM
+                                     # serve for the device-busy share
     python3 chip_smoke.py --kernel-times [--src DIR] [--label NAME]
                                      # only time the engine and flash kernels (see kernel_times)
 
@@ -98,25 +99,54 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  12. ``[pipeline masked]``: ``warm_bucket`` at 256 and 8192 packets, then
      ``step_masked`` on ragged keep masks at both sizes, card against CPU:
      tracker state and drained rows bit for bit, decisions identical except
-     near ties; the 8192 bucket runs ``flow_update``'s chunked variant;
- 13. ``[lm]``: LM serving, qwen3-0.6b at full width and depth in f32 compute
+     near ties; the 8192 bucket runs ``flow_update``'s chunked variant; then
+     each engine kernel against its plain version at the shapes the
+     buckets' recorded routes name, at phase 2's tolerances;
+ 13. ``[pipeline sharded]``: ``ShardedOctopusPipeline``, the lanes as one
+     lane-batched bank: CNN f32 at the 8k table for 64 steps, the single
+     lane's ``OctopusPipeline`` and then 1, 2 and 4 lanes, on the
+     collision-free traffic (pkt/s, step us host / exposed
+     device, launches a step: one ``flow_update`` a step whatever the lanes,
+     the rest as ``record_routes`` predicts); 40 steps card vs CPU at each
+     (the (S, F, ...) state, drained rows and counters bit for bit,
+     decisions except near ties), and against the single lane where the
+     reference's exactness preconditions hold (said where they do not);
+     then, each card vs CPU, the collision attack pinned to lane 0 of 4 in
+     rounds of 256 (4 ``flow_update`` a step), 4 two-level lanes of 2^18
+     cold entries ("age") on the 65536-flow traffic, and int8 at 2 lanes;
+     then each engine kernel (f32 and int8) against its plain version at
+     every per-lane shape those runs' recorded routes name, at phase 2's
+     tolerances;
+ 14. ``[service]``: ``OctopusService`` over the single lane and over 4 lanes,
+     buckets (256, 1024, 4096), 8 closed-loop clients (``serve_stream``) of
+     64-1500 packets a request, offload on and off, the clients' generators
+     live and replayed (made before the run): no kernel-library build and no
+     unwarmed bucket after ``start``, the queue back to 0, nothing shed;
+     inline, every request's buckets and verdicts (except near ties) and the
+     rule table equal the CPU port's on the same script; dispatches,
+     coalesced, padded, pkt/s, wait and end-to-end p50/p99, host/step split;
+     then the 4096-packet masked step alone on this thread and on a
+     one-thread executor, in turns, and each engine kernel against its plain
+     version at the shapes a masked step of each bucket runs it at, on both
+     pipelines;
+ 15. ``[lm]``: LM serving, qwen3-0.6b at full width and depth in f32 compute
      with seeded port-initialised weights: ``ServeEngine`` (4 slots, 512
      cache rows) serves 8 requests of 16-300 prompt tokens and 32 new tokens;
      every request's tokens equal its single-request greedy run, and the
      launch counts equal the prediction (197 ``mm_fused`` a forward, 28
      ``flash_fwd`` a prefill); prefill ms, decode ms a step and tok/s;
- 14. ``[lm card vs cpu]``: one 160-token request through ``LM.prefill`` and
+ 16. ``[lm card vs cpu]``: one 160-token request through ``LM.prefill`` and
      4 ``decode_step``s on the card and on the CPU, logits within
      ``LM_LOGIT_TOL`` of max|logit|, tokens identical except counted near ties;
- 15. ``[lm bf16]``: qwen3-0.6b as registered (bf16 activations on the same
+ 17. ``[lm bf16]``: qwen3-0.6b as registered (bf16 activations on the same
      f32 weights) serving the same requests: tokens equal, exactly, each
      request served alone at the same 4 slots, and its batch-1 greedy run
      except counted near ties under ``BF16_TIE_GAP`` (batch 1's plain decode
-     attention sums in another order); launches as in 13, times beside the
-     f32 run's; ``[lm bf16 card vs cpu]`` as 14 within ``BF16_LOGIT_TOL``,
+     attention sums in another order); launches as in 15, times beside the
+     f32 run's; ``[lm bf16 card vs cpu]`` as 16 within ``BF16_LOGIT_TOL``,
      with the request in all 4 slots held to the batch-1 card run the same
      way, and the f32-compute control's distance printed beside them;
- 16. ``[lm gemma3-1b]``: gemma3-1b at full width as registered (head_dim 256,
+ 18. ``[lm gemma3-1b]``: gemma3-1b at full width as registered (head_dim 256,
      the 512-token window, vocab 262144; its embed_scale makes the stack f32)
      serving 4 requests, one past the window: tokens equal the single-request
      runs except counted near ties under ``LM_LOGIT_TOL``, launches as
@@ -195,6 +225,17 @@ SPILL_TRAFFIC = dict(batch_size=1024, active_flows=65536, table_size=8192,
 TWO_LEVEL_STEPS, TWO_LEVEL_CPU_STEPS, CHUNK = 64, 16, 4
 # masked buckets: a small request batch, and one past flow_update's chunk
 BUCKETS, MASKED_STEPS = (256, 8192), 6
+# sharded lanes: one lane-batched bank of S lanes of the 8k table, 64 steps
+# timed and 40 against the CPU (flows first drain after ~30); the attack pins
+# every flow to lane 0 of 4, which a lane capacity of 256 splits into 4 rounds
+# a step; the two-level run keeps a 2^18-entry cold lane a lane (16 steps)
+SHARDS, SHARDED_STEPS, SHARDED_CPU_STEPS, LANE_SPILL_STEPS = (1, 2, 4), 64, 40, 16
+LANE_ATTACK = dict(ATTACK, adv_shards=4)
+ATTACK_LANE_BATCH, LANE_COLD = 256, 1 << 18
+# the async frontend: 8 closed-loop clients of ragged request sizes, 6 requests
+# each, over the bucket sizes of a small, a step-sized and a large batch
+SERVICE_BUCKETS = (256, 1024, 4096)
+SERVICE_SIZES, SERVICE_REQUESTS = (64, 150, 300, 512, 700, 1000, 1200, 1500), 6
 
 
 # qwen3-0.6b's logits in bf16 compute (28 layers), as shares of max|logit|.
@@ -392,6 +433,29 @@ def check_quant_matmuls(torch, engine, plain, shapes, gen, plan=None) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                 library_ms=lib_ms if lib_all else None, bytes=nbytes, flops=ops,
                 taken=taken, taken_ms=taken_ms, taken_library_ms=lib_ms)
+
+
+def note_shapes(kernels, routes, label: str, shapes: dict) -> None:
+    """Each recorded matmul's (m, k, n) under the kernel it launches, named
+    by the first run and layer that recorded it."""
+    for r in routes:
+        kernel = next(name for name, n in kernels.matmul_launches([r]).items() if n)
+        shapes.setdefault(kernel, {}).setdefault((r.m, r.k, r.n), f"{label} {r.name}")
+
+
+def check_recorded(checks: dict, shapes: dict, phase: str) -> dict:
+    """Each engine kernel against its plain version on the card at every
+    shape a phase's recorded routes name (``note_shapes``), through
+    ``checks[kernel]`` (``check_matmuls``/``check_quant_matmuls`` at phase
+    2's tolerances; they raise on a mismatch).  Returns each kernel's
+    largest error."""
+    errs = {}
+    for kernel, seen in sorted(shapes.items()):
+        log(f"  {kernel} at the {len(seen)} shapes {phase} launched it at, against its plain "
+            "version:")
+        errs[kernel] = checks[kernel]([(name, m, k, n) for (m, k, n), name in seen.items()]
+                                      )["max_abs_err"]
+    return errs
 
 
 def check_unfused(torch, arype, shapes, gen, bk: int | None) -> dict:
@@ -1392,10 +1456,12 @@ def two_level_phase(torch, kernels, record_routes, cs, prefetch, TrafficConfig,
         torch.cuda.empty_cache()
 
 
-def masked_phase(torch, ff, fx, ft, TrafficConfig, TrafficGenerator, OctopusPipeline,
-                 PipelineConfig, mlp, cnn, card) -> None:
+def masked_phase(torch, ff, fx, ft, kernels, record_routes, checks, TrafficConfig,
+                 TrafficGenerator, OctopusPipeline, PipelineConfig, mlp, cnn, card) -> dict:
     """Bucketed, keep-masked steps at 256 and 8192 packets, card against
-    CPU; the 8192 bucket folds through ``flow_update``'s chunked variant."""
+    CPU; the 8192 bucket folds through ``flow_update``'s chunked variant.
+    Then each engine kernel at the buckets' shapes against its plain
+    version; returns each kernel's largest error there."""
     log(f"[pipeline masked] CNN f32, {PIPE}; warm_bucket{BUCKETS}, step_masked on ragged keep "
         f"masks, card vs CPU")
     gpu = OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE))
@@ -1405,6 +1471,7 @@ def masked_phase(torch, ff, fx, ft, TrafficConfig, TrafficGenerator, OctopusPipe
     gen = TrafficGenerator(TrafficConfig(**TRAFFIC), device="cpu")
     rng = torch.Generator().manual_seed(5)
     near = flipped = 0
+    shapes = {}
     for step in range(MASKED_STEPS):
         bucket = BUCKETS[step % len(BUCKETS)]
         parts = [gen.next_batch() for _ in range(max(1, bucket // TRAFFIC["batch_size"]))]
@@ -1412,8 +1479,10 @@ def masked_phase(torch, ff, fx, ft, TrafficConfig, TrafficGenerator, OctopusPipe
         keep = torch.rand(bucket, generator=rng) < (0.5 + 0.4 * torch.rand(1, generator=rng))
         plan = ff.flow_plan(bucket, PIPE["table_size"])
         before = ff.FLOW_UPDATE.launches
-        out_g = gpu.step_masked(batch, keep)
+        with record_routes() as routes:
+            out_g = gpu.step_masked(batch, keep)
         launched = ff.FLOW_UPDATE.launches - before
+        note_shapes(kernels, routes, f"bucket {bucket}", shapes)
         out_c = cpu.step_masked(batch, keep)
         if launched != 1:
             raise AssertionError(f"bucket {bucket}: {launched} flow_update launches")
@@ -1436,6 +1505,354 @@ def masked_phase(torch, ff, fx, ft, TrafficConfig, TrafficGenerator, OctopusPipe
     log(f"  {s.steps} masked steps: {s.packets} packets, {s.padded} padding rows, {s.flows} "
         f"flows; decisions identical except {flipped} of {near} near ties; step "
         f"{s.step_us:.1f} us (host {s.host_us:.1f} / exposed device {s.device_us:.1f}) [{card}]")
+    return check_recorded(checks, shapes, "the masked steps")
+
+
+def lane_steps(torch, kernels, record_routes, pipe, batches, label: str, card: str,
+               shapes: dict, rounds: int = 1):
+    """Warm up, record one step's matmuls (their shapes into ``shapes``),
+    then run the batches with the launch counts set to 0 just before and
+    read just after: they must equal what the recorded routes launch plus
+    ``rounds`` ``flow_update`` a step.  Prints pkt/s, step us with its host /
+    exposed device split and the launches a step.  Returns the stats."""
+    pipe.warmup()
+    with record_routes() as routes:
+        pipe.step(batches[0])
+    note_shapes(kernels, routes, label, shapes)
+    pipe.reset()
+    kernels.reset_launches()
+    stats = pipe.run(batches, steps=len(batches))
+    counts = kernels.launches()
+    want = kernels.matmul_launches(routes, len(batches))
+    want["flow_update"] += rounds * len(batches)
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts}, expected {want}")
+    n = len(batches)
+    log(f"  {label}: {stats.pkt_per_s:.1f} pkt/s, step {stats.step_us:.1f} us (host "
+        f"{stats.host_s / n * 1e6:.1f} / exposed device {stats.device_s / n * 1e6:.1f}), "
+        f"{stats.dispatches} dispatches, flows {stats.flows}, evicted {stats.evicted}, spilled "
+        f"{stats.spilled}, promoted {stats.promoted}, fallback steps {stats.fallback_steps}; "
+        f"launches a step { {k: v / n for k, v in counts.items() if v} } [{card}]")
+    return stats
+
+
+def decided_alike(torch, fx, label: str, cpu, out_g, out_c, batch) -> tuple[int, int]:
+    """Packet verdicts and flow classes of a card step against the CPU's:
+    equal except where the CPU's logits are within ``NEAR_TIE`` of a tie
+    (packet logits on the batch, flow logits on the drained rows in one
+    call).  Returns ``(near ties, decisions that differ)``."""
+    logits = cpu.packet_engine.fn(cpu.packet_engine.params, fx.packet_meta_features(batch))
+    tie = (logits[:, 1] - logits[:, 0]).abs() < NEAR_TIE
+    differ = out_g.pkt_actions.cpu() != out_c.pkt_actions
+    mask = out_c.drained.mask
+    flow_x = cpu.flow_engine.prep(out_c.drained.series, out_c.drained.payload)
+    top2 = cpu.flow_engine.fn(cpu.flow_engine.params, flow_x).topk(2, dim=-1).values
+    flow_tie = ((top2[:, 0] - top2[:, 1]) < NEAR_TIE) & mask
+    flow_differ = (out_g.flow_cls.cpu() != out_c.flow_cls) & mask
+    if (differ & ~tie).any() or (flow_differ & ~flow_tie).any():
+        raise AssertionError(f"{label}: decisions differ away from a near tie")
+    return int(tie.sum() + flow_tie.sum()), int(differ.sum() + flow_differ.sum())
+
+
+def lanes_card_vs_cpu(torch, fx, gpu, cpu, batches, label: str) -> None:
+    """The card's and the CPU's sharded pipelines over the same batches: the
+    (S, F, ...) state (and cold lanes), drained rows and step counters bit for
+    bit every step, decisions except near ties, the rule table and the
+    stats counters."""
+    near = flipped = 0
+    for step, batch in enumerate(batches):
+        out_g, out_c = gpu.step(batch), cpu.step(batch)
+        same_tree(torch, f"{label} step {step} state", gpu.state, cpu.state)
+        same_tree(torch, f"{label} step {step} drained", out_g.drained, out_c.drained)
+        for name in ("new_flows", "evicted", "fallback_slots", "spilled", "promoted"):
+            if int(getattr(out_g, name)) != int(getattr(out_c, name)):
+                raise AssertionError(f"{label} step {step}: {name} differs")
+        n, f = decided_alike(torch, fx, f"{label} step {step}", cpu, out_g, out_c, batch)
+        near, flipped = near + n, flipped + f
+    if not flipped and gpu.rules.rules != cpu.rules.rules:
+        raise AssertionError(f"{label}: rule tables differ with identical decisions")
+    for name in ("packets", "flows", "new_flows", "evicted", "spilled", "promoted",
+                 "fallback_steps", "dispatches", "padded"):
+        if getattr(gpu.stats, name) != getattr(cpu.stats, name):
+            raise AssertionError(f"{label}: stats.{name} differs")
+    log(f"  {label}: state, drained rows and counters equal the CPU's over {len(batches)} "
+        f"steps (flows {cpu.stats.flows}, evicted {cpu.stats.evicted}, spilled "
+        f"{cpu.stats.spilled}, promoted {cpu.stats.promoted}); decisions identical except "
+        f"{flipped} of {near} near ties")
+
+
+def drained_union(out, dst: dict, classes: dict) -> None:
+    """Each drained flow's snapshot (slot, count, leaves) and its flow class,
+    by tuple."""
+    for i in out.drained.mask.nonzero().squeeze(1).tolist():
+        tid = int(out.drained.tuple_id[i])
+        dst.setdefault(tid, []).append(tuple(
+            getattr(out.drained, name)[i].cpu().reshape(-1).tolist()
+            for name in ("slots", "count", "features", "series", "sizes", "payload")))
+        classes.setdefault(tid, []).append(int(out.flow_cls[i]))
+
+
+def sharded_phase(torch, fx, ft, kernels, record_routes, checks, TrafficConfig,
+                  TrafficGenerator, OctopusPipeline, ShardedOctopusPipeline, PipelineConfig, mlp,
+                  cnn, int8, card, profile: bool = False) -> dict:
+    """The sharded lanes as one lane-batched bank: S = 1, 2, 4 on the
+    collision-free traffic (timed beside the single lane, card vs CPU, and
+    against the single lane where the exactness preconditions hold; with
+    ``profile`` each S's device-busy share over 8 traced steps), then the
+    lane-0 collision attack in rounds, a two-level run and an int8 run, each
+    card vs CPU.  Last, each engine kernel against its plain version at
+    every per-lane shape those runs' recorded routes name (the flow engine
+    at ``max_ready / S`` rows moves layers between engines); returns each
+    kernel's largest error there."""
+    batches = make_batches(TrafficConfig, TrafficGenerator, TRAFFIC, SHARDED_STEPS, "cpu")
+    cpu_batches = batches[:SHARDED_CPU_STEPS]
+    log(f"[pipeline sharded] CNN f32, {PIPE}, traffic {TRAFFIC}, lanes {SHARDS}: "
+        f"{SHARDED_STEPS} steps timed, {SHARDED_CPU_STEPS} card vs CPU and against the single "
+        "lane")
+    shapes = {}
+    single = OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE))
+    lane_steps(torch, kernels, record_routes, single, batches, "single lane (OctopusPipeline)",
+               card, shapes)
+    single.reset()
+    single_acts, single_union, single_cls, single_backlog = [], {}, {}, 0
+    for batch in cpu_batches:
+        out = single.step(batch)
+        single_acts.append(out.pkt_actions.cpu())
+        drained_union(out, single_union, single_cls)
+        single_backlog += int(ft.ready_mask(single.state, top_n=single.cfg.top_n).sum())
+    for S in SHARDS:
+        label = f"{S} lane{'s' if S > 1 else ''}"
+        pipe = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=S)
+        stats = lane_steps(torch, kernels, record_routes, pipe, batches, label, card, shapes)
+        if stats.dispatches != SHARDED_STEPS:
+            raise AssertionError(f"{label}: {stats.dispatches} dispatches")
+        if profile:
+            profile_steps(torch, pipe, batches[:8], stats.step_us)
+        del pipe
+        gpu = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=S)
+        cpu = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=S,
+                                     device="cpu")
+        lanes_card_vs_cpu(torch, fx, gpu, cpu, cpu_batches, f"{label} card vs cpu")
+        if not cpu.stats.flows:
+            raise AssertionError(f"{label}: no flow drained in {SHARDED_CPU_STEPS} steps")
+        # the JAX package's exactness preconditions: no slot shared by two
+        # live flows of different lanes (collision-free traffic shares none;
+        # a new flow may still evict a dead one of another lane, which only
+        # leaves a stale row that never drains) and no ready flow held back
+        gpu.reset()
+        union, classes, backlog, same_acts = {}, {}, 0, True
+        for batch, acts in zip(cpu_batches, single_acts):
+            out = gpu.step(batch)
+            same_acts &= torch.equal(out.pkt_actions.cpu(), acts)
+            drained_union(out, union, classes)
+            backlog += int((gpu.state.count >= cpu.cfg.top_n).sum())
+        if not TrafficConfig(**TRAFFIC).collision_free or backlog or single_backlog:
+            log(f"  {label} vs the single lane: preconditions do not hold (collision-free "
+                f"{TrafficConfig(**TRAFFIC).collision_free}, ready flows held back {backlog} "
+                f"sharded / {single_backlog} single): not compared")
+        elif union != single_union or not same_acts:
+            raise AssertionError(f"{label}: drained flows or packet verdicts differ from the "
+                                 "single lane's")
+        else:
+            n = sum(map(len, union.values()))
+            same_cls = sum(a == b for t in classes for a, b in zip(classes[t], single_cls[t]))
+            log(f"  {label} vs the single lane: the {n} drained flow snapshots and every packet "
+                f"verdict equal over {SHARDED_CPU_STEPS} steps, flow classes equal on {same_cls} "
+                f"of {n} (each lane's flow engine runs at its own M, so its routes may differ); "
+                f"dead flows evicted: {single.stats.evicted} single, {gpu.stats.evicted} sharded")
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    # the attack: every flow in lane 0, 4 rounds of 256 a step
+    attack = make_batches(TrafficConfig, TrafficGenerator, LANE_ATTACK, 16, "cpu")
+    if any((ft.shard_of(b.tuple_hash, 4) != 0).any() for b in attack):
+        raise AssertionError("the lane-0 attack put a packet outside lane 0")
+    rounds = PIPE["batch_size"] // ATTACK_LANE_BATCH
+    kw = dict(num_shards=4, lane_batch=ATTACK_LANE_BATCH)
+    log(f"  collision attack {LANE_ATTACK}, 4 lanes, lane_batch {ATTACK_LANE_BATCH}:")
+    pipe = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), **kw)
+    stats = lane_steps(torch, kernels, record_routes, pipe, attack, "attack", card, shapes,
+                       rounds=rounds)
+    if stats.dispatches != rounds * len(attack) or stats.fallback_steps != len(attack):
+        raise AssertionError(f"attack: {stats.dispatches} dispatches, "
+                             f"{stats.fallback_steps} fallback steps")
+    lanes_card_vs_cpu(torch, fx, ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), **kw),
+                      ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), device="cpu",
+                                             **kw), attack[:8], "attack card vs cpu")
+    del pipe
+    # two-level lanes on the colliding traffic
+    spill = make_batches(TrafficConfig, TrafficGenerator, SPILL_TRAFFIC, LANE_SPILL_STEPS, "cpu")
+    cfg = PipelineConfig(**PIPE, cold_size=LANE_COLD, cold_policy="age")
+    log(f"  two-level, 4 lanes, cold_size {LANE_COLD} a lane (age), traffic {SPILL_TRAFFIC}:")
+    pipe = ShardedOctopusPipeline(mlp, cnn, cfg, num_shards=4)
+    stats = lane_steps(torch, kernels, record_routes, pipe, spill, "two-level", card, shapes)
+    if not (stats.spilled and stats.promoted):
+        raise AssertionError(f"two-level: spilled {stats.spilled}, promoted {stats.promoted}")
+    del pipe
+    torch.cuda.empty_cache()
+    lanes_card_vs_cpu(torch, fx, ShardedOctopusPipeline(mlp, cnn, cfg, num_shards=4),
+                      ShardedOctopusPipeline(mlp, cnn, cfg, num_shards=4, device="cpu"), spill,
+                      "two-level card vs cpu")
+    torch.cuda.empty_cache()
+    # int8 at 2 lanes
+    log("  int8 (the phase-5 full table), 2 lanes:")
+    pipe = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=2, config=int8)
+    lane_steps(torch, kernels, record_routes, pipe, batches, "int8", card, shapes)
+    if kernels.launches()["vpe_mm"] or kernels.launches()["mm_fused"]:
+        raise AssertionError("the int8 lanes launched an f32 engine kernel")
+    lanes_card_vs_cpu(
+        torch, fx, ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=2,
+                                          config=int8),
+        ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=2, config=int8,
+                               device="cpu"), cpu_batches, "int8 card vs cpu")
+    return check_recorded(checks, shapes, "the lanes")
+
+
+class Replay:
+    """A client's requests made before the run, served through
+    ``serve_stream`` as a generator's are: the run then times the frontend
+    without the generator's Python work (which holds the interpreter lock
+    while an offloaded dispatch runs)."""
+
+    def __init__(self, gen, n: int):
+        self.client_id = gen.client_id
+        self._batches = list(gen.batches(n))
+
+    def batches(self, n: int):
+        return iter(self._batches[:n])
+
+
+def service_phase(torch, fx, build, serving, kernels, record_routes, checks, TrafficConfig,
+                  TrafficGenerator, OctopusPipeline, ShardedOctopusPipeline, PipelineConfig, mlp,
+                  cnn, card) -> dict:
+    """``OctopusService`` over the single lane and 4 lanes, offload on and
+    off, with the clients' generators running live and replayed: 8
+    closed-loop clients, ragged sizes; no kernel-library build and no
+    unwarmed bucket after ``start``, the queue drained; inline, every
+    request's verdicts and the rule table equal the CPU port's on the same
+    script.  Then each engine kernel against its plain version at the
+    shapes a masked step of every bucket runs it at, on both pipelines;
+    returns each kernel's largest error there."""
+    import asyncio
+
+    log(f"[service] CNN f32, {PIPE}; buckets {SERVICE_BUCKETS}, {len(SERVICE_SIZES)} "
+        f"closed-loop clients of {SERVICE_SIZES} packets, {SERVICE_REQUESTS} requests each")
+    live = lambda: [TrafficGenerator(TrafficConfig(
+        batch_size=n, active_flows=PIPE["table_size"] // 16, table_size=PIPE["table_size"],
+        seed=100 + i, client_id=i), device="cpu") for i, n in enumerate(SERVICE_SIZES)]
+    replayed = lambda: [Replay(g, SERVICE_REQUESTS) for g in live()]
+    requests = [list(g.batches(SERVICE_REQUESTS)) for g in live()]
+    budget = 4 * sum(SERVICE_SIZES)
+    shapes = {}
+
+    def serve(pipe, offload: bool, clients: list):
+        svc = serving.OctopusService(pipe, serving.ServiceConfig(
+            buckets=SERVICE_BUCKETS, depth_budget=budget, offload=offload))
+        seen = []
+        plain = pipe.step_masked
+
+        def watched(batch, keep):
+            seen.append((int(batch.ts.shape[0]), set(pipe._warm_buckets)))
+            return plain(batch, keep)
+
+        async def run():
+            async with svc:
+                lib = (build._lib, build.build_seconds, set(pipe._warm_buckets))
+                pipe.step_masked = watched
+                outs = await asyncio.gather(*(serving.serve_stream(svc, g, requests=SERVICE_REQUESTS)
+                                              for g in clients))
+                depth = svc.queue_depth
+            return outs, lib, depth
+
+        outs, (lib, built, warmed), depth = asyncio.run(run())
+        del pipe.step_masked
+        if (build._lib, build.build_seconds) != (lib, built):
+            raise AssertionError("the kernel library was built after start")
+        if any(b not in warmed or before != warmed for b, before in seen) or not seen:
+            raise AssertionError(f"a dispatch rode a bucket start had not warmed: {seen}")
+        if depth or svc.stats.shed or svc.stats.served != SERVICE_REQUESTS * sum(SERVICE_SIZES):
+            raise AssertionError(f"queue depth {depth}, shed {svc.stats.shed}, served "
+                                 f"{svc.stats.served}")
+        return svc, outs
+
+    for label, make in (
+            ("single lane", lambda dev: OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE),
+                                                       device=dev)),
+            ("4 lanes", lambda dev: ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE),
+                                                          num_shards=4, device=dev))):
+        for offload, source, gens in ((True, "live", live), (False, "live", live),
+                                      (True, "replayed", replayed),
+                                      (False, "replayed", replayed)):
+            pipe = make(None)
+            svc, outs = serve(pipe, offload, gens())
+            s = svc.stats
+            log(f"  {label}, offload {'on' if offload else 'off'}, clients {source}: "
+                f"{s.dispatches} dispatches, "
+                f"{s.coalesced} coalesced, {s.padded} padded, {s.pkt_per_s:.1f} pkt/s; wait p50 "
+                f"{s.wait.p50:.1f} / p99 {s.wait.p99:.1f} us, end to end p50 {s.e2e.p50:.1f} / "
+                f"p99 {s.e2e.p99:.1f} us; a dispatch host {s.host_us:.1f} / step "
+                f"{s.device_us:.1f} us; pipeline step {pipe.stats.step_us:.1f} us (host "
+                f"{pipe.stats.host_us:.1f} / exposed device {pipe.stats.device_us:.1f}) [{card}]")
+            if offload or source != "live":
+                continue
+            cpu = make("cpu")
+            cpu_svc, cpu_outs = serve(cpu, offload, live())
+            near = flipped = 0
+            for client, (got, want, batches) in enumerate(zip(outs, cpu_outs, requests)):
+                for k, (g, w, batch) in enumerate(zip(got, want, batches)):
+                    if g.buckets != w.buckets:
+                        raise AssertionError(f"client {client} request {k}: buckets "
+                                             f"{g.buckets}, CPU {w.buckets}")
+                    logits = cpu.packet_engine.fn(cpu.packet_engine.params,
+                                                  fx.packet_meta_features(batch))
+                    tie = ((logits[:, 1] - logits[:, 0]).abs() < NEAR_TIE).numpy()
+                    differ = g.pkt_actions != w.pkt_actions
+                    if (differ & ~tie).any():
+                        raise AssertionError(f"client {client} request {k}: verdicts differ "
+                                             "away from a near tie")
+                    near, flipped = near + int(tie.sum()), flipped + int(differ.sum())
+            if not flipped and pipe.rules.rules != cpu.rules.rules:
+                raise AssertionError(f"{label}: rule tables differ with identical verdicts")
+            for name in ("dispatches", "coalesced", "padded"):
+                if getattr(s, name) != getattr(cpu_svc.stats, name):
+                    raise AssertionError(f"{label}: {name} differs from the CPU's")
+            log(f"    card vs cpu (inline): every request's buckets and verdicts equal except "
+                f"{flipped} of {near} near ties; rule tables "
+                f"{'equal' if pipe.rules.rules == cpu.rules.rules else 'differ at the ties'}")
+            del cpu
+        # the shapes a dispatch of each bucket runs the engines at
+        for bucket in SERVICE_BUCKETS:
+            batch, = make_batches(TrafficConfig, TrafficGenerator, dict(TRAFFIC, batch_size=bucket),
+                                  1, "cpu")
+            with record_routes() as routes:
+                pipe.step_masked(batch, torch.ones(bucket, dtype=torch.bool))
+            note_shapes(kernels, routes, f"{label} bucket {bucket}", shapes)
+        del pipe
+        torch.cuda.empty_cache()
+    # the same masked step on this thread and on a one-thread executor, as
+    # the service dispatches inline and offloaded, with nothing else running
+    from concurrent.futures import ThreadPoolExecutor
+
+    top = SERVICE_BUCKETS[-1]
+    batches = make_batches(TrafficConfig, TrafficGenerator, dict(
+        batch_size=top, active_flows=PIPE["table_size"] // 2, table_size=PIPE["table_size"],
+        collision_free=False, seed=3), 8, "cpu")
+    keep = torch.ones(top, dtype=torch.bool)
+    pipe = OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE))
+    pipe.warm_bucket(top)
+    times = {"this thread": [], "executor": []}
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        for where in ("this thread", "executor", "executor", "this thread"):
+            t0 = time.perf_counter()
+            for batch in batches:
+                if where == "executor":
+                    pool.submit(pipe.step_masked, batch, keep).result()
+                else:
+                    pipe.step_masked(batch, keep)
+            times[where].append((time.perf_counter() - t0) / len(batches) * 1e3)
+    log(f"  a {top}-packet masked step alone, ms a call (runs in turns a, b, b, a): "
+        + "; ".join(f"{where} {', '.join(f'{t:.2f}' for t in ts)}" for where, ts in times.items())
+        + f" [{card}]")
+    return check_recorded(checks, shapes, "the service's buckets")
 
 
 def _leaves(tree):
@@ -1497,7 +1914,7 @@ def main() -> int:
     from repro_torch.models import transformer as lm_mod
     from repro_torch.models.paper_models import cnn_apply, init_paper_model
     from repro_torch.runtime import RuntimeConfig, record_routes
-    from repro_torch.serving import OctopusPipeline, PipelineConfig
+    from repro_torch.serving import OctopusPipeline, PipelineConfig, ShardedOctopusPipeline
 
     # -- 1. device and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1514,16 +1931,23 @@ def main() -> int:
     # -- 2. kernels vs plain versions
     gen = torch.Generator().manual_seed(0)
     fused_q_plan = lambda m, k, n: arype.mm_fused_q_plan(m, k, n, arype.sm_count(torch.device(0)))
+    # each engine kernel against its plain version at a list of shapes
+    checks = {
+        "vpe_mm": lambda shapes: check_matmuls(torch, vpe_matmul, vpe_mm, shapes, gen),
+        "mm_fused": lambda shapes: check_matmuls(torch, arype.arype_matmul, arype.mm_fused,
+                                                 shapes, gen, plan=arype.card_plan),
+        "vpe_mm_q": lambda shapes: check_quant_matmuls(torch, vpe_matmul_q, vpe_mm_q, shapes,
+                                                       gen, plan=vpe_q_plan),
+        "mm_fused_q": lambda shapes: check_quant_matmuls(
+            torch, arype.arype_matmul_q, arype.mm_fused_q, shapes, gen, plan=fused_q_plan),
+    }
     log("[kernels] each kernel against its plain version on the card")
     results = {
         "flow_update": check_flow_update(torch, ff, gen),
-        "vpe_mm": check_matmuls(torch, vpe_matmul, vpe_mm, VPE_SHAPES, gen),
-        "mm_fused": check_matmuls(torch, arype.arype_matmul, arype.mm_fused, ARYPE_SHAPES, gen,
-                                  plan=arype.card_plan),
-        "vpe_mm_q": check_quant_matmuls(torch, vpe_matmul_q, vpe_mm_q, VPE_SHAPES, gen,
-                                        plan=vpe_q_plan),
-        "mm_fused_q": check_quant_matmuls(torch, arype.arype_matmul_q, arype.mm_fused_q,
-                                          ARYPE_SHAPES, gen, plan=fused_q_plan),
+        "vpe_mm": checks["vpe_mm"](VPE_SHAPES),
+        "mm_fused": checks["mm_fused"](ARYPE_SHAPES),
+        "vpe_mm_q": checks["vpe_mm_q"](VPE_SHAPES),
+        "mm_fused_q": checks["mm_fused_q"](ARYPE_SHAPES),
         "mm_unfused_partials": check_unfused(torch, arype, UNFUSED_SHAPES, gen, UNFUSED_BK),
         "mm_partials_sum": check_partials_sum(torch, arype, gen, UNFUSED_BK),
     }
@@ -1765,10 +2189,23 @@ def main() -> int:
                     TrafficGenerator, OctopusPipeline, PipelineConfig, mlp, cnn, card)
 
     # -- 12. masked buckets
-    masked_phase(torch, ff, fx, ft, TrafficConfig, TrafficGenerator, OctopusPipeline,
-                 PipelineConfig, mlp, cnn, card)
+    phase_errs = [masked_phase(torch, ff, fx, ft, kernels, record_routes, checks, TrafficConfig,
+                               TrafficGenerator, OctopusPipeline, PipelineConfig, mlp, cnn, card)]
 
-    # -- 13. LM serving: qwen3-0.6b at full width and depth
+    # -- 13. sharded lanes, one lane-batched bank
+    phase_errs.append(sharded_phase(
+        torch, fx, ft, kernels, record_routes, checks, TrafficConfig, TrafficGenerator,
+        OctopusPipeline, ShardedOctopusPipeline, PipelineConfig, mlp, cnn, int8, card, profile))
+
+    # -- 14. the async serving frontend
+    phase_errs.append(service_phase(
+        torch, fx, build, serving, kernels, record_routes, checks, TrafficConfig,
+        TrafficGenerator, OctopusPipeline, ShardedOctopusPipeline, PipelineConfig, mlp, cnn, card))
+    for errs in phase_errs:
+        for name, err in errs.items():
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+    # -- 15. LM serving: qwen3-0.6b at full width and depth
     t0 = time.perf_counter()
     lm_params = lm_mod.LM(lm_cfg, device=CARD).init(torch.Generator(device=CARD).manual_seed(0))
     torch.cuda.synchronize()
@@ -1782,12 +2219,12 @@ def main() -> int:
     if profile:
         profile_serve(torch, serving, lm_cfg, lm_params, prompts[:4], " f32")
 
-    # -- 14. LM card vs CPU
+    # -- 16. LM card vs CPU
     log(f"[lm card vs cpu] batch 1, a {LM_CPU_PROMPT}-token prompt, prefill + {LM_CPU_DECODES} "
         f"decode steps at full depth")
     lm_card_vs_cpu(torch, lm_mod, lm_cfg, lm_params, lm_rng)
 
-    # -- 15. LM serving at the registered compute dtype: bf16 activations on
+    # -- 17. LM serving at the registered compute dtype: bf16 activations on
     # the same f32 weights, the config from get_config unmodified
     bf_cfg = get_config(LM_ARCH)
     log(f"[lm bf16] {LM_ARCH} as registered (compute {bf_cfg.compute_dtype}, params "
@@ -1815,7 +2252,7 @@ def main() -> int:
     del lm_params
     torch.cuda.empty_cache()
 
-    # -- 16. gemma3-1b at full width, as registered
+    # -- 18. gemma3-1b at full width, as registered
     g_cfg = get_config(GEMMA_ARCH)
     t0 = time.perf_counter()
     g_params = lm_mod.LM(g_cfg, device=CARD).init(torch.Generator(device=CARD).manual_seed(0))
@@ -1833,7 +2270,7 @@ def main() -> int:
     del g_params
     torch.cuda.empty_cache()
 
-    # -- 17. records
+    # -- 19. records
     source = {name: f"src/repro_torch/csrc/{name}.cu" for name in results}
     source["mm_partials_sum"] = "src/repro_torch/csrc/mm_unfused_partials.cu"
     replaces = {"flow_update": "src/repro/kernels/flow_features/flow_features.py:78",

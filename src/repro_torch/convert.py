@@ -9,7 +9,9 @@ reference's ``QuantScales.to_dict()`` (also the ``quant_scales`` block of its
 calibration artifact).  An LM's parameter tree and cache arrive as the
 reference's nested dicts with numpy leaves (``jax.tree.map(np.asarray,
 tree)``; a cache's ``AttnCache`` tuples stay tuples) and keep their
-structure, stacked leading axes included.
+structure, stacked leading axes included.  A sharded pipeline's stacked
+state (tracker leaves (S, F, ...), cold leaves (S, C, ...), clocks (S,))
+converts through the same functions, leaf by leaf.
 """
 from __future__ import annotations
 

@@ -30,6 +30,12 @@ of records.
 Every function here writes the leaves it is given in place, with indexed
 writes whose size follows the batch, never the table: the pipeline owns its
 state, and a copy of a 2^20-entry cold bank would cost more than the step.
+
+**Lanes.**  With ``lanes`` S > 1 the hot table is a bank of S lanes
+(:func:`~repro_torch.core.flow_tracker.lane_slot`) and the cold table one of
+S lanes of C entries, lane-major, with one insert ``tick`` a lane ((S,)):
+a tuple's cold candidates lie in its own lane, so lanes never touch each
+other's entries, and under ``lru`` each lane stamps with its own clock.
 """
 from __future__ import annotations
 
@@ -58,7 +64,7 @@ class ColdState(NamedTuple):
     sizes: torch.Tensor  # (C, top_n) int32
     payload: torch.Tensor  # (C, top_k, pay_bytes) int32
     stamp: torch.Tensor  # (C,) int32 — eviction key (policy-defined)
-    tick: torch.Tensor  # () int32 — inserts so far (the lru clock)
+    tick: torch.Tensor  # () int32 — inserts so far (the lru clock); (S,) in a lane bank
 
 
 class TwoLevelState(NamedTuple):
@@ -91,18 +97,27 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo * c + (((hi * c) & 0xFFFF) << 16)) & 0xFFFFFFFF
 
 
-def cold_slots(tuple_hash: torch.Tensor, cold_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+def cold_slots(tuple_hash: torch.Tensor, cold_size: int, lanes: int = 1,
+               lane: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The tuple's two cold candidate slots (int32): two multiplicative
     mixers on the uint32 hash, ``a = h * 0x85EBCA6B; a ^= a >> 13`` and
     ``b = h * 0xC2B2AE35; b ^= b >> 16`` mod 2^32, each mod ``cold_size``,
     apart from the hot table's :func:`~repro_torch.core.flow_tracker.hash_slot`
-    so hot and cold collisions do not correlate."""
+    so hot and cold collisions do not correlate.  In a bank of ``lanes``
+    lanes of ``cold_size / lanes`` entries both lie in the tuple's lane
+    (``lane``, by default ``shard_of(h, lanes)``)."""
+    c = cold_size // lanes
     h = tuple_hash.to(torch.int64) & 0xFFFFFFFF
     a = _mul32(h, _MIX_A)
     b = _mul32(h, _MIX_B)
     a = a ^ (a >> 13)
     b = b ^ (b >> 16)
-    return (a % cold_size).to(torch.int32), (b % cold_size).to(torch.int32)
+    a, b = (a % c).to(torch.int32), (b % c).to(torch.int32)
+    if lanes == 1:
+        return a, b
+    if lane is None:
+        lane = ft.shard_of(tuple_hash, lanes)
+    return ft.lane_row(lane, a, c), ft.lane_row(lane, b, c)
 
 
 def cold_slots_scalar(tuple_hash: int, cold_size: int) -> tuple[int, int]:
@@ -117,6 +132,26 @@ def cold_slots_scalar(tuple_hash: int, cold_size: int) -> tuple[int, int]:
 def _check_policy(policy: str) -> None:
     if policy not in COLD_POLICIES:
         raise ValueError(f"policy must be one of {COLD_POLICIES}, got {policy!r}")
+
+
+def _lane_stamps(tick: torch.Tensor, lane: torch.Tensor, inserts: torch.Tensor,
+                 lanes: int) -> torch.Tensor:
+    """Each record's insert tick: its lane's ``tick`` plus the ``inserts``
+    ((R,) bool) of its lane before it (int32)."""
+    ins = inserts.to(torch.int64)
+    if lanes == 1:
+        before = torch.cumsum(ins, 0) - ins
+    else:
+        mine = torch.nn.functional.one_hot(lane.long(), lanes) * ins[:, None]
+        before = (torch.cumsum(mine, 0) - mine).gather(1, lane.long()[:, None]).squeeze(1)
+    return (tick.reshape(-1)[lane.long()] + before).to(torch.int32)
+
+
+def _advance(cold: ColdState, lane: torch.Tensor, inserts: torch.Tensor, lanes: int) -> None:
+    """Each lane's ``tick`` += its ``inserts``, in place."""
+    per_lane = torch.zeros(lanes, dtype=torch.int32, device=inserts.device).index_add_(
+        0, lane.long(), inserts.to(torch.int32))
+    cold.tick.add_(per_lane.view(cold.tick.shape))
 
 
 def _choose_slot(cold: ColdState, h: torch.Tensor, a: torch.Tensor,
@@ -189,7 +224,7 @@ def _put(leaf: torch.Tensor, lw: _LastWriter, rows: torch.Tensor) -> None:
 
 
 def promote_pass(hot: ft.TrackerState, cold: ColdState, packets: ft.PacketBatch,
-                 keep: Optional[torch.Tensor] = None, *, policy: str
+                 keep: Optional[torch.Tensor] = None, *, policy: str, lanes: int = 1
                  ) -> tuple[ft.TrackerState, ColdState, torch.Tensor]:
     """Step 1 of the two-level step, in place on ``hot`` and ``cold``: each
     segment head (ascending hot slot) whose tuple is not live in hot but is
@@ -205,11 +240,12 @@ def promote_pass(hot: ft.TrackerState, cold: ColdState, packets: ft.PacketBatch,
     one cold slot the later one wins.  Under ``lru`` the walk stamps an
     occupant with ``tick0 + its head's index``, which orders like the true
     tick (all above the bank's older stamps), and the true ticks are written
-    after the walk."""
+    after the walk.  In a lane bank a head's lane is its hot slot's, and its
+    clock that lane's tick."""
     _check_policy(policy)
     F, C, P = hot.tuple_id.shape[0], cold.tuple_id.shape[0], packets.ts.shape[0]
     dev = hot.count.device
-    slots = ft.hash_slot(packets.tuple_hash, F)
+    slots = ft.lane_slot(packets.tuple_hash, F, lanes)
     if keep is not None:
         slots = torch.where(keep, slots, F)
     s_slot, order = torch.sort(slots, stable=True)
@@ -217,15 +253,17 @@ def promote_pass(hot: ft.TrackerState, cold: ColdState, packets: ft.PacketBatch,
     first = torch.ones(P, dtype=torch.bool, device=dev)
     first[1:] = s_slot[1:] != s_slot[:-1]
     fs = torch.where(s_slot < F, s_slot, 0).long()
+    lane = ft.lane_of(fs, F // lanes)
     live = hot.count[fs] > 0
     hit = live & (hot.tuple_id[fs] == s_hash)
     cand = first & (s_slot < F) & ~hit
-    a, b = (x.long() for x in cold_slots(s_hash, C))
+    a, b = (x.long() for x in cold_slots(s_hash, C, lanes, lane))
     o_tid, o_cnt, o_ts = hot.tuple_id[fs], hot.count[fs], hot.last_ts[fs]
-    oa, ob = (x.long() for x in cold_slots(o_tid, C))
+    oa, ob = (x.long() for x in cold_slots(o_tid, C, lanes, lane))
     touch = torch.stack([a, b, torch.where(live, oa, a), torch.where(live, ob, a)], dim=1)
     tick0 = cold.tick.clone()
-    o_stamp = o_ts if policy == "age" else (tick0 + torch.arange(P, device=dev)).to(torch.int32)
+    o_stamp = o_ts if policy == "age" else (
+        tick0.reshape(-1)[lane] + torch.arange(P, device=dev)).to(torch.int32)
 
     promo_all = torch.zeros(P, dtype=torch.bool, device=dev)
     src_all = torch.zeros(P, dtype=torch.int64, device=dev)
@@ -274,44 +312,39 @@ def promote_pass(hot: ft.TrackerState, cold: ColdState, packets: ft.PacketBatch,
     to_cold = _last_writer(torch.where(disp_all, dst_all, 0), disp_all)
     for name in _WIDE:
         _put(getattr(cold, name), to_cold, occ_rows[name])
-    n_disp = disp_all.sum().to(torch.int32)
     if policy == "lru":
-        ticks = tick0 + torch.cumsum(disp_all, 0).to(torch.int32) - disp_all.to(torch.int32)
-        _put(cold.stamp, to_cold, ticks.to(torch.int32))
-    cold.tick.add_(n_disp)
+        _put(cold.stamp, to_cold, _lane_stamps(tick0, lane, disp_all, lanes))
+    _advance(cold, lane, disp_all, lanes)
     return hot, cold, promo_all.sum().to(torch.int32)
 
 
-def apply_spills(cold: ColdState, spills: ft.SpillRecords, *, policy: str
+def apply_spills(cold: ColdState, spills: ft.SpillRecords, *, policy: str, lanes: int = 1
                  ) -> tuple[ColdState, torch.Tensor]:
     """Step 3, in place on ``cold``: insert the merge's eviction records in
     packet order (a later spill may evict an earlier one).  A record's stamp
-    is known up front (``last_ts``, or under ``lru`` the tick plus the
-    records before it), so only records sharing a candidate slot wait for
-    one another.  Returns ``(cold, inserted)``."""
+    is known up front (``last_ts``, or under ``lru`` its lane's tick plus the
+    records of its lane before it), so only records sharing a candidate slot
+    wait for one another.  Returns ``(cold, inserted)``."""
     _check_policy(policy)
     C = cold.tuple_id.shape[0]
     m = spills.mask
-    a, b = (x.long() for x in cold_slots(spills.tuple_id, C))
+    lane = ft.shard_of(spills.tuple_id, lanes)
+    a, b = (x.long() for x in cold_slots(spills.tuple_id, C, lanes, lane))
     inserted = m.sum().to(torch.int32)
-    if policy == "age":
-        stamp = spills.last_ts
-    else:
-        mi = m.to(torch.int32)
-        stamp = (cold.tick + torch.cumsum(mi, 0) - mi).to(torch.int32)
+    stamp = spills.last_ts if policy == "age" else _lane_stamps(cold.tick, lane, m, lanes)
     for sel in _rounds(torch.stack([a, b], dim=1), m):
-        _insert_one(cold, spills, sel, stamp[sel])
-    cold.tick.add_(inserted)
+        _insert_one(cold, spills, sel, stamp[sel], a[sel], b[sel])
+    _advance(cold, lane, m, lanes)
     return cold, inserted
 
 
 def _insert_one(cold: ColdState, spills: ft.SpillRecords, sel: torch.Tensor,
-                stamp: torch.Tensor) -> None:
+                stamp: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
     """The 2-choice insert of one record, for each record ``sel`` names at
-    once, in place on ``cold``: their candidate slots are pairwise disjoint
-    (one round of :func:`_rounds`), so no insert sees another's write."""
+    once (candidates ``a``/``b``), in place on ``cold``: their candidate slots
+    are pairwise disjoint (one round of :func:`_rounds`), so no insert sees
+    another's write."""
     h = spills.tuple_id[sel]
-    a, b = (x.long() for x in cold_slots(h, cold.tuple_id.shape[0]))
     tgt = _choose_slot(cold, h, a, b)
     for name in ("tuple_id", "count", "last_ts") + _WIDE:
         getattr(cold, name)[tgt] = getattr(spills, name)[sel]
@@ -319,18 +352,18 @@ def _insert_one(cold: ColdState, spills: ft.SpillRecords, sel: torch.Tensor,
 
 
 def scrub_live(cold: ColdState, hot: ft.TrackerState, packets: ft.PacketBatch,
-               keep: Optional[torch.Tensor] = None) -> ColdState:
+               keep: Optional[torch.Tensor] = None, *, lanes: int = 1) -> ColdState:
     """Step 4, in place on ``cold``: clear every cold entry whose tuple is
     live in hot after the merge.  Only batch tuples can have established,
     so one (P,)-wide check covers every case; the clears carry one value a
     slot, so no order is needed and the host never waits."""
     F, C = hot.tuple_id.shape[0], cold.tuple_id.shape[0]
     h = packets.tuple_hash
-    fs = ft.hash_slot(h, F).long()
+    fs = ft.lane_slot(h, F, lanes).long()
     live = (hot.count[fs] > 0) & (hot.tuple_id[fs] == h)
     if keep is not None:
         live = live & keep
-    a, b = (x.long() for x in cold_slots(h, C))
+    a, b = (x.long() for x in cold_slots(h, C, lanes))
     idx = torch.cat([a, b])
     hits = torch.cat([live & (cold.count[a] > 0) & (cold.tuple_id[a] == h),
                       live & (cold.count[b] > 0) & (cold.tuple_id[b] == h)])

@@ -85,7 +85,7 @@ def _scatter_drop(table: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
 def segmented_update(state: ft.TrackerState, packets: ft.PacketBatch,
                      program: Optional[torch.Tensor] = None, *, top_n: int,
                      keep: Optional[torch.Tensor] = None, fallback: str = "auto",
-                     with_spills: bool = False):
+                     with_spills: bool = False, lanes: int = 1):
     """Merge a whole microbatch into the live tracker state in one pass,
     bit-identical to scanning it packet by packet.  Returns ``(state,
     SegmentedOut)``, and with ``with_spills`` also the merge's
@@ -100,7 +100,14 @@ def segmented_update(state: ft.TrackerState, packets: ft.PacketBatch,
     scatter ignores.  ``fallback`` controls the collision branch: ``"auto"``
     runs the scan oracle for colliding slots only when the batch has an
     in-batch collision, ``"always"``/``"never"`` decide statically
-    (``"never"`` is exact only for collision-free batches)."""
+    (``"never"`` is exact only for collision-free batches).
+
+    ``lanes`` makes ``state`` a bank of that many lanes
+    (:func:`~repro_torch.core.flow_tracker.lane_slot`): one merge, one
+    collision check and one fold for every lane.  A tuple's packets stay in
+    its lane and in batch order, so each lane ends as if it had merged its
+    own packets alone; a fallback taken for one lane's collision is exact for
+    the others too."""
     if fallback not in FALLBACK_MODES:
         raise ValueError(f"fallback must be one of {FALLBACK_MODES}, got {fallback!r}")
     dev = state.count.device
@@ -111,7 +118,7 @@ def segmented_update(state: ft.TrackerState, packets: ft.PacketBatch,
     if keep is None:
         keep = torch.ones(P, dtype=torch.bool, device=dev)
 
-    slots = ft.hash_slot(packets.tuple_hash, F)
+    slots = ft.lane_slot(packets.tuple_hash, F, lanes)
     slots_eff = torch.where(keep, slots, F).to(torch.int32)
     s_slot, order = torch.sort(slots_eff, stable=True)
     s = ft.PacketBatch(*(a[order] for a in packets))
@@ -178,7 +185,7 @@ def segmented_update(state: ft.TrackerState, packets: ft.PacketBatch,
 
     if fallback == "always" or (fallback == "auto" and bool(collide.any())):
         scan = ft.process_packets(state, packets, program, top_n=top_n, keep=keep,
-                                  with_spills=with_spills)
+                                  with_spills=with_spills, lanes=lanes)
         scan_state, outs = scan[:2]
 
         def pick(mask: torch.Tensor, seg_leaf: torch.Tensor,

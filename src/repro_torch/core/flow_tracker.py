@@ -10,11 +10,19 @@ tuple hashing onto an occupied slot evicts the stale flow.
 JAX's ``.at[...].set(..., mode="drop")`` scatters with the ``table_size``
 sentinel become writes into one extra sentinel row that is sliced off, since
 torch indexing raises on an out-of-range index.
+
+**Lanes.**  The sharded pipeline keeps S lanes of F slots as one bank of
+S·F rows (lane-major, so the (S, F, ...) stack is a view of it).  Every
+function here that hashes takes ``lanes`` (default 1): a tuple's row is
+:func:`lane_slot`, its lane's base plus its slot in that lane, so two tuples
+share a row only when they share a lane, and one merge, drain or fold runs
+every lane at once.  Inside such a bank the sentinel is S·F.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.common.util import Device, resolve_device, segment_ranks
@@ -73,6 +81,42 @@ def hash_slot(tuple_hash: torch.Tensor, table_size: int) -> torch.Tensor:
     h = (lo * _GOLDEN + (((hi * _GOLDEN) & 0xFFFF) << 16)) & 0xFFFFFFFF
     h = h ^ (h >> 16)
     return (h % table_size).to(torch.int32)
+
+
+def shard_of(tuple_hash, num_shards: int):
+    """Lane assignment ``tuple_hash % num_shards`` through uint32, so a flow's
+    packets always land in one lane and negative int32 hashes agree between
+    the host and the device.  Takes a tensor (int32 result on its device), a
+    numpy array (int32) or a python int."""
+    if isinstance(tuple_hash, (int, np.integer)):
+        return int((int(tuple_hash) & 0xFFFFFFFF) % num_shards)
+    if isinstance(tuple_hash, np.ndarray):
+        return (tuple_hash.astype(np.uint32) % np.uint32(num_shards)).astype(np.int32)
+    return ((tuple_hash.to(torch.int64) & 0xFFFFFFFF) % num_shards).to(torch.int32)
+
+
+def lane_row(lane, slot, lane_rows: int) -> torch.Tensor:
+    """Row ``lane * lane_rows + slot`` of a lane-major bank of lanes of
+    ``lane_rows`` rows (int32): the one place a lane's base is added."""
+    return (lane * lane_rows + slot).to(torch.int32)
+
+
+def lane_of(row, lane_rows: int):
+    """The lane of a row of a lane-major bank of lanes of ``lane_rows``
+    rows: the inverse of :func:`lane_row`."""
+    return row // lane_rows
+
+
+def lane_slot(tuple_hash: torch.Tensor, rows: int, lanes: int = 1) -> torch.Tensor:
+    """A tuple's row in a bank of ``rows`` = lanes x F rows:
+    ``shard_of(h, lanes) * F + hash_slot(h, F)`` (int32); one lane is
+    :func:`hash_slot` itself."""
+    if lanes == 1:
+        return hash_slot(tuple_hash, rows)
+    if rows % lanes:
+        raise ValueError(f"a bank of {rows} rows does not split into {lanes} lanes")
+    f = rows // lanes
+    return lane_row(shard_of(tuple_hash, lanes), hash_slot(tuple_hash, f), f)
 
 
 def hash_slot_scalar(tuple_hash: int, table_size: int) -> int:
@@ -144,7 +188,7 @@ def empty_spills(state: TrackerState, p: int) -> SpillRecords:
 
 def process_packets(state: TrackerState, packets: PacketBatch, program: torch.Tensor,
                     *, top_n: int, keep: Optional[torch.Tensor] = None,
-                    with_spills: bool = False):
+                    with_spills: bool = False, lanes: int = 1):
     """Order-exact oracle: the FPGA's serial per-packet semantics.
 
     Only packets of one slot depend on each other, so packets sort by slot
@@ -153,14 +197,15 @@ def process_packets(state: TrackerState, packets: PacketBatch, program: torch.Te
     table and its :class:`StepOut` row is neutral (slot == table_size, all
     flags False).  Returns ``(state, StepOut)``; with ``with_spills`` also the
     :class:`SpillRecords`, each evicted occupant read in its round before the
-    round writes its slot."""
+    round writes its slot.  ``lanes`` splits the table into a lane bank
+    (:func:`lane_slot`)."""
     F = state.tuple_id.shape[0]
     top_k = state.payload.shape[1]
     P = packets.ts.shape[0]
     dev = state.count.device
     if keep is None:
         keep = torch.ones(P, dtype=torch.bool, device=dev)
-    slots = hash_slot(packets.tuple_hash, F)
+    slots = lane_slot(packets.tuple_hash, F, lanes)
     slot_eff = torch.where(keep, slots, F)
     s_slot, order = torch.sort(slot_eff, stable=True)
     n_kept = int(keep.sum())
@@ -274,28 +319,38 @@ def ready_mask(state: TrackerState, *, top_n: int) -> torch.Tensor:
     return state.count >= top_n
 
 
-def drain_ready(state: TrackerState, *, top_n: int, max_ready: int
+def drain_ready(state: TrackerState, *, top_n: int, max_ready: int, lanes: int = 1
                 ) -> tuple[TrackerState, DrainResult]:
     """Read out up to ``max_ready`` flows whose ``count >= top_n``, lowest
     slots first, and recycle their table entries.  Flows beyond
-    ``max_ready`` stay ready and drain on a later call."""
-    F = state.tuple_id.shape[0]
-    if not 0 < max_ready <= F:
+    ``max_ready`` stay ready and drain on a later call.
+
+    In a bank of ``lanes`` lanes each lane drains up to ``max_ready / lanes``
+    of its own flows, lowest slots first, and the rows come out lane-major
+    with lane-local slots (padding: the lane's size F), as one lane's drain
+    each, concatenated."""
+    rows = state.tuple_id.shape[0]
+    if max_ready % lanes or rows % lanes:
+        raise ValueError(f"max_ready={max_ready} and the {rows}-row bank must split into "
+                         f"{lanes} lanes")
+    F, R = rows // lanes, max_ready // lanes
+    if not 0 < R <= F:
         raise ValueError(f"max_ready must be in [1, {F}], got {max_ready}")
     dev = state.count.device
-    ready = ready_mask(state, top_n=top_n)
+    ready = ready_mask(state, top_n=top_n).view(lanes, F)
     keys = torch.where(ready, torch.arange(F, dtype=torch.int32, device=dev), F)
-    slots = torch.topk(keys, max_ready, largest=False, sorted=True).values
+    slots = torch.topk(keys, R, dim=1, largest=False, sorted=True).values.reshape(-1)
     mask = slots < F
-    safe = torch.where(mask, slots, 0).long()
+    lane = torch.arange(lanes, device=dev).repeat_interleave(R)
+    safe = torch.where(mask, lane_row(lane, slots, F), 0).long()
 
-    def emit(rows: torch.Tensor) -> torch.Tensor:
-        m = mask.view(max_ready, *[1] * (rows.dim() - 1))
-        return torch.where(m, rows[safe], 0)
+    def emit(leaf: torch.Tensor) -> torch.Tensor:
+        m = mask.view(max_ready, *[1] * (leaf.dim() - 1))
+        return torch.where(m, leaf[safe], 0)
 
     out = DrainResult(
         slots=torch.where(mask, slots, F).to(torch.int32), mask=mask,
         tuple_id=emit(state.tuple_id), count=emit(state.count),
         features=emit(state.features), series=emit(state.series),
         sizes=emit(state.sizes), payload=emit(state.payload))
-    return release_flows(state, out.slots), out
+    return release_flows(state, torch.where(mask, safe, rows)), out

@@ -15,17 +15,95 @@ overflow it raises instead of wrapping.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.common.util import Device, resolve_device
-from repro_torch.core.flow_tracker import PacketBatch, hash_slot_scalar
+from repro_torch.core.flow_tracker import PacketBatch, hash_slot_scalar, shard_of
 
 _TS_MAX = 2**31 - 1  # PacketBatch.ts is int32 microseconds
 
-# "flash_crowd" and "elephant_storm" are not ported yet
+
+# ---------------------------------------------------------------------------
+# Hash partitioning (multi-lane serving)
+# ---------------------------------------------------------------------------
+
+class ShardedBatch(NamedTuple):
+    """One dispatch round of a hash-partitioned microbatch (S = num_shards
+    lanes of capacity C).  Rows with ``keep == False`` are padding (zeroed
+    packets, ``src == P``)."""
+
+    shards: PacketBatch  # (S, C) leaves — per-lane packets, arrival order
+    keep: torch.Tensor  # (S, C) bool — row holds a real packet
+    src: torch.Tensor  # (S, C) int32 — original batch index (P for padding)
+
+
+def lane_rounds(tuple_hash: np.ndarray, num_shards: int, *, lane_batch: Optional[int] = None,
+                keep: Optional[np.ndarray] = None) -> tuple[np.ndarray, np.ndarray, int]:
+    """The partition of :func:`partition_batch` as two (P,) int arrays on the
+    host: each packet's lane (``shard_of``) and its round (the window of
+    ``lane_batch`` packets of its lane's FIFO it falls in; -1 for a row
+    ``keep`` drops), and the number of rounds (at least 1)."""
+    n = tuple_hash.shape[0]
+    if num_shards <= 0:
+        raise ValueError(f"num_shards must be positive, got {num_shards}")
+    cap = n if lane_batch is None else int(lane_batch)
+    if not 0 < cap <= n:
+        raise ValueError(f"lane_batch must be in [1, {n}], got {cap}")
+    lane = shard_of(tuple_hash, num_shards)
+    mask = np.ones(n, bool)
+    if keep is not None:
+        mask = np.asarray(keep, bool)
+        if mask.shape != (n,):
+            raise ValueError(f"keep must have shape ({n},), got {mask.shape}")
+    rank = np.full(n, -1, np.int64)
+    for s in range(num_shards):
+        ix = np.flatnonzero((lane == s) & mask)
+        rank[ix] = np.arange(ix.shape[0])
+    rnd = np.where(mask, rank // cap, -1)
+    return lane, rnd, max(1, int(rnd.max(initial=-1)) + 1)
+
+
+def partition_batch(batch: PacketBatch, num_shards: int, *,
+                    lane_batch: Optional[int] = None,
+                    keep: Optional[np.ndarray] = None) -> list[ShardedBatch]:
+    """Hash-partition one microbatch into ``num_shards`` lanes
+    (``shard_of(tuple_hash)``), preserving per-lane arrival order.
+
+    Every kept packet appears in exactly one lane of exactly one round with
+    its keep bit set, at the lane ``shard_of`` names; padding rows are
+    zeroed with ``src == P``.  ``lane_batch`` is the per-lane capacity C
+    (default: the batch size, always one round); a lane that overfills
+    spills into further rounds, its FIFO split into C-sized windows.
+    ``keep`` pre-drops rows: they land in no lane of no round.  The leaves
+    come back on the batch's device."""
+    n = int(batch.ts.shape[0])
+    hashes = batch.tuple_hash.cpu().numpy()
+    lane, rnd, rounds = lane_rounds(hashes, num_shards, lane_batch=lane_batch, keep=keep)
+    cap = n if lane_batch is None else int(lane_batch)
+    dev = batch.ts.device
+    out = []
+    for r in range(rounds):
+        keep_rows = np.zeros((num_shards, cap), bool)
+        src = np.full((num_shards, cap), n, np.int64)
+        for s in range(num_shards):
+            window = np.flatnonzero((lane == s) & (rnd == r))
+            keep_rows[s, :window.shape[0]] = True
+            src[s, :window.shape[0]] = window
+        kr = torch.from_numpy(keep_rows).to(dev)
+        take = torch.from_numpy(np.minimum(src, n - 1)).to(dev)
+
+        def gather(a: torch.Tensor) -> torch.Tensor:
+            g = a[take]
+            return torch.where(kr.view(*kr.shape, *[1] * (g.dim() - 2)), g, 0)
+
+        out.append(ShardedBatch(shards=PacketBatch(*(gather(a) for a in batch)), keep=kr,
+                                src=torch.from_numpy(src.astype(np.int32)).to(dev)))
+    return out
+
+# "flash_crowd" and "elephant_storm" are not ported yet (ROADMAP Queue 1 item 8)
 ADVERSARIAL_MODES = ("none", "collision_attack")
 
 
@@ -44,11 +122,16 @@ class TrafficConfig:
     table_size: int = 1024
     collision_free: bool = True  # no two *live* flows share a table slot
     seed: int = 0
+    client_id: int = 0  # stamped on the generator for multi-stream serving
     # "collision_attack": every spawned flow hashes into one of the first
     # adv_slots tracker slots (worst-case eviction churn, and the segmented
-    # tracker's in-batch collision fallback on every batch)
+    # tracker's in-batch collision fallback on every batch); with
+    # adv_shards > 0 the flows also all land in shard 0 of an adv_shards-lane
+    # partition, so same-slot flows share a shard while lane 0 takes the
+    # whole attack
     adversarial: str = "none"
     adv_slots: int = 2
+    adv_shards: int = 0
 
     def __post_init__(self):
         if self.adversarial not in ADVERSARIAL_MODES:
@@ -57,6 +140,8 @@ class TrafficConfig:
         if not 0 < self.adv_slots <= self.table_size:
             raise ValueError(f"adv_slots must be in [1, table_size="
                              f"{self.table_size}], got {self.adv_slots}")
+        if self.adv_shards < 0:
+            raise ValueError(f"adv_shards must be >= 0, got {self.adv_shards}")
         if self.adversarial == "collision_attack" and self.collision_free:
             raise ValueError("collision_attack concentrates live flows onto "
                              "shared slots — set collision_free=False")
@@ -94,6 +179,7 @@ class TrafficGenerator:
         if cfg.collision_free and cfg.active_flows > cfg.table_size:
             raise ValueError("collision_free needs active_flows <= table_size")
         self.cfg = cfg
+        self.client_id = cfg.client_id
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(cfg.seed)
         self.clock = 0  # global microsecond clock (ts are non-decreasing)
@@ -107,10 +193,12 @@ class TrafficGenerator:
     def _spawn_flow(self) -> _Flow:
         c = self.cfg
         attack = c.adversarial == "collision_attack"
-        for _ in range(64 * max(c.table_size, 1)):
+        tries = 64 * max(c.table_size, 1) * (max(1, c.adv_shards) if attack else 1)
+        for _ in range(tries):
             h = int(self.rng.integers(1, 2**31 - 1))
             slot = hash_slot_scalar(h, c.table_size)
-            if attack and slot >= c.adv_slots:
+            if attack and (slot >= c.adv_slots
+                           or (c.adv_shards and shard_of(h, c.adv_shards) != 0)):
                 continue
             # live tuple hashes are unique in every mode; slot uniqueness is
             # the extra constraint of collision_free

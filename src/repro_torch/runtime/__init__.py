@@ -5,6 +5,7 @@ from repro_torch.runtime.routing import (
     Route,
     RouteRecord,
     current_scope,
+    lane_scope,
     mxu_utilization,
     name_scope,
     record_routes,

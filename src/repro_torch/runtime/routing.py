@@ -73,6 +73,15 @@ def current_scope() -> str:
     return _name_scope.get()
 
 
+@contextmanager
+def lane_scope(lane: int) -> Iterator[None]:
+    """:func:`name_scope` for one serving lane (``lane<i>/``): the sharded
+    pipeline runs and traces each lane's engines under its own scope, so
+    ``RoutePlan.scoped(f"lane{i}")`` holds one lane's placement."""
+    with name_scope(f"lane{lane}"):
+        yield
+
+
 def systolic_utilization(m: int, k: int, n: int, array: int) -> float:
     """The paper's utilization definition (§3.2.3): useful MACs over
     array-slots x stream-cycles.  (10,3)x(3,32) on 32x32 gives 9.3%."""

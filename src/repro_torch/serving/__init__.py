@@ -8,3 +8,14 @@ from repro_torch.serving.pipeline import (
     PipelineStepOutput,
 )
 from repro_torch.serving.engine import Request, ServeConfig, ServeEngine, ServeStats
+from repro_torch.serving.sharded import LANE_BACKENDS, ShardedOctopusPipeline
+from repro_torch.serving.service import (
+    ADMISSION_POLICIES,
+    ClientStats,
+    OctopusService,
+    Rejected,
+    ServeResult,
+    ServiceConfig,
+    ServiceStats,
+    serve_stream,
+)

@@ -402,37 +402,40 @@ class OctopusPipeline:
 
     # ------------------------------------------------------------ steps 2-5
     def _merge(self, hot: ft.TrackerState, packets: ft.PacketBatch,
-               keep: Optional[torch.Tensor], *, with_spills: bool = False):
+               keep: Optional[torch.Tensor], *, with_spills: bool = False, lanes: int = 1):
         """The tracker merge under ``cfg.tracker``: ``(hot, new_flows,
-        evicted, fallback_slots)``, then the spill records when asked."""
+        evicted, fallback_slots)``, then the spill records when asked.
+        ``lanes`` > 1 merges into a lane bank (the sharded pipeline)."""
         if self.cfg.tracker == "segmented":
             hot, seg, *spills = fx.segmented_update(
                 hot, packets, self.program, top_n=self.cfg.top_n, keep=keep,
-                with_spills=with_spills)
+                with_spills=with_spills, lanes=lanes)
             return (hot, seg.new_flows, seg.evicted, seg.fallback_slots, *spills)
         hot, outs, *spills = ft.process_packets(hot, packets, self.program,
                                                 top_n=self.cfg.top_n, keep=keep,
-                                                with_spills=with_spills)
+                                                with_spills=with_spills, lanes=lanes)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         return (hot, outs.new_flow.sum().to(torch.int32),
                 outs.evicted.sum().to(torch.int32), zero, *spills)
 
-    def _track(self, state, packets: ft.PacketBatch, keep: Optional[torch.Tensor] = None):
+    def _track(self, state, packets: ft.PacketBatch, keep: Optional[torch.Tensor] = None,
+               *, lanes: int = 1):
         """Step 2: merge one (optionally keep-masked) microbatch.  Returns
         ``(state, new_flows, evicted, fallback_slots, spilled, promoted)``.
         With a cold table the two-level step runs around the same merge:
         promote -> merge with spill records -> spill -> scrub
         (:mod:`repro_torch.core.cold_store`), the cold leaves written in
-        place."""
+        place.  ``lanes`` > 1: ``state`` is a lane bank."""
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         if not self.cfg.cold_size:
-            return (*self._merge(state, packets, keep), zero, zero)
+            return (*self._merge(state, packets, keep, lanes=lanes), zero, zero)
         policy = self.cfg.cold_policy
         hot, cold, promoted = cold_store.promote_pass(state.hot, state.cold, packets, keep,
-                                                      policy=policy)
-        hot, new, ev, fb, spills = self._merge(hot, packets, keep, with_spills=True)
-        cold, spilled = cold_store.apply_spills(cold, spills, policy=policy)
-        cold = cold_store.scrub_live(cold, hot, packets, keep)
+                                                      policy=policy, lanes=lanes)
+        hot, new, ev, fb, spills = self._merge(hot, packets, keep, with_spills=True,
+                                               lanes=lanes)
+        cold, spilled = cold_store.apply_spills(cold, spills, policy=policy, lanes=lanes)
+        cold = cold_store.scrub_live(cold, hot, packets, keep, lanes=lanes)
         return cold_store.TwoLevelState(hot, cold), new, ev, fb, spilled, promoted
 
     def _decide_pkt(self, packets: ft.PacketBatch) -> torch.Tensor:
@@ -523,18 +526,30 @@ class OctopusPipeline:
             self.rules.update(f.tuple_id[f.mask], f.flow_actions[f.mask], f.flow_cls[f.mask])
         return n_flows
 
+    def _enqueue(self, batch: ft.PacketBatch, host_hash: Optional[np.ndarray],
+                 keep: Optional[np.ndarray], keep_dev: Optional[torch.Tensor]
+                 ) -> tuple[PipelineStepOutput, int, int]:
+        """One step's device work on the device batch: ``(out, rounds,
+        padded)``, the host round trips it stands for and its padding rows."""
+        self.state, out = self._lane_core(self.state, batch, keep_dev)
+        return out, 1, 0 if keep is None else keep.shape[0] - int(keep.sum())
+
     def _dispatch(self, batches: Sequence[ft.PacketBatch], keep: Optional[np.ndarray] = None,
                   *, stacked: bool) -> InflightDispatch:
         """Enqueue the batches' steps (and, with ``keep``, one masked
         bucket) and their one read-back, without blocking.  The handle's
         ``wait`` blocks on the read-back, applies the feedback in step order
-        and records the dispatch."""
+        and records the dispatch: one round trip for a chunk, a step's
+        rounds for a lone step."""
         t0 = time.perf_counter()
         keep_dev = None if keep is None else torch.from_numpy(keep).to(self.device)
         outs, packed, hashes = [], [], []
+        rounds = padded = 0
         for batch in batches:
             batch, host_hash = self._to_device(batch)
-            self.state, out = self._lane_core(self.state, batch, keep_dev)
+            out, step_rounds, step_padded = self._enqueue(batch, host_hash, keep, keep_dev)
+            rounds += step_rounds
+            padded += step_padded
             outs.append(out)
             packed.append(_pack(out, batch.tuple_hash if host_hash is None else None))
             hashes.append(host_hash)
@@ -543,6 +558,7 @@ class OctopusPipeline:
         enqueue_s = time.perf_counter() - t0
         p, r = int(batches[0].ts.shape[0]), self.cfg.max_ready
         n = len(batches) * p if keep is None else int(keep.sum())
+        dispatches = 1 if len(batches) > 1 else rounds
 
         def finish(host_extra_s: float) -> PipelineStepOutput:
             t1 = time.perf_counter()
@@ -560,7 +576,7 @@ class OctopusPipeline:
                 spilled=sum(f.spilled for f in fields),
                 promoted=sum(f.promoted for f in fields),
                 fallback_steps=sum(f.fallback_slots > 0 for f in fields),
-                padded=0 if keep is None else p - n, host_s=host_s, device_s=device_s)
+                dispatches=dispatches, padded=padded, host_s=host_s, device_s=device_s)
             return out
 
         return InflightDispatch(finish, steps=len(batches), packets=n)

@@ -900,3 +900,91 @@ def test_overlapped_chunked_two_level_pipeline_on_card_matches_eager(cuda):
                                                              pipes[0].stats.promoted)
     assert pipes[0].stats.spilled > 0 and pipes[0].stats.promoted > 0
     assert pipes[1].stats.dispatches == 3
+
+
+def _decisions_agree(cpu, out_g, out_c, batch):
+    """Packet verdicts equal except where the CPU's logits are a near tie."""
+    logits = cpu.packet_engine.fn(cpu.packet_engine.params, packet_meta_features(batch))
+    tie = (logits[:, 1] - logits[:, 0]).abs() < 1e-4
+    assert not ((out_g.pkt_actions.cpu() != out_c.pkt_actions) & ~tie).any()
+
+
+@pytest.mark.parametrize("lane_batch,cold", [(None, 0), (48, 2048)], ids=["lockstep", "rounds"])
+def test_sharded_step_on_card_matches_cpu(cuda, lane_batch, cold):
+    """4 lanes on the card against the CPU port: the (S, F, ...) state (and
+    the cold lanes with their clocks), drained rows and counters bit for bit
+    every step; one ``flow_update`` a round whatever the lanes."""
+    from repro_torch.serving import ShardedOctopusPipeline
+
+    mlp = init_paper_model("mlp", torch.Generator().manual_seed(1), device="cpu")
+    cnn = init_paper_model("cnn", torch.Generator().manual_seed(2), device="cpu")
+    cfg = PipelineConfig(batch_size=256, max_ready=64, table_size=256, cold_size=cold,
+                         cold_policy="lru")
+    kw = dict(num_shards=4, lane_batch=lane_batch)
+    gpu = ShardedOctopusPipeline(mlp, cnn, cfg, device=cuda, **kw)
+    cpu = ShardedOctopusPipeline(mlp, cnn, cfg, device="cpu", **kw)
+    gen = TrafficGenerator(TrafficConfig(batch_size=256, active_flows=96 if not cold else 2048,
+                                         table_size=256, elephant_fraction=0.5,
+                                         collision_free=not cold), device="cpu")
+    for _ in range(12):
+        batch = gen.next_batch()
+        kernels.reset_launches()
+        out_g = gpu.step(batch)
+        rounds = gpu.stats.dispatches - cpu.stats.dispatches
+        assert kernels.launches()["flow_update"] == rounds
+        out_c = cpu.step(batch)
+        leaves = lambda s: [x for part in s for x in (part if isinstance(part, tuple) else [part])]
+        for a, b in zip(leaves(gpu.state), leaves(cpu.state)):
+            assert torch.equal(a.cpu(), b)
+        for a, b in zip(out_g.drained, out_c.drained):
+            assert torch.equal(a.cpu(), b)
+        for name in ("new_flows", "evicted", "spilled", "promoted"):
+            assert int(getattr(out_g, name)) == int(getattr(out_c, name))
+        _decisions_agree(cpu, out_g, out_c, batch)
+    assert gpu.stats.flows == cpu.stats.flows
+    if cold:  # 2048 flows on 4 x 256 slots: they spill and return, few drain
+        assert gpu.stats.spilled > 0 and gpu.stats.promoted > 0 and gpu.stats.dispatches > 12
+    else:
+        assert gpu.stats.flows > 0
+
+
+def test_service_on_card_matches_cpu(cuda):
+    """``OctopusService`` inline over 2 lanes on the card and on the CPU, the
+    same closed-loop clients: every request's buckets equal, verdicts equal
+    except near ties; pinned staging buffers on the card."""
+    import asyncio
+
+    from repro_torch.serving import OctopusService, ServiceConfig, ShardedOctopusPipeline
+    from repro_torch.serving import serve_stream
+
+    mlp = init_paper_model("mlp", torch.Generator().manual_seed(1), device="cpu")
+    cnn = init_paper_model("cnn", torch.Generator().manual_seed(2), device="cpu")
+    cfg = PipelineConfig(batch_size=256, max_ready=64, table_size=1024)
+    sizes = (17, 100, 250, 400)
+    gens = lambda: [TrafficGenerator(TrafficConfig(batch_size=n, active_flows=64, table_size=1024,
+                                                   seed=i, client_id=i), device="cpu")
+                    for i, n in enumerate(sizes)]
+
+    def serve(device):
+        pipe = ShardedOctopusPipeline(mlp, cnn, cfg, num_shards=2, device=device)
+        svc = OctopusService(pipe, ServiceConfig(buckets=(64, 256, 512), depth_budget=4096,
+                                                 offload=False))
+
+        async def run():
+            async with svc:
+                return await asyncio.gather(*(serve_stream(svc, g, requests=4) for g in gens()))
+
+        return pipe, svc, asyncio.run(run())
+
+    gpu, svc_g, outs_g = serve(cuda)
+    cpu, svc_c, outs_c = serve("cpu")
+    assert all(buf["keep"].is_pinned() for bufs in svc_g._pool._free.values() for buf in bufs)
+    for gen, got, want in zip(gens(), outs_g, outs_c):
+        for batch, g, w in zip(gen.batches(4), got, want):
+            assert g.buckets == w.buckets
+            logits = cpu.packet_engine.fn(cpu.packet_engine.params, packet_meta_features(batch))
+            tie = ((logits[:, 1] - logits[:, 0]).abs() < 1e-4).numpy()
+            assert not ((g.pkt_actions != w.pkt_actions) & ~tie).any()
+    assert (svc_g.stats.dispatches, svc_g.stats.padded) == (svc_c.stats.dispatches,
+                                                            svc_c.stats.padded)
+    assert svc_g.queue_depth == 0 and svc_g.stats.served == 4 * sum(sizes)

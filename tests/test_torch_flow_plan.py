@@ -131,6 +131,9 @@ CASES = {
     "dropped": (1024, 8192, "dropped", "cross"),
     "one-slot": (1024, 8192, "one", "cross"),
     "one-slot-chunked": (CAP + 1, 8192, "one", "default"),
+    # the sharded pipeline's bank: 4 lanes of the 8k table as 32768 rows
+    "lanes": (1024, 4 * 8192, "spread", "default"),
+    "lanes-chunked": (2 * CAP, 4 * 8192, "spread", "cross"),
 }
 
 
