@@ -150,7 +150,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the 512-token window, vocab 262144; its embed_scale makes the stack f32)
      serving 4 requests, one past the window: tokens equal the single-request
      runs except counted near ties under ``LM_LOGIT_TOL``, launches as
-     predicted (183 ``mm_fused`` a forward, 26 ``flash_fwd`` a prefill).
+     predicted (183 ``mm_fused`` a forward, 26 ``flash_fwd`` a prefill);
+ 19. ``[extractor]``: ``FeatureExtractor`` over whole traces (4096 flows x
+     20 packets on the 8k table: 81920 packets, 20 ``flow_update`` chunks;
+     the reference bench's 400 x 20; 4096 colliding flows, the merge's scan
+     fallback): ``extract_segmented``, ``extract_scan`` and ``extract_scan``
+     with the fold replayed, bit for bit with each other and card vs CPU,
+     one ``flow_update`` a folding mode; the replay's fold (dropped packets
+     spread over the chunks) and the same packets in slot order against the
+     plain fold; Mpkt/s of each mode beside the paper's FPGA figure;
+ 20. ``[paths]``: ``PacketPath`` at batches 1, 8, 1024 and 8192 (latency a
+     call with the host / device-wait split, ns a packet) and ``FlowPath``
+     (CNN at 1000 and 4096 flows, the transformer at 256; flow/s) on the
+     extracted flows, decisions card vs CPU except counted near ties,
+     launches as recorded; then each engine kernel against its plain version
+     at every shape the paths ran it at;
+ 21. ``[scenarios]``: CNN f32 at the 8k table, card vs CPU: the heavy hitter
+     on the 65536-flow colliding traffic with a 2^20 cold table, and on 4
+     lanes of 2^18, top-k equal card, CPU and a host model of the byte
+     counters every step, launching only ``flow_update``; DDoS on 4096
+     elephants, the band from a probe's score quantiles, emissions card vs
+     CPU (scores within ``DDOS_SCORE_RTOL``, denied sets except near ties),
+     every denied flow reading deny after each dispatch; the flash crowd,
+     elephant storm and collision attack, tracker state and counters card vs
+     CPU; step us and launches of each.
 
 The second-to-last line is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off everywhere: the reference
@@ -236,6 +259,38 @@ ATTACK_LANE_BATCH, LANE_COLD = 256, 1 << 18
 # each, over the bucket sizes of a small, a step-sized and a large batch
 SERVICE_BUCKETS = (256, 1024, 4096)
 SERVICE_SIZES, SERVICE_REQUESTS = (64, 150, 300, 512, 700, 1000, 1200, 1500), 6
+# the offline extractor: the paper's 8k table under 4096 flows of 20 packets
+# (81920 packets, 20 of flow_update's 4096-packet chunks), the reference
+# bench's 400 x 20 trace, and 4096 flows whose hashes collide (the merge's
+# scan fallback); wall-clock ms of a mode: the median of EXTRACT_REPS calls
+EXTRACT_TRACES = {
+    "8k table": dict(num_flows=4096, pkts_per_flow=20, table_size=8192, seed=0),
+    "bench 400x20": dict(num_flows=400, pkts_per_flow=20, table_size=8192, seed=0),
+    "colliding": dict(num_flows=4096, pkts_per_flow=20, table_size=8192, seed=0,
+                      collision_free=False)}
+EXTRACT_REPS = 5
+# the paper's figures for its FPGA (not this card): feature extraction,
+# packet-based latency, flow-based throughput with collaborating
+PAPER_MPKT_S, PAPER_PKT_NS, PAPER_KFLOW_S = 31, 207, 90
+# the packet path: batch -> timed calls; the flow path: (model, flows), calls each
+PATH_BATCHES = {1: 200, 8: 200, 1024: 50, 8192: 20}
+FLOW_PATHS, FLOW_CALLS = (("cnn", 1000), ("cnn", 4096), ("transformer", 256)), 10
+# the scenarios at PIPE: the heavy hitter on SPILL_TRAFFIC (card, CPU and the
+# host's counters every step); DDoS on 4096 elephants, whose flows first
+# drain after some 40 steps (a quarter packet a flow a step); the attacks
+HH_K, HH_STEPS = 16, 16
+DDOS_TRAFFIC = dict(batch_size=1024, active_flows=4096, table_size=8192, elephant_fraction=1.0,
+                    elephant_pkts=(30, 60), seed=7)
+DDOS_STEPS = 64
+# anomaly scores (softmax probabilities) card against CPU, relative: the f32
+# logits differ in the last bits (and log1p's input on about half the rows);
+# logits apart by under NEAR_TIE move a probability by under twice that share
+# (a reading on an H100 was 1.1e-5)
+DDOS_SCORE_RTOL = 2 * NEAR_TIE
+ADV_MODES = {"flash_crowd": dict(active_flows=4096, adv_period=4),
+             "elephant_storm": dict(active_flows=4096, burst_len=8),
+             "collision_attack": dict(active_flows=256, adv_slots=64)}
+ADV_STEPS = 16
 
 
 # qwen3-0.6b's logits in bf16 compute (28 layers), as shares of max|logit|.
@@ -1855,6 +1910,453 @@ def service_phase(torch, fx, build, serving, kernels, record_routes, checks, Tra
     return check_recorded(checks, shapes, "the service's buckets")
 
 
+def sync(torch) -> None:
+    if CARD != "cpu":
+        torch.cuda.synchronize()
+
+
+def wall_ms(torch, fn, reps: int) -> float:
+    """Host-clock ms of one call that ends in a device sync, median of
+    ``reps`` after a warm call."""
+    fn()
+    sync(torch)
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync(torch)
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def expect_launches(kernels, want: dict, label: str) -> dict:
+    """The launch counts since the last reset must be ``want`` (every other
+    kernel 0); returns the counts."""
+    counts = kernels.launches()
+    full = dict.fromkeys(counts, 0)
+    full.update(want)
+    if counts != full:
+        raise AssertionError(f"{label}: launch counts {counts}, expected {full}")
+    return counts
+
+
+def counts_text(counts: dict) -> str:
+    return str({k: v for k, v in counts.items() if v})
+
+
+def extractor_phase(torch, kernels, card: str):
+    """The offline extractor over whole traces on the card and on the CPU:
+    ``extract_segmented``, ``extract_scan`` and ``extract_scan`` with the
+    fold replayed (``use_pallas``), bit for bit with each other and card
+    against CPU, one ``flow_update`` launch for each of the two folding
+    modes; the replay's fold (its dropped packets spread over the chunks)
+    and the same packets in slot order (as the segmented merge feeds it)
+    against the plain fold at the trace's P, and its kernel and plain times
+    at the first trace's P; Mpkt/s of each mode.  Returns the first trace's
+    packets and scanned state on the CPU."""
+    from repro_torch.core import flow_tracker as ft
+    from repro_torch.core.feature_extractor import ExtractorConfig, FeatureExtractor
+    from repro_torch.data import PacketTraceConfig, synth_packet_trace
+    from repro_torch.kernels.flow_features import ops as ff
+
+    t_phase = time.perf_counter()
+    log(f"[extractor] FeatureExtractor({ExtractorConfig()}) over whole traces: "
+        "extract_segmented, extract_scan, extract_scan with the fold replayed (use_pallas); "
+        "card vs CPU")
+    extractors = {dev: (FeatureExtractor(device=dev),
+                        FeatureExtractor(ExtractorConfig(use_pallas=True), device=dev))
+                  for dev in (CARD, "cpu")}
+    program = extractors[CARD][0].program
+    first = None
+    for name, cfg in EXTRACT_TRACES.items():
+        packets_c, *_ = synth_packet_trace(PacketTraceConfig(**cfg), device="cpu")
+        packets_g = ft.PacketBatch(*(a.to(CARD) for a in packets_c))
+        p = int(packets_c.ts.shape[0])
+        t_trace = time.perf_counter()
+        runs, outs = {}, {}
+        for dev, packets in ((CARD, packets_g), ("cpu", packets_c)):
+            plain, replay = extractors[dev]
+            runs[dev] = {
+                "segmented": lambda plain=plain, packets=packets: plain.extract_segmented(packets),
+                "scan": lambda plain=plain, packets=packets: plain.extract_scan(
+                    plain.init_state(), packets),
+                "scan + replay": lambda replay=replay, packets=packets: replay.extract_scan(
+                    replay.init_state(), packets)}
+        for fn in runs[CARD].values():
+            fn()  # warm: the allocator at this P
+        sync(torch)
+        kernels.reset_launches()
+        outs[CARD] = {mode: fn() for mode, fn in runs[CARD].items()}
+        sync(torch)
+        counts = expect_launches(kernels, {"flow_update": 2}, f"[extractor] {name}")
+        outs["cpu"] = {mode: fn() for mode, fn in runs["cpu"].items()}
+        for dev, got in outs.items():
+            (scan, scan_outs), (rep, rep_outs) = got["scan"], got["scan + replay"]
+            same_tree(torch, f"{name} {dev}: replayed scan state", scan, rep)
+            same_tree(torch, f"{name} {dev}: replayed scan outputs", scan_outs, rep_outs)
+            for leaf, a, b in zip(("features", "series", "sizes", "payload", "count"),
+                                  got["segmented"], (scan.features, scan.series, scan.sizes,
+                                                     scan.payload, scan.count)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} {dev}: segmented {leaf} differs from the scan")
+        for mode in ("scan", "scan + replay"):
+            for part, a, b in zip(("state", "outputs"), outs[CARD][mode], outs["cpu"][mode]):
+                same_tree(torch, f"{name} {mode} {part}, card vs CPU", a, b)
+        for a, b in zip(outs[CARD]["segmented"], outs["cpu"]["segmented"]):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{name}: segmented extraction differs card vs CPU")
+        _, seg = extractors[CARD][0].segmented_update(extractors[CARD][0].init_state(), packets_g)
+        fallback = int(seg.fallback_slots)
+        if (fallback > 0) != (not cfg.get("collision_free", True)):
+            raise AssertionError(f"{name}: {fallback} slots took the scan fallback")
+        # the fold at this P against its plain version: the replay's input
+        # (packets before a slot's last establish dropped, wherever they lie)
+        # and the same packets in slot order, as the segmented merge feeds it
+        replay = extractors[CARD][1]
+        scan_outs = outs[CARD]["scan"][1]
+        slots, meta, table = replay.replay_inputs(replay.init_state(), packets_g, scan_outs)
+        order = torch.sort(slots, stable=True).indices
+        plan = ff.flow_plan(p, table.shape[0])
+        dropped = int((slots == table.shape[0]).sum())
+        for label, args in (("replay", (program, slots, meta, table)),
+                            ("slot order", (program, slots[order], meta[order], table))):
+            got = ff.flow_feature_update(*args)
+            want = ff.flow_feature_update_plain(*args)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: flow_update ({label}) differs from its plain fold")
+        chunks = -(-p // plan.cap)
+        log(f"  {name}: {p} packets, {plan.variant} flow_update in {chunks} chunks of "
+            f"{plan.cap} over {plan.ctas} CTAs, {dropped} dropped by the replay: bit for bit "
+            "with the plain fold (replay and slot order)")
+        times = {mode: wall_ms(torch, fn, EXTRACT_REPS) for mode, fn in runs[CARD].items()}
+        log(f"  {name}: every mode bit for bit with the others and card vs CPU; scan fallback "
+            f"on {fallback} slots; launches {counts_text(counts)}; "
+            + ", ".join(f"{mode} {ms:.3f} ms ({p / ms / 1e3:.3f} Mpkt/s)"
+                        for mode, ms in times.items())
+            + f" [{card}; the paper's FPGA extractor: {PAPER_MPKT_S} Mpkt/s at 125 MHz]; "
+            f"{time.perf_counter() - t_trace:.1f} s with the CPU's runs")
+        if first is None:
+            args = (program, slots, meta, table)
+            ms = time_ms(lambda: ff.flow_feature_update(*args))
+            plain_ms = time_ms(lambda: ff.flow_feature_update_plain(*args), calls=2, reps=3)
+            nbytes = 4 * (16 * 3 + p + 13 * p + 16 * table.shape[0]) + 4 * 16 * table.shape[0]
+            b, _ = bound(nbytes, 16 * (p - dropped))  # 32-bit ALU ops at the f32 rate
+            log(f"  flow_update at P={p} ({chunks} chunks, {dropped} dropped): kernel "
+                f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {b:.6f} ms ({nbytes} bytes)")
+            first = (packets_c, outs["cpu"]["scan"][0])
+    log(f"  [extractor] {time.perf_counter() - t_phase:.1f} s")
+    return first
+
+
+def paths_phase(torch, kernels, record_routes, checks, mlp, cnn, tf, packets, state,
+                card: str) -> dict:
+    """``PacketPath`` at each batch of ``PATH_BATCHES`` and ``FlowPath`` at
+    ``FLOW_PATHS`` on the flows of the 8k-table trace's extraction, card
+    against CPU (decisions except near ties, the rule tables), with the
+    launches of the timed calls as the recorded routes say and the
+    ``PathStats`` host/device split.  Then each engine kernel against its
+    plain version at every shape the paths ran it at; returns each kernel's
+    largest error there."""
+    from repro_torch.core import flow_tracker as ft
+    from repro_torch.core.feature_extractor import packet_meta_features
+    from repro_torch.serving import FlowPath, PacketPath
+
+    t_phase = time.perf_counter()
+    log(f"[paths] PacketPath (MLP) at batches {list(PATH_BATCHES)}, FlowPath {FLOW_PATHS} on "
+        "the 8k-table trace's flows; card vs CPU")
+    shapes = {}
+    for batch, calls in PATH_BATCHES.items():
+        pk = ft.PacketBatch(*(a[:batch] for a in packets))
+        pk_g = ft.PacketBatch(*(a.to(CARD) for a in pk))
+        gpu, cpu = PacketPath(mlp, device=CARD), PacketPath(mlp, device="cpu")
+        with record_routes() as routes:
+            gpu.warmup(batch)
+        note_shapes(kernels, routes, f"packet path batch {batch}", shapes)
+        kernels.reset_launches()
+        for _ in range(calls):
+            acts = gpu.process(pk_g)
+        counts = expect_launches(kernels, kernels.matmul_launches(routes, calls),
+                                 f"[paths] packet path batch {batch}")
+        want = cpu.process(pk)
+        logits = cpu.engine.fn(cpu.params, packet_meta_features(pk))
+        tie = ((logits[:, 1] - logits[:, 0]).abs() < NEAR_TIE).numpy()
+        differ = acts != want
+        if (differ & ~tie).any():
+            raise AssertionError(f"packet path batch {batch}: verdicts differ away from a tie")
+        actions = lambda path: {fid: rule["action"] for fid, rule in path.rules.rules.items()}
+        if not differ.any() and actions(gpu) != actions(cpu):
+            raise AssertionError(f"packet path batch {batch}: rule tables differ")
+        s = gpu.stats
+        log(f"  packet path, batch {batch}: {s.latency_us:.2f} us a call (host "
+            f"{s.host_us:.2f} / device wait {s.device_us:.2f}), {s.latency_us / batch * 1e3:.1f} "
+            f"ns a packet, {s.throughput:.1f} pkt/s over {s.calls} calls; verdicts equal the "
+            f"CPU's except {int(differ.sum())} of {int(tie.sum())} near ties; launches a call "
+            f"{ {k: v / calls for k, v in counts.items() if v} } [{card}; the paper's FPGA: "
+            f"{PAPER_PKT_NS} ns a packet]")
+    live = state.count > 0
+    ids = state.tuple_id[live].numpy()
+    for model, flows in FLOW_PATHS:
+        params = cnn if model == "cnn" else tf
+        gpu = FlowPath(params, model, device=CARD)
+        cpu = FlowPath(params, model, device="cpu")
+        # both devices take the CPU's prepared input (log1p differs between them)
+        x = cpu.engine.prep(state.series[live][:flows], state.payload[live][:flows])
+        if x.shape[0] != flows:
+            raise AssertionError(f"flow path: {x.shape[0]} live flows, not {flows}")
+        x_g = x.to(CARD)
+        with record_routes() as routes:
+            gpu.warmup(flows)
+        note_shapes(kernels, routes, f"flow path {model} {flows}", shapes)
+        kernels.reset_launches()
+        for _ in range(FLOW_CALLS):
+            cls = gpu.process(x_g, ids[:flows])
+        counts = expect_launches(kernels, kernels.matmul_launches(routes, FLOW_CALLS),
+                                 f"[paths] flow path {model} {flows}")
+        want = cpu.process(x, ids[:flows])
+        logits = cpu.engine.fn(cpu.params, x)
+        gap = NEAR_TIE if model == "cnn" else TF_LOGIT_TOL["f32"] * logits.abs().max().item()
+        top2 = logits.topk(2, dim=-1).values
+        tie = ((top2[:, 0] - top2[:, 1]) < gap).numpy()
+        differ = cls != want
+        if (differ & ~tie).any():
+            raise AssertionError(f"flow path {model} {flows}: classes differ away from a tie")
+        s = gpu.stats
+        log(f"  flow path, {model} at {flows} flows: {s.throughput:.1f} flow/s, "
+            f"{s.latency_us:.1f} us a call (host {s.host_us:.1f} / device wait "
+            f"{s.device_us:.1f}); classes equal the CPU's except {int(differ.sum())} of "
+            f"{int(tie.sum())} near ties; launches a call "
+            f"{ {k: v / FLOW_CALLS for k, v in counts.items() if v} } [{card}; the paper's "
+            f"FPGA with collaborating: {PAPER_KFLOW_S} kflow/s]")
+    errs = check_recorded(checks, shapes, "the paths")
+    log(f"  [paths] {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
+class HostCounters:
+    """The two-level tracker's byte counters kept on the host, lane by lane,
+    from the packets alone: each lane a hot table of ``table`` slots and a
+    cold table of ``cold`` entries (two candidate slots a tuple, "age"
+    stamps), fed its packets in batch order, a step as the pipeline runs
+    it: promote, merge with spills, spill, scrub, drain (``top_n``, the
+    lane's share of ``max_ready``, lowest slots first).  An entry keeps
+    only what the ranking reads: [tuple, packets, bytes, last ts]."""
+
+    def __init__(self, table: int, cold: int, lanes: int, max_ready: int, top_n: int):
+        self.table, self.cold_size, self.top_n = table, cold, top_n
+        self.lane_ready = max_ready // lanes
+        self.hot = [{} for _ in range(lanes)]  # slot -> entry
+        self.cold = [{} for _ in range(lanes)]  # cold slot -> entry + [stamp]
+
+    def step(self, tuple_hash: list, size: list, ts: list) -> None:
+        from repro_torch.core.flow_tracker import shard_of
+
+        lanes = [[] for _ in self.hot]
+        for pkt in zip(tuple_hash, size, ts):
+            lanes[shard_of(pkt[0], len(self.hot))].append(pkt)
+        for hot, cold, pkts in zip(self.hot, self.cold, lanes):
+            self._lane_step(hot, cold, pkts)
+
+    def _find(self, cold: dict, h: int):
+        from repro_torch.core.cold_store import cold_slots_scalar
+
+        return next((c for c in cold_slots_scalar(h, self.cold_size)
+                     if c in cold and cold[c][0] == h), None)
+
+    def _insert(self, cold: dict, entry: list) -> None:
+        """The tuple's own slot, then an empty candidate (a first), then the
+        smaller stamp (a on a tie)."""
+        from repro_torch.core.cold_store import cold_slots_scalar
+
+        a, b = cold_slots_scalar(entry[0], self.cold_size)
+        ea, eb = cold.get(a), cold.get(b)
+        if ea is not None and ea[0] == entry[0]:
+            dst = a
+        elif eb is not None and eb[0] == entry[0]:
+            dst = b
+        elif ea is None or eb is None:
+            dst = a if ea is None else b
+        else:
+            dst = a if ea[4] <= eb[4] else b
+        cold[dst] = [*entry[:4], entry[3]]  # "age": stamped with the last ts
+
+    def _lane_step(self, hot: dict, cold: dict, pkts: list) -> None:
+        from repro_torch.core.flow_tracker import hash_slot_scalar
+
+        slot = lambda h: hash_slot_scalar(h, self.table)
+        heads = {}
+        for h, _, _ in pkts:
+            heads.setdefault(slot(h), h)
+        for s in sorted(heads):  # promote, ascending slot order
+            h, occupant = heads[s], hot.get(s)
+            src = None if occupant is not None and occupant[0] == h else self._find(cold, h)
+            if src is not None:
+                entry = cold.pop(src)
+                if occupant is not None:
+                    self._insert(cold, occupant)
+                hot[s] = entry[:4]
+        spills = []
+        for h, size, t in pkts:  # merge, recording each evicted occupant
+            s = slot(h)
+            entry = hot.get(s)
+            if entry is not None and entry[0] != h:
+                spills.append(entry)
+                entry = None
+            if entry is None:
+                entry = hot[s] = [h, 0, 0, 0]
+            entry[1] += 1
+            entry[2] += size
+            entry[3] = t
+        for entry in spills:
+            self._insert(cold, entry)
+        for h, _, _ in pkts:  # scrub: no tuple live in hot stays in cold
+            entry = hot.get(slot(h))
+            c = self._find(cold, h) if entry is not None and entry[0] == h else None
+            if c is not None:
+                del cold[c]
+        for s in sorted(s for s, e in hot.items() if e[1] >= self.top_n)[:self.lane_ready]:
+            del hot[s]
+
+    def counters(self) -> dict[int, int]:
+        return {e[0]: e[2] for level in (*self.hot, *self.cold) for e in level.values()}
+
+
+def scenarios_phase(torch, kernels, record_routes, TrafficConfig, TrafficGenerator, mlp, cnn,
+                    cnn_layers: list, card: str) -> None:
+    """The three scenarios over the CNN f32 pipeline at ``PIPE``, card
+    against CPU: the heavy hitter (single lane and 4 lanes, two-level)
+    also against :class:`HostCounters`, launching no engine kernel; DDoS
+    with the band from the probe's score quantiles; each attack mode."""
+    import numpy as np
+
+    from repro_torch.core import flow_tracker as ft
+    from repro_torch.scenarios import (
+        AdversarialScenario,
+        DDoSScenario,
+        HeavyHitterScenario,
+        adversarial_config,
+        flow_counters,
+        top_k_flows,
+    )
+    from repro_torch.serving import OctopusPipeline, PipelineConfig
+
+    t_phase = time.perf_counter()
+    weights = dict(pkt_params=mlp, flow_params=cnn)
+    log(f"[scenarios] CNN f32, {PIPE}: heavy hitter (k {HH_K}), DDoS, attack modes; card vs CPU")
+    hh_batches = make_batches(TrafficConfig, TrafficGenerator, SPILL_TRAFFIC, HH_STEPS, "cpu")
+    for lanes, cold in ((0, COLD_SIZE), (4, LANE_COLD)):
+        label = f"heavy hitter, {max(lanes, 1)} lane{'s' if lanes else ''} x {cold} cold"
+        kw = dict(k=HH_K, num_shards=lanes, cold_size=cold, **PIPE, **weights)
+        gpu, cpu = HeavyHitterScenario(**kw, device=CARD), HeavyHitterScenario(**kw, device="cpu")
+        host = HostCounters(PIPE["table_size"], cold, max(lanes, 1), PIPE["max_ready"],
+                            gpu.cfg.top_n)
+        gpu.pipe.warmup()
+        sync(torch)
+        kernels.reset_launches()
+        snaps, top_s = [], 0.0
+        for batch in hh_batches:
+            gpu.step(ft.PacketBatch(*(a.to(CARD) for a in batch)))
+            t0 = time.perf_counter()
+            snaps.append(gpu.top_k())
+            top_s += time.perf_counter() - t0
+        counts = expect_launches(kernels, {"flow_update": HH_STEPS}, label)
+        for step, batch in enumerate(hh_batches):
+            cpu.step(batch)
+            host.step(batch.tuple_hash.tolist(), batch.size.tolist(), batch.ts.tolist())
+            want = host.counters()
+            if cpu.counters() != want:
+                raise AssertionError(f"{label} step {step}: the CPU's counters differ from the "
+                                     "host's")
+            if snaps[step] != cpu.top_k() or snaps[step] != top_k_flows(want, HH_K):
+                raise AssertionError(f"{label} step {step}: top-k differs")
+        same_tree(torch, f"{label} state", gpu.pipe.state, cpu.pipe.state)
+        if flow_counters(gpu.pipe.state) != host.counters():
+            raise AssertionError(f"{label}: the card's counters differ from the host's")
+        s = gpu.pipe.stats
+        log(f"  {label}: top-{HH_K} equal card, CPU and the host's counters every step over "
+            f"{HH_STEPS} steps ({len(host.counters())} resident flows, spilled {s.spilled}, "
+            f"promoted {s.promoted}, heaviest {snaps[-1][:2]}); step {s.step_us:.1f} us (host "
+            f"{s.host_us:.1f} / device wait {s.device_us:.1f}), top-k read {top_s / HH_STEPS * 1e3:.2f} "
+            f"ms; launches {counts_text(counts)} [{card}]")
+        if s.spilled == 0 or s.promoted == 0:
+            raise AssertionError(f"{label}: spilled {s.spilled}, promoted {s.promoted}")
+        del gpu, cpu
+
+    ddos_batches = make_batches(TrafficConfig, TrafficGenerator, DDOS_TRAFFIC, DDOS_STEPS, "cpu")
+    card_batches = [ft.PacketBatch(*(a.to(CARD) for a in b)) for b in ddos_batches]
+    probe = DDoSScenario(deny_on=0.99, deny_off=0.0, **PIPE, **weights, device=CARD)
+    probe.pipe.warmup()
+    with record_routes() as routes:
+        probe.step(card_batches[0])
+    if [(r.name, r.m, r.k, r.n) for r in routes] != cnn_layers:
+        raise AssertionError(f"DDoS step matmuls {routes} are not the checked {cnn_layers}")
+    probe.run(card_batches[1:], DDOS_STEPS - 1)
+    scores = np.array([s for _, s in probe.emissions])
+    if scores.size < 8:
+        raise AssertionError(f"the DDoS probe emitted {scores.size} flows")
+    on, off = (float(q) for q in np.quantile(scores, [0.6, 0.4]))
+    gpu = DDoSScenario(deny_on=on, deny_off=off, **PIPE, **weights, device=CARD)
+    cpu = DDoSScenario(deny_on=on, deny_off=off, **PIPE, **weights, device="cpu")
+    gpu.pipe.warmup()
+    sync(torch)
+    kernels.reset_launches()
+    for batch in card_batches:
+        gpu.step(batch)
+        if any(gpu.pipe.rules.lookup(f)["action"] != "deny" for f in gpu.denied):
+            raise AssertionError("DDoS: a denied flow does not read deny after a dispatch")
+    want = kernels.matmul_launches(routes, DDOS_STEPS)
+    want["flow_update"] += DDOS_STEPS
+    counts = expect_launches(kernels, want, "DDoS")
+    for batch in ddos_batches:
+        cpu.step(batch)
+    if [f for f, _ in gpu.emissions] != [f for f, _ in cpu.emissions]:
+        raise AssertionError("DDoS: the emitted flows differ card vs CPU")
+    got, ref = (np.array([s for _, s in sc.emissions]) for sc in (gpu, cpu))
+    err = float((np.abs(got - ref) / ref).max())
+    if err > DDOS_SCORE_RTOL:
+        raise AssertionError(f"DDoS: scores differ by {err} of the CPU's, card vs CPU")
+    near = {f for f, s in cpu.emissions
+            if min(abs(s - on) / on, abs(s - off) / off) <= DDOS_SCORE_RTOL}
+    if not (gpu.denied ^ cpu.denied) <= near:
+        raise AssertionError("DDoS: denied sets differ away from a near tie")
+    s = gpu.pipe.stats
+    log(f"  DDoS, band [{off:.6f}, {on:.6f}] from the probe's {scores.size} scores: "
+        f"{len(gpu.emissions)} emissions, fids equal and scores within {err:.3e} of the CPU's; "
+        f"denied {len(gpu.denied)} (CPU {len(cpu.denied)}, {len(near)} near ties), churn "
+        f"{gpu.churn} <= raw {gpu.churn_raw}; each denied flow reads deny after every "
+        f"dispatch; step {s.step_us:.1f} us (host {s.host_us:.1f} / device wait "
+        f"{s.device_us:.1f}), probe step {probe.pipe.stats.step_us:.1f} us; launches "
+        f"{counts_text(counts)} [{card}]")
+    if gpu.churn > gpu.churn_raw or not gpu.denied:
+        raise AssertionError(f"DDoS: denied {len(gpu.denied)}, churn {gpu.churn} over raw "
+                             f"{gpu.churn_raw}")
+    del probe, gpu, cpu
+
+    for mode, kw in ADV_MODES.items():
+        cfg = adversarial_config(mode, batch_size=PIPE["batch_size"],
+                                 table_size=PIPE["table_size"], seed=3, **kw)
+        gpu = AdversarialScenario(OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), device=CARD),
+                                  cfg)
+        cpu = AdversarialScenario(OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), device="cpu"),
+                                  cfg)
+        gpu.pipe.warmup()
+        sync(torch)
+        kernels.reset_launches()
+        gs = gpu.run(ADV_STEPS)
+        want = kernels.matmul_launches(routes, ADV_STEPS)
+        want["flow_update"] += ADV_STEPS
+        counts = expect_launches(kernels, want, mode)
+        cs = cpu.run(ADV_STEPS)
+        same_tree(torch, f"{mode} state", gpu.pipe.state, cpu.pipe.state)
+        for name in ("packets", "flows", "new_flows", "evicted", "fallback_steps"):
+            if getattr(gs, name) != getattr(cs, name):
+                raise AssertionError(f"{mode}: stats.{name} differs card vs CPU")
+        log(f"  {mode} ({kw}): step {gs.step_us:.1f} us (host {gs.host_us:.1f} / device wait "
+            f"{gs.device_us:.1f}), new flows {gs.new_flows}, evicted {gs.evicted}, drained "
+            f"{gs.flows}, fallback steps {gs.fallback_steps} over {ADV_STEPS} steps; tracker "
+            f"state and counters equal the CPU's; launches {counts_text(counts)} [{card}]")
+    log(f"  [scenarios] {time.perf_counter() - t_phase:.1f} s")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2270,7 +2772,16 @@ def main() -> int:
     del g_params
     torch.cuda.empty_cache()
 
-    # -- 19. records
+    # -- 19-21. the offline extractor, the per-granularity paths, the scenarios
+    trace, trace_state = extractor_phase(torch, kernels, card)
+    errs = paths_phase(torch, kernels, record_routes, checks, mlp, cnn, tf, trace, trace_state,
+                       card)
+    for name, err in errs.items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    scenarios_phase(torch, kernels, record_routes, TrafficConfig, TrafficGenerator, mlp, cnn,
+                    cnn_layers, card)
+
+    # -- 22. records
     source = {name: f"src/repro_torch/csrc/{name}.cu" for name in results}
     source["mm_partials_sum"] = "src/repro_torch/csrc/mm_unfused_partials.cu"
     replaces = {"flow_update": "src/repro/kernels/flow_features/flow_features.py:78",

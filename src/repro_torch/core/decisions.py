@@ -2,9 +2,19 @@
 into data-plane rule-table updates (paper working-procedure steps 5-6).
 
 A :class:`DecisionHead` maps what the pipeline computed for one microbatch to
-data-plane actions: a packet head ``decide(logits, packets) -> (P,) int32``
-(:class:`BinaryHead`), a flow head ``decide(logits, drained) -> (actions,
-cls, scores)``, all ``(R,)`` (:class:`ClassHead`).
+data-plane actions, and declares ``needs_logits``: a head without it is
+feature-only, and the pipeline then runs no model for it (launches no engine
+kernel), as in the heavy-hitter telemetry use-case.
+
+  * packet heads ``decide(logits, packets) -> (P,) int32``: :class:`BinaryHead`
+    (use-case 1's intrusion verdict) and :class:`PassHead` (feature-only,
+    allow all);
+  * flow heads ``decide(logits, drained) -> (actions, cls, scores)``, all
+    ``(R,)``: :class:`ClassHead` (use-cases 2/3), :class:`AnomalyHead`
+    (DDoS-style deny on the malicious class's probability) and
+    :class:`TopKHead` (feature-only byte counters).  ``scores`` is the
+    head's float32 score a flow, ``PipelineStepOutput.flow_scores``, which
+    the host-side scenarios read (:mod:`repro_torch.scenarios`).
 """
 from __future__ import annotations
 
@@ -13,6 +23,8 @@ from typing import Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.flow_features.ops import HIST
 
 ACTIONS = ("allow", "deny", "mark")
 
@@ -82,6 +94,18 @@ class BinaryHead:
 
 
 @dataclass(frozen=True)
+class PassHead:
+    """Feature-only packet head: allow every packet; the packet engine never
+    runs."""
+
+    name: str = field(default="pass", init=False)
+    needs_logits: bool = field(default=False, init=False)
+
+    def decide(self, logits, packets) -> torch.Tensor:
+        return torch.zeros(packets.ts.shape, dtype=torch.int32, device=packets.ts.device)
+
+
+@dataclass(frozen=True)
 class ClassHead:
     """Flow head, use-cases 2/3: argmax classification (action ``mark``),
     score = the winning class's softmax confidence."""
@@ -94,3 +118,57 @@ class ClassHead:
         actions, cls = decide_class(logits)
         p = torch.softmax(logits.float(), dim=-1)
         return actions, cls, p.max(dim=-1).values
+
+
+@dataclass(frozen=True)
+class AnomalyHead:
+    """Flow head, DDoS/anomaly scoring: score = the malicious class's softmax
+    probability; ``score >= deny_threshold`` denies the flow (the boundary
+    itself denies), anything else marks it with its argmax class."""
+
+    deny_threshold: float = 0.5
+    malicious_class: int = 0
+    name: str = field(default="anomaly", init=False)
+    needs_logits: bool = field(default=True, init=False)
+
+    def decide(self, logits: torch.Tensor, drained
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        score = torch.softmax(logits.float(), dim=-1)[..., self.malicious_class]
+        cls = torch.argmax(logits, dim=-1).to(torch.int32)
+        actions = torch.where(score >= self.deny_threshold, ACTIONS.index("deny"),
+                              ACTIONS.index("mark")).to(torch.int32)
+        return actions, cls, score
+
+
+@dataclass(frozen=True)
+class TopKHead:
+    """Feature-only flow head, heavy-hitter telemetry: the flow engine never
+    runs; every drained flow is scored by its byte counter (the tracker's
+    ``flow_size`` history lane), action ``mark``, class -1."""
+
+    name: str = field(default="topk", init=False)
+    needs_logits: bool = field(default=False, init=False)
+
+    def decide(self, logits, drained) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        score = drained.features[..., HIST["flow_size"]].float()
+        cls = torch.full_like(drained.tuple_id, -1, dtype=torch.int32)
+        actions = torch.full_like(cls, ACTIONS.index("mark"))
+        return actions, cls, score
+
+
+PKT_HEADS = {"binary": BinaryHead, "pass": PassHead}
+FLOW_HEADS = {"class": ClassHead, "anomaly": AnomalyHead, "topk": TopKHead}
+
+
+def packet_head(name: str, **params) -> DecisionHead:
+    """Registry constructor for packet heads (``PKT_HEADS``)."""
+    if name not in PKT_HEADS:
+        raise ValueError(f"packet head must be one of {tuple(PKT_HEADS)}, got {name!r}")
+    return PKT_HEADS[name](**params)
+
+
+def flow_head(name: str, **params) -> DecisionHead:
+    """Registry constructor for flow heads (``FLOW_HEADS``)."""
+    if name not in FLOW_HEADS:
+        raise ValueError(f"flow head must be one of {tuple(FLOW_HEADS)}, got {name!r}")
+    return FLOW_HEADS[name](**params)

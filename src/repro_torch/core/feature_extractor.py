@@ -10,14 +10,21 @@ kernel on the card, the plain fold on the CPU), which runs any micro-op
 program.  Slots whose batch segment mixes more than one tuple hash take the
 scan oracle's values instead, so the result is bit-exact to
 :func:`~repro_torch.core.flow_tracker.process_packets` in every case.
+
+:class:`FeatureExtractor` is the offline extractor over one whole trace:
+``extract_scan`` (the scan oracle, optionally replaying the feature lanes
+through the ALU fold) and ``extract_segmented`` (one segmented merge from an
+empty table).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.common.util import Device, resolve_device
 from repro_torch.core import flow_tracker as ft
 from repro_torch.kernels.flow_features.ops import (
     HIST,
@@ -39,10 +46,27 @@ class SegmentedOut(NamedTuple):
     fallback_slots: torch.Tensor  # () int32 — slots that took the scan fallback
 
 
+@dataclass(frozen=True)
+class ExtractorConfig:
+    table_size: int = 8192  # paper: 8k-depth flow-state table
+    top_n: int = 20  # packets per flow tracked for series features
+    top_k: int = 15  # packets contributing payload rows
+    pay_bytes: int = 16  # payload bytes per packet (paper use-case 3: 16)
+    # the reference's switch for its ALU-fold kernel: extract_scan replays
+    # the feature lanes through the fold (the flow_update kernel on the
+    # card), and the segmented merge takes any micro-op program
+    use_pallas: bool = False
+
+
 def check_default_program(program: torch.Tensor) -> None:
-    """Raise unless ``program`` is the default micro-op program."""
+    """Raise unless ``program`` is the default micro-op program: the
+    extractor's merge without ``use_pallas`` stands for the reference's
+    segment reductions, which hard-code it."""
     if not np.array_equal(program.cpu().numpy(), default_program_np()):
-        raise ValueError("expected the default micro-op program")
+        raise ValueError(
+            "segmented_update without use_pallas supports only the default "
+            "micro-op program (its feature lanes are segment reductions, not "
+            "an ALU replay); set use_pallas=True or use the scan tracker")
 
 
 def _mixed_segment_heads(s_slot: torch.Tensor, s_hash: torch.Tensor,
@@ -222,6 +246,69 @@ def _head_spills(state: ft.TrackerState, s_slot: torch.Tensor, order: torch.Tens
         getattr(rec, name)[pos] = torch.where(
             ev_head.view(-1, *[1] * (rows.dim() - 1)), rows, 0)
     return ft.SpillRecords(*(leaf[:P] for leaf in rec))
+
+
+class FeatureExtractor:
+    """The offline extractor over a table of ``cfg.table_size`` slots on
+    ``device`` (the card unless another is named)."""
+
+    def __init__(self, cfg: ExtractorConfig = ExtractorConfig(),
+                 program: Optional[torch.Tensor] = None, *, device: Device = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.program = (default_program(self.device) if program is None
+                        else program.to(self.device))
+        self._custom = not np.array_equal(self.program.cpu().numpy(), default_program_np())
+
+    def init_state(self) -> ft.TrackerState:
+        c = self.cfg
+        return ft.init_state(c.table_size, c.top_n, c.top_k, c.pay_bytes, device=self.device)
+
+    def extract_scan(self, state: ft.TrackerState, packets: ft.PacketBatch):
+        """The order-exact oracle (:func:`~repro_torch.core.flow_tracker.
+        process_packets`).  Under ``use_pallas`` the feature table is then
+        recomputed by replaying the ALU fold (one ``flow_update`` launch on
+        the card) over each slot's packets since its last establish, and
+        replaces the scanned one: identical by construction, so the fold runs
+        on the real establish/evict stream.  The rest of the state (counts,
+        series, payload, tuple ids) always comes from the scan."""
+        state2, outs = ft.process_packets(state, packets, self.program, top_n=self.cfg.top_n)
+        if not self.cfg.use_pallas:
+            return state2, outs
+        feats = flow_feature_update(self.program, *self.replay_inputs(state, packets, outs))
+        return state2._replace(features=feats), outs
+
+    def replay_inputs(self, state: ft.TrackerState, packets: ft.PacketBatch, outs: ft.StepOut
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The replay's fold inputs ``(slots, meta, table)`` after the scan of
+        ``packets`` from ``state`` gave ``outs``: a flow's word holds only
+        the packets since its slot's last establish (each establish resets
+        it), so the packets before it go to the dropped slot F, and a slot
+        that establishes starts from the fresh word."""
+        p, f = packets.ts.shape[0], state.tuple_id.shape[0]
+        pos = torch.arange(p, dtype=torch.int32, device=self.device)
+        last_est = torch.full((f,), -1, dtype=torch.int32, device=self.device).scatter_reduce(
+            0, outs.slot.long(), torch.where(outs.new_flow, pos, -1), "amax")
+        keep = pos >= last_est[outs.slot.long()]
+        table = torch.where((last_est >= 0)[:, None], ft.fresh_feature_word(self.device),
+                            state.features)
+        slots = torch.where(keep, outs.slot, f).to(torch.int32)
+        return slots, ft.build_meta(packets, outs.arv_intv), table
+
+    def segmented_update(self, state: ft.TrackerState, packets: ft.PacketBatch):
+        """The vectorized merge into live state (:func:`segmented_update`);
+        without ``use_pallas`` only the default program is taken, as the
+        reference's segment reductions take only it."""
+        if self._custom and not self.cfg.use_pallas:
+            check_default_program(self.program)
+        return segmented_update(state, packets, self.program, top_n=self.cfg.top_n)
+
+    def extract_segmented(self, packets: ft.PacketBatch):
+        """A whole batch merged into an empty table: (features (F, 16),
+        series (F, top_n), sizes, payload, counts (F,)), exact against the
+        scan oracle, in-batch slot collisions included."""
+        state, _ = self.segmented_update(self.init_state(), packets)
+        return state.features, state.series, state.sizes, state.payload, state.count
 
 
 def derive_whole_features(feats: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,9 @@ A live link: a fixed population of concurrent flows with a heavy-tailed
 split — short *mice* flows that usually die below the tracker's top-n
 threshold and long *elephants* that cross it — plus optional bursts of
 back-to-back packets.  Completed flows are replaced by fresh ones, so the
-stream never drains.
+stream never drains.  ``TrafficConfig.adversarial`` shapes it as an attack
+(a flash crowd, an elephant storm, a hash-collision attack), and
+:func:`merge_streams` interleaves several clients' generators.
 
 The generator draws from the same numpy RNG in the same order as the JAX
 package's ``TrafficGenerator``, so a seed gives the same packets there and
@@ -103,8 +105,7 @@ def partition_batch(batch: PacketBatch, num_shards: int, *,
                                 src=torch.from_numpy(src.astype(np.int32)).to(dev)))
     return out
 
-# "flash_crowd" and "elephant_storm" are not ported yet (ROADMAP Queue 1 item 8)
-ADVERSARIAL_MODES = ("none", "collision_attack")
+ADVERSARIAL_MODES = ("none", "flash_crowd", "elephant_storm", "collision_attack")
 
 
 @dataclass(frozen=True)
@@ -123,20 +124,31 @@ class TrafficConfig:
     collision_free: bool = True  # no two *live* flows share a table slot
     seed: int = 0
     client_id: int = 0  # stamped on the generator for multi-stream serving
-    # "collision_attack": every spawned flow hashes into one of the first
-    # adv_slots tracker slots (worst-case eviction churn, and the segmented
-    # tracker's in-batch collision fallback on every batch); with
-    # adv_shards > 0 the flows also all land in shard 0 of an adv_shards-lane
-    # partition, so same-slot flows share a shard while lane 0 takes the
-    # whole attack
+    # adversarial modes, deterministic in `seed` like everything else:
+    # "flash_crowd"       every adv_period-th batch is a crowd of batch_size
+    #                     fresh one-packet flows (SYN-flood shape: maximal
+    #                     flow-establishment churn, nothing ever goes ready)
+    # "elephant_storm"    every spawned flow is an elephant and every
+    #                     scheduled emission a maximal burst_len burst
+    #                     (line-rate pressure on the ready/drain path)
+    # "collision_attack"  every spawned flow hashes into one of the first
+    #                     adv_slots tracker slots (worst-case eviction churn,
+    #                     and the segmented tracker's in-batch collision
+    #                     fallback on every batch); with adv_shards > 0 the
+    #                     flows also all land in shard 0 of an adv_shards-lane
+    #                     partition, so same-slot flows share a shard while
+    #                     lane 0 takes the whole attack
     adversarial: str = "none"
-    adv_slots: int = 2
-    adv_shards: int = 0
+    adv_period: int = 4  # flash_crowd: a crowd every adv_period-th batch
+    adv_slots: int = 2  # collision_attack: number of targeted hot slots
+    adv_shards: int = 0  # collision_attack: pin flows to shard 0 of N lanes
 
     def __post_init__(self):
         if self.adversarial not in ADVERSARIAL_MODES:
             raise ValueError(f"adversarial must be one of {ADVERSARIAL_MODES}, "
                              f"got {self.adversarial!r}")
+        if self.adv_period <= 0:
+            raise ValueError(f"adv_period must be positive, got {self.adv_period}")
         if not 0 < self.adv_slots <= self.table_size:
             raise ValueError(f"adv_slots must be in [1, table_size="
                              f"{self.table_size}], got {self.adv_slots}")
@@ -178,6 +190,12 @@ class TrafficGenerator:
             raise ValueError("batch_size and active_flows must be positive")
         if cfg.collision_free and cfg.active_flows > cfg.table_size:
             raise ValueError("collision_free needs active_flows <= table_size")
+        if (cfg.adversarial == "flash_crowd" and cfg.collision_free
+                and cfg.active_flows + cfg.batch_size > cfg.table_size):
+            raise ValueError(
+                "flash_crowd spawns batch_size extra live flows per crowd "
+                "batch — collision_free needs active_flows + batch_size <= "
+                "table_size")
         self.cfg = cfg
         self.client_id = cfg.client_id
         self.device = resolve_device(device)
@@ -210,7 +228,9 @@ class TrafficGenerator:
         self._live_slots.add(slot)
         self._live_hashes.add(h)
 
-        elephant = self.rng.random() < c.elephant_fraction
+        # no draw under elephant_storm: every flow is an elephant
+        elephant = (True if c.adversarial == "elephant_storm"
+                    else self.rng.random() < c.elephant_fraction)
         lo, hi = c.elephant_pkts if elephant else c.mice_pkts
         cls = int(self.rng.integers(0, c.num_classes))
         malicious = self.rng.random() < c.malicious_fraction
@@ -238,9 +258,39 @@ class TrafficGenerator:
                                "restart the generator for longer runs")
         return self.clock
 
+    def _emit(self, ts, size, dirs, flags, proto, thash, payload) -> PacketBatch:
+        to = lambda a: torch.from_numpy(a).to(self.device)
+        return PacketBatch(ts=to(ts), size=to(size), dir=to(dirs), flags=to(flags),
+                           proto=to(proto), tuple_hash=to(thash), payload=to(payload))
+
+    def _crowd_batch(self) -> PacketBatch:
+        """One flash-crowd microbatch: ``batch_size`` fresh one-packet flows
+        (unique live hashes, like every spawn), each retired at once; the
+        draws a packet go spawn, tick, size, payload."""
+        c = self.cfg
+        n = c.batch_size
+        ts, size, dirs, flags, proto, thash = (np.zeros(n, np.int32) for _ in range(6))
+        payload = np.zeros((n, c.pay_bytes), np.int32)
+        for i in range(n):
+            f = self._spawn_flow()
+            ts[i] = self._tick(2.0)  # near-line-rate arrival spacing
+            size[i] = int(np.clip(self.rng.normal(64, 8), 40, 1500))
+            flags[i] = 2  # SYN-like
+            proto[i] = f.proto
+            thash[i] = f.tuple_hash
+            payload[i] = self.rng.integers(0, 256, c.pay_bytes)
+            # one packet and gone: release the live slot and hash without
+            # touching the steady population in self._flows
+            self._live_slots.discard(f.slot)
+            self._live_hashes.discard(f.tuple_hash)
+            self.flows_completed += 1
+        return self._emit(ts, size, dirs, flags, proto, thash, payload)
+
     def next_batch(self) -> PacketBatch:
         c = self.cfg
         self.batches_emitted += 1
+        if c.adversarial == "flash_crowd" and self.batches_emitted % c.adv_period == 0:
+            return self._crowd_batch()
         n = c.batch_size
         ts, size, dirs, flags, proto, thash = (np.zeros(n, np.int32) for _ in range(6))
         payload = np.zeros((n, c.pay_bytes), np.int32)
@@ -249,9 +299,12 @@ class TrafficGenerator:
         while i < n:
             idx = int(self.rng.integers(0, len(self._flows)))
             f = self._flows[idx]
-            burst = 1
-            if self.rng.random() < c.burst_prob:
-                burst = int(self.rng.integers(2, c.burst_len + 1))
+            if c.adversarial == "elephant_storm":
+                burst = c.burst_len  # every emission a maximal burst, no draws
+            else:
+                burst = 1
+                if self.rng.random() < c.burst_prob:
+                    burst = int(self.rng.integers(2, c.burst_len + 1))
             for _ in range(min(burst, f.remaining, n - i)):
                 ts[i] = self._tick(f.mu_intv)
                 size[i] = int(np.clip(self.rng.normal(f.mu_size, 40), 40, 1500))
@@ -270,9 +323,7 @@ class TrafficGenerator:
             if f.remaining == 0:
                 self._retire(idx)
 
-        to = lambda a: torch.from_numpy(a).to(self.device)
-        return PacketBatch(ts=to(ts), size=to(size), dir=to(dirs), flags=to(flags),
-                           proto=to(proto), tuple_hash=to(thash), payload=to(payload))
+        return self._emit(ts, size, dirs, flags, proto, thash, payload)
 
     def batches(self, steps: Optional[int] = None) -> Iterator[PacketBatch]:
         """Yield ``steps`` microbatches (forever when ``steps`` is None)."""
@@ -283,6 +334,29 @@ class TrafficGenerator:
 
     def __iter__(self) -> Iterator[PacketBatch]:
         return self.batches(None)
+
+
+def merge_streams(*gens: TrafficGenerator, seed: int = 0, steps: Optional[int] = None,
+                  tagged: bool = False) -> Iterator:
+    """Interleave N seeded generators into one stream, deterministically.
+
+    Each microbatch is pulled whole from one generator, chosen by an RNG of
+    its own keyed by ``seed``, so the same seed and generator configs give
+    the same stream, batch for batch.  Every batch a generator produces
+    appears once, in that generator's own order: the merge reorders across
+    clients, never within one.  ``tagged=True`` yields ``(client_id,
+    PacketBatch)`` pairs, the default bare batches (which can drive
+    ``OctopusPipeline.run``); ``steps`` bounds the count (the generators
+    never end)."""
+    if not gens:
+        raise ValueError("merge_streams needs at least one generator")
+    rng = np.random.default_rng(seed)
+    produced = 0
+    while steps is None or produced < steps:
+        g = gens[int(rng.integers(0, len(gens)))]
+        batch = g.next_batch()
+        yield (g.client_id, batch) if tagged else batch
+        produced += 1
 
 
 def prefetch(iterable, depth: int = 2) -> Iterator:

@@ -1,4 +1,10 @@
-from repro_torch.serving.packet_path import FlowEngine, PacketEngine, PathStats
+from repro_torch.serving.packet_path import (
+    FlowEngine,
+    FlowPath,
+    PacketEngine,
+    PacketPath,
+    PathStats,
+)
 from repro_torch.serving.pipeline import (
     InflightDispatch,
     LatencyReservoir,

@@ -1,18 +1,34 @@
-"""The model-invoke cores of the two serving paths (paper §2.3 Table 1):
-:class:`PacketEngine` (use-case 1 MLP on per-packet features, the
-latency-critical VPE side) and :class:`FlowEngine` (use-case 2 CNN on drained
-flows' interval series, or use-case 3 transformer on their payload bytes: the
-throughput AryPE side).  Each reports its placement as a :class:`RoutePlan`
-traced on ``meta`` tensors."""
+"""The in-network serving paths (paper §2.3 Table 1):
+
+  * :class:`PacketPath`: packet granularity, latency-critical: inference on
+    small batches (1-10 packets, one a PHY port), the VPE side of the
+    paper's split; reports latency a call.
+  * :class:`FlowPath`: flow granularity, throughput-critical: batched
+    inference over the ready flows (up to the 8k flow table), the AryPE
+    side; reports flows a second.
+
+Both run inference and decide, and feed the decisions into a rule table
+(the paper's steps 4 -> 6).  Their model-invoke cores are
+:class:`PacketEngine` (use-case 1 MLP on per-packet features) and
+:class:`FlowEngine` (use-case 2 CNN on drained flows' interval series, or
+use-case 3 transformer on their payload bytes), which the streaming
+:class:`~repro_torch.serving.pipeline.OctopusPipeline` composes too.  Each
+engine reports its placement as a :class:`RoutePlan` traced on ``meta``
+tensors."""
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.common.util import Device, resolve_device
+from repro_torch.core import decisions
+from repro_torch.core.feature_extractor import packet_meta_features
+from repro_torch.core.flow_tracker import PacketBatch
 from repro_torch.models import paper_models
 from repro_torch.runtime.config import RuntimeConfig
 from repro_torch.runtime.plan import RoutePlan
@@ -77,6 +93,10 @@ class PacketEngine:
     def fn(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         return paper_models.mlp_apply(params, x, config=self.runtime)
 
+    def decide(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """logits -> binary intrusion actions (0 allow / 1 deny)."""
+        return decisions.decide_binary(self.fn(params, x))
+
     def abstract_input(self, batch: int) -> torch.Tensor:
         return torch.empty((batch, self.feature_dim), device="meta")
 
@@ -117,3 +137,106 @@ class FlowEngine:
         """Placement report for this many flows (nothing runs)."""
         return RoutePlan.trace(self.fn, self.params, self.abstract_input(flows),
                                config=self.runtime)
+
+
+def _on_device(params: dict, device: torch.device) -> dict:
+    return {name: value.to(device) for name, value in params.items()}
+
+
+class PacketPath:
+    """Use-case 1: per-packet MLP intrusion detection, a standalone wrapper
+    around :class:`PacketEngine` with stats and a rule table, on ``device``
+    (the card unless another is named; the parameters move there)."""
+
+    def __init__(self, params: dict, *, config: Optional[RuntimeConfig] = None,
+                 device: Device = None):
+        self.device = resolve_device(device)
+        self.engine = PacketEngine(_on_device(params, self.device), config=config)
+        self.rules = decisions.RuleTable()
+        self.stats = PathStats()
+
+    @property
+    def params(self) -> dict:
+        return self.engine.params
+
+    @property
+    def runtime(self) -> RuntimeConfig:
+        return self.engine.runtime
+
+    def route_plan(self, batch: int = 1) -> RoutePlan:
+        return self.engine.route_plan(batch)
+
+    def warmup(self, batch: int = 1) -> None:
+        """One call at this batch size (the kernel library's build, the
+        allocator), not recorded."""
+        x = torch.zeros((batch, self.engine.feature_dim), device=self.device)
+        self.engine.decide(self.params, x).cpu()
+
+    def process(self, packets: PacketBatch) -> np.ndarray:
+        """Decide every packet: allow 0 / deny 1 as a (P,) int32 array, also
+        written to the rule table.  The stats take the enqueue of the model
+        and the decision as host time and the wait for the verdicts' copy
+        back as device time; an empty submit records nothing."""
+        feats = packet_meta_features(PacketBatch(*(a.to(self.device) for a in packets)))
+        if feats.shape[0] == 0:  # empty submit: no inference, no stats skew
+            return np.zeros((0,), np.int32)
+        t0 = time.perf_counter()
+        out = self.engine.decide(self.params, feats)  # enqueue only
+        t1 = time.perf_counter()
+        actions = out.cpu().numpy()  # waits for the device
+        t2 = time.perf_counter()
+        self.stats.record(t2 - t0, feats.shape[0], host_s=t1 - t0, device_s=t2 - t1)
+        self.rules.update(packets.tuple_hash.cpu().numpy(), actions)
+        return actions
+
+
+class FlowPath:
+    """Use-cases 2/3: classification of ready flows, a standalone wrapper
+    around :class:`FlowEngine` with stats and a rule table, on ``device``
+    (the card unless another is named; the parameters move there)."""
+
+    def __init__(self, params: dict, model: str = "cnn", *,
+                 config: Optional[RuntimeConfig] = None, device: Device = None):
+        self.device = resolve_device(device)
+        self.engine = FlowEngine(_on_device(params, self.device), model, config=config)
+        self.rules = decisions.RuleTable()
+        self.stats = PathStats()
+
+    @property
+    def params(self) -> dict:
+        return self.engine.params
+
+    @property
+    def model(self) -> str:
+        return self.engine.model
+
+    @property
+    def runtime(self) -> RuntimeConfig:
+        return self.engine.runtime
+
+    def route_plan(self, flows: int) -> RoutePlan:
+        return self.engine.route_plan(flows)
+
+    def warmup(self, flows: int) -> None:
+        """One call at this many flows, not recorded."""
+        x = torch.zeros(self.engine.abstract_input(flows).shape, device=self.device)
+        self.engine.fn(self.params, x).cpu()
+
+    def process(self, flow_inputs: torch.Tensor, flow_ids: np.ndarray) -> np.ndarray:
+        """Classify prepared flow inputs (:meth:`FlowEngine.prep`'s output):
+        the (R,) int32 classes, also written to the rule table (action
+        ``mark``) under ``flow_ids``.  Host time is the enqueue of the model
+        and the argmax, device time the wait for the result's copy back; an
+        empty submit records nothing."""
+        if flow_inputs.shape[0] == 0:  # empty submit: no inference, no stats skew
+            return np.zeros((0,), np.int32)
+        x = flow_inputs.to(self.device)
+        t0 = time.perf_counter()
+        actions, cls = decisions.decide_class(self.engine.fn(self.params, x))  # enqueue only
+        out = torch.stack([actions, cls])
+        t1 = time.perf_counter()
+        actions, cls = out.cpu().numpy()  # waits for the device
+        t2 = time.perf_counter()
+        self.stats.record(t2 - t0, x.shape[0], host_s=t1 - t0, device_s=t2 - t1)
+        self.rules.update(np.asarray(flow_ids), actions, cls)
+        return cls

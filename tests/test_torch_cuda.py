@@ -988,3 +988,93 @@ def test_service_on_card_matches_cpu(cuda):
     assert (svc_g.stats.dispatches, svc_g.stats.padded) == (svc_c.stats.dispatches,
                                                             svc_c.stats.padded)
     assert svc_g.queue_depth == 0 and svc_g.stats.served == 4 * sum(sizes)
+
+
+@pytest.mark.parametrize("collision_free", [True, False], ids=["spread", "colliding"])
+def test_extractor_at_twenty_chunks_matches_cpu(cuda, collision_free):
+    """The offline extractor on a whole 81920-packet trace (20 of
+    ``flow_update``'s chunks): the segmented merge with a keep mask, the
+    extraction and the scan with the fold replayed (its dropped packets
+    spread over the chunks), each against the CPU's plain fold; the replay's
+    fold input against the plain fold on the card."""
+    from repro_torch.core.feature_extractor import (
+        ExtractorConfig,
+        FeatureExtractor,
+        segmented_update,
+    )
+    from repro_torch.data import PacketTraceConfig, synth_packet_trace
+
+    packets, *_ = synth_packet_trace(PacketTraceConfig(
+        num_flows=4096, pkts_per_flow=20, collision_free=collision_free), device="cpu")
+    p = packets.ts.shape[0]
+    assert ff.flow_plan(p, 8192).variant == "chunked" and -(-p // FLOW_CAP) == 20
+    on_card = ft.PacketBatch(*(a.to(cuda) for a in packets))
+    keep = torch.rand(p, generator=torch.Generator().manual_seed(0)) < 0.7
+    devices = {"card": (FeatureExtractor(ExtractorConfig(use_pallas=True), device=cuda), on_card,
+                        keep.to(cuda)),
+               "cpu": (FeatureExtractor(ExtractorConfig(use_pallas=True), device="cpu"), packets,
+                       keep)}
+    out = {}
+    for name, (ex, batch, k) in devices.items():
+        kernels.reset_launches()
+        out[name] = (segmented_update(ex.init_state(), batch, ex.program, top_n=20, keep=k)[0],
+                     ex.extract_segmented(batch), ex.extract_scan(ex.init_state(), batch))
+        if name == "card":
+            assert kernels.launches()["flow_update"] == 3
+    (masked_g, seg_g, (scan_g, outs_g)), (masked_c, seg_c, (scan_c, outs_c)) = out.values()
+    for a, b in zip((*masked_g, *seg_g, *scan_g, *outs_g), (*masked_c, *seg_c, *scan_c, *outs_c)):
+        assert torch.equal(a.cpu(), b)
+    ex = devices["card"][0]
+    args = (ex.program, *ex.replay_inputs(ex.init_state(), on_card, outs_g))
+    assert not collision_free or int((args[1] == 8192).sum()) == 0
+    assert torch.equal(ff.flow_feature_update(*args), ff.flow_feature_update_plain(*args))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_packet_path_on_card_matches_cpu(cuda, batch):
+    """``PacketPath`` at the MLP's smallest batches (``vpe_mm`` on the skinny
+    split-K at K and N of 2-12): verdicts and the logits within rtol 1e-5 of
+    the CPU's, four ``vpe_mm`` launches a call."""
+    from repro_torch.serving import PacketPath
+
+    mlp = init_paper_model("mlp", torch.Generator().manual_seed(1), device="cpu")
+    gen = TrafficGenerator(TrafficConfig(batch_size=batch, active_flows=4, table_size=64),
+                           device="cpu")
+    gpu, cpu = PacketPath(mlp, device=cuda), PacketPath(mlp, device="cpu")
+    gpu.warmup(batch)
+    kernels.reset_launches()
+    for _ in range(5):
+        pk = gen.next_batch()
+        feats = packet_meta_features(pk)
+        want = cpu.engine.fn(cpu.params, feats)
+        got = gpu.engine.fn(gpu.params, feats.to(cuda)).cpu()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+        np.testing.assert_array_equal(gpu.process(pk), cpu.process(pk))
+    assert kernels.launches()["vpe_mm"] == 5 * 4 * 2
+    assert gpu.rules.rules == cpu.rules.rules and gpu.stats.calls == 5
+
+
+def test_feature_only_heads_launch_no_engine_kernel(cuda):
+    """A pipeline step under ``PassHead``/``TopKHead`` launches one
+    ``flow_update`` and no engine kernel, and equals the CPU's step."""
+    from repro_torch.core.decisions import PassHead, TopKHead
+
+    mlp = init_paper_model("mlp", torch.Generator().manual_seed(1), device="cpu")
+    cnn = init_paper_model("cnn", torch.Generator().manual_seed(2), device="cpu")
+    cfg = PipelineConfig(batch_size=256, max_ready=64, table_size=1024, pkt_head=PassHead(),
+                         flow_head=TopKHead())
+    gpu = OctopusPipeline(mlp, cnn, cfg)
+    cpu = OctopusPipeline(mlp, cnn, cfg, device="cpu")
+    gen = TrafficGenerator(TrafficConfig(batch_size=256, active_flows=64, table_size=1024,
+                                         elephant_fraction=0.5), device="cpu")
+    gpu.warmup()
+    kernels.reset_launches()
+    for _ in range(12):
+        batch = gen.next_batch()
+        out_g, out_c = gpu.step(batch), cpu.step(batch)
+        for a, b in zip((*gpu.state, *out_g.drained, out_g.flow_scores, out_g.pkt_actions),
+                        (*cpu.state, *out_c.drained, out_c.flow_scores, out_c.pkt_actions)):
+            assert torch.equal(a.cpu(), b)
+    counts = kernels.launches()
+    assert counts["flow_update"] == 12 and sum(counts.values()) == 12
+    assert gpu.stats.flows > 0 and gpu.rules.rules == cpu.rules.rules
