@@ -173,7 +173,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      CPU (scores within ``DDOS_SCORE_RTOL``, denied sets except near ties),
      every denied flow reading deny after each dispatch; the flash crowd,
      elephant storm and collision attack, tracker state and counters card vs
-     CPU; step us and launches of each.
+     CPU; step us and launches of each;
+ 22. ``[calibrate]`` (after 10): ``autotune.calibrate`` on the card over the
+     reference's 64-point (m, k, n) grid, twice: each shape's ``mm_fused``
+     and ``vpe_mm`` times through ``router.matmul`` (forced ``arype_only``,
+     ``vpe_only``), both fits' ``tau``/``vpe_max_elems``, and the M = 8
+     shapes, where both arms launch the same skinny kernel, with the fit
+     left without them; the artifact through ``RuntimeConfig.calibrated``
+     and its ``divergence_report`` at 1000 flows; the CNN pipeline under the
+     calibrated config (launches as the calibrated placements predict, every
+     routed shape against its plain version, card vs CPU: tracker state,
+     drained rows and decisions bit for bit, logits within rtol 1e-5 on the
+     CPU's inputs); ``python -m repro_torch.launch.calibrate --smoke`` in a
+     subprocess, exit 0;
+ 23. ``[lm granite-moe-1b-a400m]`` (after 18): granite at full width and
+     depth as registered (bf16 compute, f32 weights, 32 experts of 512 top
+     8) serving 4 requests: tokens equal each request served alone, and the
+     batch-1 runs except counted near ties; launches as predicted (97
+     ``mm_fused`` a forward, 24 ``flash_fwd`` a prefill); every routed
+     matmul shape (mixed arm) and flash prefill shape against its plain
+     version; one request in f32 compute card vs CPU within
+     ``LM_LOGIT_TOL``, with the expert ids held to the CPU's on the same
+     layer inputs and the near ties counted.
 
 The second-to-last line is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off everywhere: the reference
@@ -291,6 +312,24 @@ ADV_MODES = {"flash_crowd": dict(active_flows=4096, adv_period=4),
              "elephant_storm": dict(active_flows=4096, burst_len=8),
              "collision_attack": dict(active_flows=256, adv_slots=64)}
 ADV_STEPS = 16
+# the measured crossover: the reference's 64-point (m, k, n) grid swept twice
+# on the card (the median of 5 synchronised calls a shape and arm; two sweeps
+# show the fit's spread), the divergence report at Table 6's 1000 flows, then
+# the CNN pipeline under the first sweep's artifact for the pipeline phase's
+# 64 steps and card vs CPU for 64 (flows first drain after ~30); the CLI's
+# smoke run in a subprocess
+CALIB_ITERS, CALIB_SWEEPS, CALIB_CPU_STEPS, CALIB_CLI_TIMEOUT = 5, 2, 64, 600
+# granite-moe-1b-a400m at full width and depth as registered (bf16 compute on
+# f32 weights, 5.5 GB), 4 slots of 512 cache rows, 4 requests of 16 new
+# tokens (one prompt of 300 tokens, past two 128-row flash blocks)
+GRANITE_ARCH = "granite-moe-1b-a400m"
+GRANITE_SERVE = dict(batch_slots=4, cache_len=512)
+GRANITE_PROMPTS, GRANITE_MAX_NEW = (300, 45, 160, 97), 16
+# Expert routing, card against CPU on the same layer inputs.  The router
+# logits are 1024-term f32 dot products that each device sums in another
+# order (differences near 1e-6); a top-k pick may differ only where the
+# CPU's logits at the swapped positions are closer than this (counted).
+MOE_TIE_GAP = 1e-4
 
 
 # qwen3-0.6b's logits in bf16 compute (28 layers), as shares of max|logit|.
@@ -629,7 +668,7 @@ def make_batches(TrafficConfig, TrafficGenerator, cfg: dict, steps: int, device)
 
 
 def compare_runs(torch, ft, fx, pipes, batches, label: str, *, exact_logits: bool = False,
-                 logit_tol: float | None = None) -> dict:
+                 logit_tol: float | None = None, logit_rtol: float | None = None) -> dict:
     """Drive the card and CPU pipelines over the same batches; tracker state
     and drained rows must be bit-identical at every step.  Returns counts:
     ``near`` tied decisions (CPU logit gap under the tie threshold),
@@ -645,8 +684,13 @@ def compare_runs(torch, ft, fx, pipes, batches, label: str, *, exact_logits: boo
     device's own input, on every drained row whose input is identical.  With
     ``logit_tol`` (the transformer) the card's flow logits must lie within
     ``logit_tol * max|logit|`` of the CPU's, and a flow decision counts as
-    near a tie when the CPU's top two logits are that close.  Any other
-    difference fails."""
+    near a tie when the CPU's top two logits are that close.  With
+    ``logit_rtol`` (the calibrated CNN) both devices' engines get the CPU's
+    packet features and flow-model input for every row of the step (the
+    pipeline's shapes, so its placements), and the card's packet and flow
+    logits must lie within that rtol (atol ``logit_rtol * max|logit|``) of
+    the CPU's; ``max_rel`` is their largest difference as a share of
+    max|logit|.  Any other difference fails."""
     gpu, cpu = pipes
     res = dict(near=0, flipped=0, prep_differs=0, rows_differ=0, max_err=0.0, max_rel=0.0)
     for step, batch in enumerate(batches):
@@ -696,6 +740,17 @@ def compare_runs(torch, ft, fx, pipes, batches, label: str, *, exact_logits: boo
             res["max_err"] = max(res["max_err"], diff.max().item())
             res["max_rel"] = max(res["max_rel"],
                                  diff.max().item() / flow_logits[mask].abs().max().item())
+        if logit_rtol is not None:
+            for what, want, engine, x in (
+                    ("packet", pkt_logits, gpu.packet_engine, fx.packet_meta_features(batch)),
+                    ("flow", flow_logits, gpu.flow_engine, flow_x)):
+                got = engine.fn(engine.params, x.cuda()).cpu()
+                top = want.abs().max().item()
+                if not torch.allclose(got, want, rtol=logit_rtol, atol=logit_rtol * top):
+                    raise AssertionError(f"{label} step {step}: {what} logits differ by "
+                                         f"{(got - want).abs().max().item()} on the CPU's input")
+                res["max_rel"] = max(res["max_rel"],
+                                     (got - want).abs().max().item() / (top or 1.0))
         top2 = flow_logits.topk(2, dim=-1).values
         flow_tie = ((top2[:, 0] - top2[:, 1]) < flow_tie_gap) & mask
         flow_diff = (out_g.flow_cls.cpu() != out_c.flow_cls) & mask
@@ -900,10 +955,14 @@ def lm_prompts(cfg, rng) -> list:
 
 def lm_matmul_shapes(cfg, rows: int) -> list:
     """(name, m, k, n) of one LM forward's routed matmuls over ``rows``
-    token rows: a layer's seven, then the lm head on the last positions."""
+    token rows: a layer's (the four projections, then the MLP's three; an
+    MoE layer's experts are plain products), then the lm head on the last
+    positions."""
     slots, d, f = LM_SERVE["batch_slots"], cfg.d_model, cfg.d_ff
     layer = [("wq", d, cfg.q_dim), ("wk", d, cfg.kv_dim), ("wv", d, cfg.kv_dim),
-             ("wo", cfg.q_dim, d), ("wi_gate", d, f), ("wi_up", d, f), ("wo_mlp", f, d)]
+             ("wo", cfg.q_dim, d)]
+    if cfg.block_pattern[0].ffn == "mlp":
+        layer += [("wi_gate", d, f), ("wi_up", d, f), ("wo_mlp", f, d)]
     return ([(name, rows, k, n) for name, k, n in layer]
             + [("lm_head", slots, d, cfg.padded_vocab)])
 
@@ -1130,11 +1189,12 @@ def serve_alone(serving, cfg, params, prompt, serve: dict, max_new: int) -> list
 
 def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompts, *,
              serve: dict = LM_SERVE, max_new: int = LM_MAX_NEW, near_tie=None,
-             alone: bool = False):
+             alone: bool = False, shapes: dict | None = None):
     """Serve the requests with every launch count at 0 just before and read
     just after; tokens must equal each request's single-request greedy run,
-    and launches the prediction: 7 routed matmuls a layer plus the lm head a
-    forward, every one on the AryPE at these shapes (``mm_fused``), one
+    and launches the prediction: a layer's routed matmuls (``lm_matmul_shapes``)
+    plus the lm head a forward, every one on the AryPE at these shapes
+    (``mm_fused``), one
     forward a prefill and one a decode step (every wave of ``max_new``-token
     requests takes ``max_new - 1`` steps), and one ``flash_fwd`` a layer a
     prefill.  With ``near_tie`` (a share of max|logit|) a request may leave
@@ -1146,12 +1206,15 @@ def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompt
     tokens must also equal, exactly, each request served alone by an engine
     of the same config (the same shapes and placements: no kernel's rows
     depend on the other slots).  Returns (launch counts, the engine's stats,
-    the batch-1 runs' launch counts, near ties)."""
+    the batch-1 runs' launch counts, near ties).  With ``shapes`` the
+    serve's and the batch-1 runs' recorded matmuls are noted there
+    (``note_shapes``)."""
     refs_alone = [serve_alone(serving, cfg, params, p, serve, max_new) for p in prompts] \
         if alone else None
     kernels.reset_launches()
-    refs = [greedy_single(torch, lm_mod.LM(cfg, device=CARD), params, p, max_new,
-                          serve["cache_len"]) for p in prompts]
+    with record_routes() as single_routes:
+        refs = [greedy_single(torch, lm_mod.LM(cfg, device=CARD), params, p, max_new,
+                              serve["cache_len"]) for p in prompts]
     single_counts = kernels.launches()
     eng = serving.ServeEngine(cfg, params, serving.ServeConfig(**serve), device=CARD)
     reqs = [serving.Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
@@ -1183,7 +1246,7 @@ def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompt
             f"gap {gaps[t]:.3e} of max|logit| < {near_tie:.3e})")
         ties += 1
     waves = -(-len(reqs) // serve["batch_slots"])
-    per_forward = 7 * cfg.num_layers + 1
+    per_forward = (len(lm_matmul_shapes(cfg, 1)) - 1) * cfg.num_layers + 1
     forwards = len(reqs) + waves * (max_new - 1)
     want = dict.fromkeys(kernels.KERNELS, 0)
     want["mm_fused"] = per_forward * forwards
@@ -1192,6 +1255,9 @@ def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompt
     if {(r.k, r.n) for r in routes} != checked:
         raise AssertionError(f"the serve's matmuls {sorted({(r.k, r.n) for r in routes})} "
                              f"are not the checked {sorted(checked)}")
+    if shapes is not None:
+        note_shapes(kernels, routes, "serve", shapes)
+        note_shapes(kernels, single_routes, "batch 1", shapes)
     recorded = kernels.matmul_launches(routes)
     recorded["flash_fwd"] = cfg.num_layers * st.prefills
     if counts != want or recorded != want or st.prefills + st.decode_steps != forwards:
@@ -2357,6 +2423,256 @@ def scenarios_phase(torch, kernels, record_routes, TrafficConfig, TrafficGenerat
     log(f"  [scenarios] {time.perf_counter() - t_phase:.1f} s")
 
 
+def calibrate_phase(torch, ft, fx, kernels, record_routes, checks, TrafficConfig,
+                    TrafficGenerator, OctopusPipeline, PipelineConfig, mlp, cnn, batches,
+                    cnn_layers) -> tuple[dict, dict]:
+    """``[calibrate]``: ``autotune.calibrate`` on the card over the 64-point
+    grid, twice (each shape's times, both fits, and what the fit reads at
+    M = 8, where both arms launch the same skinny kernel), and the grid's
+    device time fitted the same way beside them; the first sweep's
+    artifact saved and loaded through ``RuntimeConfig.calibrated``, its
+    divergence report at ``CALIB_FLOWS``; the CNN pipeline under that config
+    for the pipeline phase's steps with launch counts as ``record_routes``
+    predicts under the calibrated placements, every routed matmul's shape
+    against its plain version, and card vs CPU (tracker state, drained rows
+    and decisions bit for bit; both engines' logits within rtol 1e-5 on the
+    CPU's inputs); then the CLI's smoke run in a subprocess (exit 0).
+    Returns (each kernel's largest error at the recorded shapes, the
+    pipeline's launch counts)."""
+    import os
+    import tempfile
+
+    from repro_torch.core import router
+    from repro_torch.launch.calibrate import divergence_report
+    from repro_torch.runtime import RoutePlan, RuntimeConfig, autotune
+
+    sweeps = []
+    for i in range(CALIB_SWEEPS):
+        t0 = time.perf_counter()
+        calib = autotune.calibrate(iters=CALIB_ITERS, device=CARD)
+        sweeps.append(calib)
+        log(f"[calibrate] sweep {i + 1} on {calib.fingerprint_id}: {len(calib.timings)} (m,k,n) "
+            f"shapes x 2 arms, the median of {CALIB_ITERS} synchronised calls each, "
+            f"{time.perf_counter() - t0:.2f} s; vpe won "
+            f"{sum(t.vpe_wins for t in calib.timings)}/{len(calib.timings)}; fit tau "
+            f"{calib.tau:.6f}, vpe_max_elems {calib.vpe_max_elems}")
+        for t in calib.timings:
+            log(f"  ({t.m},{t.k},{t.n}) util {t.util:.4f}: arype {t.us_arype:.2f} us, vpe "
+                f"{t.us_vpe:.2f} us ({t.us_vpe / t.us_arype:.3f}x)"
+                f"{'  vpe wins' if t.vpe_wins else ''}")
+    for i, calib in enumerate(sweeps):
+        skinny = [t for t in calib.timings if t.m <= 8]
+        ratios = [t.us_vpe / t.us_arype for t in skinny]
+        tau, cap = autotune.fit_crossover([t for t in calib.timings if t.m > 8])
+        log(f"  sweep {i + 1} at M = 8, where both arms launch mm_fused's skinny split-K (the "
+            f"same bits): vpe won {sum(t.vpe_wins for t in skinny)}/{len(skinny)}, vpe/arype "
+            f"{min(ratios):.3f}-{max(ratios):.3f}; the fit without those shapes: tau "
+            f"{tau:.6f}, vpe_max_elems {cap}")
+    log(f"  the two sweeps' fits: tau {sweeps[0].tau:.6f} / {sweeps[1].tau:.6f}, vpe_max_elems "
+        f"{sweeps[0].vpe_max_elems} / {sweeps[1].vpe_max_elems}")
+    # The sweep times a synchronised call, as the reference does: at these
+    # shapes that is mostly the host's dispatch.  The same grid's device
+    # time (CUDA events behind a sleep, time_ms) fitted the same way, beside.
+    device_timings = []
+    for t in sweeps[0].timings:
+        x = torch.randn(t.m, t.k, generator=torch.Generator().manual_seed(0)).to(CARD)
+        w = torch.randn(t.k, t.n, generator=torch.Generator().manual_seed(1)).to(CARD)
+        us = {p: 1e3 * time_ms(lambda c=RuntimeConfig(policy=p): router.matmul(x, w, config=c))
+              for p in ("arype_only", "vpe_only")}
+        device_timings.append(autotune.ShapeTiming(t.m, t.k, t.n, t.util, us["arype_only"],
+                                                   us["vpe_only"]))
+    tau, cap = autotune.fit_crossover(device_timings)
+    device_fit = RuntimeConfig(tau=tau, vpe_max_elems=cap, calibration="device time")
+    log(f"[calibrate] the same grid's device time a call (CUDA events, {len(device_timings)} "
+        f"shapes): vpe won {sum(t.vpe_wins for t in device_timings)}/{len(device_timings)}; "
+        f"fit tau {device_fit.tau:.6f}, vpe_max_elems {device_fit.vpe_max_elems}")
+    for t in device_timings:
+        log(f"  ({t.m},{t.k},{t.n}) util {t.util:.4f}: arype {t.us_arype:.3f} us, vpe "
+            f"{t.us_vpe:.3f} us ({t.us_vpe / t.us_arype:.3f}x){'  vpe wins' if t.vpe_wins else ''}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = autotune.save_calibration(sweeps[0], os.path.join(tmp, "calib.json"))
+        cfg = RuntimeConfig.calibrated(path, device=CARD)
+        if (cfg.tau, cfg.vpe_max_elems, cfg.calibration) != (
+                sweeps[0].tau, sweeps[0].vpe_max_elems, sweeps[0].fingerprint_id):
+            raise AssertionError(f"RuntimeConfig.calibrated read {cfg} from the artifact")
+        log(f"[calibrate] sweep 1's artifact through RuntimeConfig.calibrated: tau {cfg.tau}, "
+            f"vpe_max_elems {cfg.vpe_max_elems}, calibration {cfg.calibration!r}")
+        fitted = [(f"sweep {i + 1}", calib.apply()) for i, calib in enumerate(sweeps)]
+        for label, fit in fitted + [("the device-time fit", device_fit)]:
+            log(f"[calibrate] placement divergence at {TABLE6_FLOWS} flows, {label} (analytic "
+                "-> calibrated):")
+            log("  " + divergence_report(fit, flows=TABLE6_FLOWS).replace("\n", "\n  "))
+
+        plan = RoutePlan.from_layers(cnn_layers, config=cfg)
+        expected = plan.engines()
+        moved = {n: f"{CNN_PLACEMENT[n]} -> {e}" for n, e in expected.items()
+                 if e != CNN_PLACEMENT[n]}
+        log(f"[pipeline] f32 under the calibrated config, 8k table, batch 1024, 256 drained "
+            f"flows/step, CNN, {len(batches)} steps; moved from the analytic placement: "
+            f"{moved or 'none'}")
+        pipe = OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), config=cfg)
+        counts, _ = drive_pipeline(kernels, record_routes, pipe, batches, cnn_layers, expected,
+                                   quantized=False)
+        text = pipe.explain()
+        if f"[calibrated: {cfg.calibration}]" not in text:
+            raise AssertionError(f"the plan does not name its calibration:\n{text}")
+        log(text)
+        pipe.reset()
+        with record_routes() as routes:
+            pipe.step(batches[0])
+        shapes: dict = {}
+        note_shapes(kernels, routes, "calibrated", shapes)
+        errs = check_recorded(checks, shapes, "the calibrated pipeline")
+        log(f"[card vs cpu] f32 under the calibrated config, ordinary traffic, "
+            f"{CALIB_CPU_STEPS} steps")
+        cpu_batches = make_batches(TrafficConfig, TrafficGenerator, TRAFFIC, CALIB_CPU_STEPS,
+                                   "cpu")
+        pipes = (OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), config=cfg),
+                 OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), config=cfg, device="cpu"))
+        res = compare_runs(torch, ft, fx, pipes, cpu_batches, "calibrated",
+                           logit_rtol=MATMUL_RTOL)
+        if res["flipped"]:
+            raise AssertionError(f"calibrated: {res['flipped']} decisions differ card vs CPU")
+        log(f"  tracker state, drained rows and decisions bit-identical over {CALIB_CPU_STEPS} "
+            f"steps ({pipes[1].stats.flows} flows drained, {res['near']} near ties, none "
+            f"flipped); packet and flow logits on the CPU's inputs within rtol {MATMUL_RTOL}, "
+            f"largest difference {res['max_rel']:.3e} of max|logit|")
+        if pipes[1].stats.flows == 0:
+            raise AssertionError("calibrated: no flow drained")
+
+        src = str(ROOT / "src")
+        env = dict(os.environ, OCTOPUS_CACHE_DIR=tmp,
+                   PYTHONPATH=os.pathsep.join(filter(None, (src, os.environ.get("PYTHONPATH")))))
+        cmd = [sys.executable, "-m", "repro_torch.launch.calibrate", "--smoke", "--out",
+               os.path.join(tmp, "cli.json")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=str(ROOT),
+                              timeout=CALIB_CLI_TIMEOUT)
+        log(f"[calibrate] python -m repro_torch.launch.calibrate --smoke --out <tmp>: exit "
+            f"{proc.returncode} in {time.perf_counter() - t0:.2f} s")
+        for line in proc.stdout.splitlines():
+            log("  | " + line)
+        if proc.returncode != 0:
+            raise AssertionError(f"the calibrate CLI exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+    return errs, counts
+
+
+def moe_route_ties(torch, layers, cfg, captured: list) -> None:
+    """Expert ids card against CPU on the CPU run's own MoE layer inputs
+    (``captured``: (ln, router, x) a layer call): each group of tokens
+    normed and routed on both devices.  A row's ordered top-k ids may differ
+    only where the CPU's logits at the first differing position and the next
+    are closer than ``MOE_TIE_GAP`` (read as the log of the CPU's
+    probabilities' ratio, which is that logit gap); such rows are counted,
+    beside every row with so close a gap within its top k + 1."""
+    k = cfg.experts_per_token
+    rows = near = flipped = 0
+    worst = 0.0
+    for ln, router_w, x in captured:
+        b, s, d = x.shape
+        g = b if s > 1 else max(1, min(b, 8))
+        p_c, _, ids_c = layers.moe_route(router_w, layers.rms_norm(x, ln).reshape(g, -1, d), k)
+        p_g, _, ids_g = layers.moe_route(router_w.to(CARD),
+                                         layers.rms_norm(x.to(CARD), ln.to(CARD)).reshape(g, -1, d),
+                                         k)
+        p_g, ids_g = p_g.cpu(), ids_g.cpu()
+        worst = max(worst, (p_g.log() - p_c.log()).abs().max().item())
+        top = torch.sort(p_c, dim=-1, descending=True, stable=True).values[..., :k + 1].log()
+        gaps = top[..., :-1] - top[..., 1:]  # (G, T, k): logit gaps down the CPU's order
+        near += int((gaps < MOE_TIE_GAP).any(dim=-1).sum())
+        rows += ids_c.shape[0] * ids_c.shape[1]
+        differ = (ids_g != ids_c)
+        for gi, ti in differ.any(dim=-1).nonzero().tolist():
+            j = int(differ[gi, ti].nonzero()[0])
+            if gaps[gi, ti, j].item() >= MOE_TIE_GAP:
+                raise AssertionError(f"expert ids differ card vs CPU at a logit gap of "
+                                     f"{gaps[gi, ti, j].item():.3e}: card {ids_g[gi, ti].tolist()}, "
+                                     f"cpu {ids_c[gi, ti].tolist()}")
+            flipped += 1
+    log(f"  expert routing on the CPU run's {len(captured)} MoE layer inputs ({rows} token rows): "
+        f"top-{k} ids equal card vs CPU except {flipped} rows, each at a near tie; {near} rows "
+        f"have a logit gap under {MOE_TIE_GAP} within their top {k + 1}; largest router "
+        f"log-probability difference {worst:.3e}")
+
+
+def granite_phase(torch, np, kernels, record_routes, lm_mod, layers, serving, get_config, fa,
+                  arype, vpe_matmul, vpe_mm, gen) -> dict:
+    """``[lm granite-moe-1b-a400m]``: granite at full width and depth as
+    registered (bf16 compute on f32 weights) serving ``GRANITE_PROMPTS``
+    through ``ServeEngine`` (tokens equal each request served alone at the
+    same slots, and its batch-1 greedy run except counted near ties under
+    ``BF16_TIE_GAP``; launches as predicted); then ``mm_fused``'s and
+    ``vpe_mm``'s mixed arms at every matmul shape the serve and the batch-1
+    runs recorded, and ``flash_fwd`` in bf16 at the prefill shapes of both
+    (B 4 and 1, 16 heads over 8, D 64, causal), against their plain
+    versions; then one request in f32 compute card vs CPU at full depth
+    (``lm_card_vs_cpu``) with the expert ids held to the CPU's on the same
+    layer inputs (``moe_route_ties``).  Returns each kernel's largest error."""
+    cfg = get_config(GRANITE_ARCH)
+    t0 = time.perf_counter()
+    params = lm_mod.LM(cfg, device=CARD).init(torch.Generator(device=CARD).manual_seed(0))
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in GRANITE_PROMPTS]
+    log(f"[lm {GRANITE_ARCH}] as registered (compute {cfg.compute_dtype}, params "
+        f"{cfg.param_dtype}), d_model {cfg.d_model}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads}, head_dim {cfg.head_dim}, {cfg.num_experts} experts of "
+        f"{cfg.moe_d_ff} top {cfg.experts_per_token}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}), {cfg.num_layers} layers, "
+        f"{sum(t.numel() for t in _leaves(params))} parameters (seed 0) in "
+        f"{time.perf_counter() - t0:.2f} s; ServeConfig({GRANITE_SERVE}), prompts "
+        f"{list(GRANITE_PROMPTS)}, max_new {GRANITE_MAX_NEW}; near ties under {BF16_TIE_GAP} "
+        "counted")
+    shapes: dict = {}
+    serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompts,
+             serve=GRANITE_SERVE, max_new=GRANITE_MAX_NEW, near_tie=BF16_TIE_GAP, alone=True,
+             shapes=shapes)
+    engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan),
+               "vpe_mm": (vpe_matmul, vpe_mm, None)}
+    errs = {}
+    for kernel, seen in sorted(shapes.items()):
+        engine, plain, plan = engines[kernel]
+        todo = [("lm_head" if n == cfg.padded_vocab else name, m, k, n)
+                for (m, k, n), name in seen.items()]
+        log(f"  {kernel}'s mixed arm (bf16 x, f32 w) at the {len(todo)} shapes the serve and "
+            "the batch-1 runs launched it at, against its plain version:")
+        errs[kernel] = check_mixed_matmuls(torch, engine, plain, todo, gen, plan=plan)[
+            "max_abs_err"]
+    log(f"  flash_fwd in bf16 at the prefill shapes ({cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads}, D {cfg.head_dim}, causal; the serve's B {GRANITE_SERVE['batch_slots']} "
+        "and the batch-1 runs'):")
+    errs["flash_fwd"] = 0.0
+    for b in (GRANITE_SERVE["batch_slots"], 1):
+        for p in GRANITE_PROMPTS:
+            case = (b, cfg.num_heads, cfg.num_kv_heads, p, p, cfg.head_dim, "causal", 0, None)
+            r = flash_case(torch, fa, gen, case, "bfloat16", lm_layout=True)
+            errs["flash_fwd"] = max(errs["flash_fwd"], r["max_abs_err"])
+
+    f32 = cfg.replace(compute_dtype="float32")
+    log(f"[lm {GRANITE_ARCH} card vs cpu] f32 compute, batch 1, a {LM_CPU_PROMPT}-token "
+        f"prompt, prefill + {LM_CPU_DECODES} decode steps at full depth")
+    captured = []
+    moe_apply = lm_mod.moe_apply
+
+    def spy(p, x, c, num_groups=None):
+        if x.device.type == "cpu":
+            captured.append((p["ln"], p["router"], x))
+        return moe_apply(p, x, c, num_groups)
+
+    lm_mod.moe_apply = spy
+    try:
+        lm_card_vs_cpu(torch, lm_mod, f32, params, rng)
+    finally:
+        lm_mod.moe_apply = moe_apply
+    if not captured:
+        raise AssertionError("the CPU run went through no MoE layer")
+    moe_route_ties(torch, layers, cfg, captured)
+    del params, captured
+    torch.cuda.empty_cache()
+    return errs
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2413,6 +2729,7 @@ def main() -> int:
     from repro_torch import serving
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import layers as lm_layers
     from repro_torch.models import transformer as lm_mod
     from repro_torch.models.paper_models import cnn_apply, init_paper_model
     from repro_torch.runtime import RuntimeConfig, record_routes
@@ -2686,6 +3003,13 @@ def main() -> int:
         log(f"[plan] {label}")
         log(OctopusPipeline(mlp, params, PipelineConfig(**pcfg)).explain())
 
+    # -- 10b. the measured crossover, and the CNN pipeline under it
+    errs, _ = calibrate_phase(torch, ft, fx, kernels, record_routes, checks, TrafficConfig,
+                              TrafficGenerator, OctopusPipeline, PipelineConfig, mlp, cnn,
+                              batches, cnn_layers)
+    for name, err in errs.items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
     # -- 11. the dispatch modes and the two-level flow table
     two_level_phase(torch, kernels, record_routes, cs, prefetch, TrafficConfig,
                     TrafficGenerator, OctopusPipeline, PipelineConfig, mlp, cnn, card)
@@ -2771,6 +3095,13 @@ def main() -> int:
              serve=GEMMA_SERVE, max_new=GEMMA_MAX_NEW, near_tie=LM_LOGIT_TOL)
     del g_params
     torch.cuda.empty_cache()
+
+    # -- 18b. granite-moe-1b-a400m at full width and depth, as registered
+    errs = granite_phase(torch, np, kernels, record_routes, lm_mod, lm_layers, serving,
+                         get_config, fa, arype, vpe_matmul, vpe_mm, gen)
+    for name in ("mm_fused", "vpe_mm"):
+        mixed[name]["max_abs_err"] = max(mixed[name]["max_abs_err"], errs.get(name, 0.0))
+    flash_bf16["max_abs_err"] = max(flash_bf16["max_abs_err"], errs["flash_fwd"])
 
     # -- 19-21. the offline extractor, the per-granularity paths, the scenarios
     trace, trace_state = extractor_phase(torch, kernels, card)

@@ -10,9 +10,9 @@ The fields that chose an implementation or a distribution in the reference
 (``use_pallas``, ``attn_impl``, ``inner_unroll``, ``attn_av_dtype``,
 ``scan_layers``, ``remat``, ``fsdp``, ``sequence_parallel``,
 ``moe_dp_attention``, ``shard_kv_seq_decode``) are left out: the port has one
-implementation per device and runs on one card.  So are the MoE, recurrent
-and frontend sizes, the optimizer and the MoE combine type: they come with
-the slices that run them.
+implementation per device and runs on one card.  So are the recurrent and
+frontend sizes and the optimizer: they come with the slices that run them.
+The MoE sizes and the combine type are here: the port serves the MoE layer.
 """
 from __future__ import annotations
 
@@ -64,10 +64,19 @@ class ArchConfig:
     rope_theta_local: float = 10_000.0  # theta of the local layers (gemma3)
     attn_logit_softcap: float = 0.0
     embed_scale: bool = False  # multiply embeddings by sqrt(d_model) (gemma)
+    # -- MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    num_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001
+    first_dense_ff: int = 0  # FFN width of the dense head layers (kimi-style); 0 = d_ff
     # -- modality frontend (refused by the LM)
     frontend: str = "none"  # none|audio_frames|vision_patches
     # -- numerics
     matmul_accum_dtype: str = "float32"
+    moe_combine_dtype: str = "float32"  # dtype of the expert outputs' gather and combine
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     vocab_round_to: int = 128
@@ -148,4 +157,10 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
         compute_dtype="float32",
         vocab_round_to=16,
     )
+    if cfg.num_experts:
+        # a capacity factor high enough that the reduced configs drop no token
+        kw.update(num_experts=4, experts_per_token=2, moe_d_ff=32,
+                  num_shared_experts=min(cfg.num_shared_experts, 1),
+                  first_dense_ff=64 if cfg.first_dense_ff else 0,
+                  capacity_factor=8.0)
     return cfg.replace(**kw)

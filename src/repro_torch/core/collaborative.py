@@ -197,7 +197,7 @@ class OctopusCycleModel:
         vpe_macs = sum(c.useful_macs for _, c in vpe)
         return {
             "collaborative": collaborative,
-            "calibration": None,  # the port has no measured-crossover artifacts
+            "calibration": plan.config.calibration,
             "placements": placements,
             "arype_eff": ary_macs / (ary_cycles * ary_peak) if ary_cycles else 0.0,
             "vpe_eff": vpe_macs / (vpe_cycles * vpe_peak) if vpe_cycles else 0.0,

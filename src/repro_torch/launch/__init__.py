@@ -1,2 +1,2 @@
-"""Entry points of the port: int8 scale calibration (``calibrate``) and LM
-serving (``serve``)."""
+"""Entry points of the port: the arype/vpe crossover sweep and the int8 scale
+calibration (``calibrate``), and LM serving (``serve``)."""

@@ -1,12 +1,27 @@
-"""Int8 scale calibration for the engine datapath: the port of
-``repro/launch/calibrate.py``'s ``calibrate_quant_scales`` and
-``quant_divergence_report``.
+"""Measure the arype/vpe crossover on a device and persist it, with the
+int8 scale calibration of the engine datapath: the port of
+``repro/launch/calibrate.py``.
 
-Scales come from a seeded :class:`TrafficGenerator` sample pushed through an
-f32 pipeline, so the flow engine sees tracker-shaped inputs (the drained and
+    PYTHONPATH=src python -m repro_torch.launch.calibrate                # the card, cache path
+    PYTHONPATH=src python -m repro_torch.launch.calibrate --out calib.json
+    PYTHONPATH=src python -m repro_torch.launch.calibrate --smoke        # 8-point grid
+    PYTHONPATH=src python -m repro_torch.launch.calibrate --device cpu   # plain versions
+
+:func:`main` sweeps the (m, k, n) timing grid (``repro_torch.runtime.autotune``)
+on the card unless ``--device`` names another device, fits the crossover into
+``tau``/``vpe_max_elems``, writes the backend-keyed artifact, and reports,
+per paper use-case model, every layer whose placement under the calibrated
+thresholds differs from the analytic one (:func:`divergence_report`).
+
+With ``--quant`` (on by default) it also fits the int8 datapath's per-layer
+scales: from a seeded :class:`TrafficGenerator` sample pushed through an f32
+pipeline, so the flow engine sees tracker-shaped inputs (the drained and
 ready rows' series or payloads), and then through both engines under
 :func:`repro_torch.runtime.record_scales`.  A greedy pass per decision
-stream then drops the layers whose int8 error flips the most decisions.
+stream drops the layers whose int8 error flips the most decisions.  The
+table covers the packet MLP, the CNN and (unless ``--smoke``) the payload
+transformer, one :func:`calibrate_quant_scales` call per flow model merged by
+:func:`calibrate_quant_tables`, and persists in the same artifact.
 
     from repro_torch.launch.calibrate import calibrate_quant_scales
     table = calibrate_quant_scales(mlp_params, cnn_params, device="cuda")
@@ -14,25 +29,61 @@ stream then drops the layers whose int8 error flips the most decisions.
 
 The parameters are arguments (the reference initialises its own from JAX
 ``PRNGKey``s, which the port cannot replay; ``convert.params_from_numpy``
-carries them over), and one call calibrates one flow model, the CNN or the
-payload transformer (the reference takes a list of them).  The reference's
-crossover sweep (``tau``/``vpe_max_elems``) and its CLI are not ported.
+carries them over; :func:`main` draws the port's own from seeds 0 and 1).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import Callable, Optional, Sequence
+import sys
+from typing import Callable, Mapping, Optional, Sequence
 
 import torch
 
 from repro_torch.common.util import Device, resolve_device
 from repro_torch.core import decisions
+from repro_torch.core.collaborative import usecase2_layers, usecase3_layers
 from repro_torch.core.feature_extractor import packet_meta_features
 from repro_torch.data.traffic import TrafficConfig, TrafficGenerator
 from repro_torch.models import paper_models
+from repro_torch.runtime import autotune, platform
 from repro_torch.runtime.config import RuntimeConfig
+from repro_torch.runtime.plan import RoutePlan
 from repro_torch.runtime.quant import QuantScales, record_scales
 from repro_torch.serving import OctopusPipeline, PipelineConfig
+
+# Paper-model matmul stacks the report compares (the MLP at a per-packet batch
+# of 8; the flow use-cases at 1000 tracked flows, the paper's Table 6 point).
+_MLP_LAYERS = [("w0", 8, 6, 12), ("w1", 8, 12, 6), ("w2", 8, 6, 3), ("w3", 8, 3, 2)]
+
+
+def _model_stacks(flows: int) -> list[tuple[str, list[tuple[str, int, int, int]]]]:
+    return [
+        ("usecase1_mlp(batch=8)", _MLP_LAYERS),
+        (f"usecase2_cnn(flows={flows})", usecase2_layers(flows)),
+        (f"usecase3_transformer(flows={flows})", usecase3_layers(flows)),
+    ]
+
+
+def divergence_report(calibrated: RuntimeConfig, *, flows: int = 1000,
+                      analytic: Optional[RuntimeConfig] = None, verbose: bool = False) -> str:
+    """Per paper-model layer, where the calibrated placement differs from the
+    analytic default (and the full calibrated plan when ``verbose``)."""
+    analytic = analytic if analytic is not None else RuntimeConfig()
+    lines = []
+    for label, layers in _model_stacks(flows):
+        a_plan = RoutePlan.from_layers(layers, config=analytic)
+        c_plan = RoutePlan.from_layers(layers, config=calibrated)
+        moved = [(a, c) for a, c in zip(a_plan.steps, c_plan.steps) if a.engine != c.engine]
+        lines.append(f"{label}:")
+        if not moved:
+            lines.append("  placement unchanged by calibration")
+        for a, c in moved:
+            lines.append(f"  {a.name}  ({a.m},{a.k},{a.n})  "
+                         f"{a.engine} -> {c.engine}  (util={c.route.util:.3f})")
+        if verbose:
+            lines.extend("  " + ln for ln in c_plan.explain().splitlines())
+    return "\n".join(lines)
 
 
 def traffic_config(table_size: int = 256, seed: int = 7) -> TrafficConfig:
@@ -172,3 +223,97 @@ def quant_divergence_report(scales: QuantScales, pkt_params: dict, flow_params: 
         f"({100 * metrics['flow_flip_rate']:.2f}%)\n"
         f"  tracker state bit-exact: {'yes' if state_exact else 'NO'}")
     return text, metrics
+
+
+def calibrate_quant_tables(pkt_params: dict, flow_params: Mapping[str, dict], *,
+                           steps: int = 16, traffic: Optional[TrafficConfig] = None,
+                           max_flip_rate: Optional[float] = 0.01,
+                           device: Device = None) -> QuantScales:
+    """One int8 table over the packet MLP and every flow model of
+    ``flow_params`` (``{"cnn": params, "transformer": params}``), as the
+    reference's ``calibrate_quant_scales(flow_models=...)`` fits it: one
+    :func:`calibrate_quant_scales` call per flow model, the tables merged.
+
+    Each call records and prunes the MLP on the same traffic sample, so
+    their MLP entries agree (checked); the flow models' layer names are
+    disjoint, and the streams are pruned independently in the reference
+    too.  Entries are in name order, as the reference's table keeps them."""
+    entries: dict = {}
+    for model, params in flow_params.items():
+        table = calibrate_quant_scales(pkt_params, params, steps=steps, traffic=traffic,
+                                       flow_model=model, max_flip_rate=max_flip_rate,
+                                       device=device)
+        for name, sx, sw in table.entries:
+            if entries.setdefault(name, (name, sx, sw)) != (name, sx, sw):
+                raise ValueError(f"layer {name!r} calibrates differently beside {model}")
+    return QuantScales(tuple(entries[name] for name in sorted(entries)))
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        description="calibrate tau/vpe_max_elems from measured crossover points")
+    ap.add_argument("--out", default=None,
+                    help="artifact path (default: the backend-keyed cache path, "
+                         f"{autotune.cache_dir()}/calib-torch-<backend>.json)")
+    ap.add_argument("--device", default=None,
+                    help="torch device to measure (default: the card; 'cpu' times the "
+                         "plain versions)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="8-point grid, 2 timing iters")
+    ap.add_argument("--iters", type=int, default=None,
+                    help="timing iterations per shape per path (default 5; 2 with --smoke)")
+    ap.add_argument("--flows", type=int, default=1000,
+                    help="tracked flows for the paper-model divergence report")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print the full calibrated RoutePlan per model")
+    ap.add_argument("--quant", default=True, action=argparse.BooleanOptionalAction,
+                    help="also fit int8 per-layer scales from a traffic sample and report "
+                         "decision flips (--no-quant skips)")
+    ap.add_argument("--quant-steps", type=int, default=None,
+                    help="traffic microbatches for scale fitting (default 16; 6 with --smoke)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    print(f"[calibrate] platform: {platform.fingerprint_id(device=dev)} "
+          f"({platform.device_count(dev)} device(s))")
+    iters = args.iters if args.iters is not None else (2 if args.smoke else 5)
+    grid = autotune.default_grid(smoke=args.smoke)
+    print(f"[calibrate] sweeping {len(grid)} (m,k,n) shapes x 2 engine paths "
+          f"({iters} iters each)...")
+    calib = autotune.calibrate(grid, iters=iters, device=dev)
+    if args.quant:
+        q_steps = args.quant_steps if args.quant_steps is not None else (
+            6 if args.smoke else 16)
+        flow_models = ("cnn",) if args.smoke else ("cnn", "transformer")
+        print(f"[calibrate] fitting int8 scales from {q_steps} traffic microbatches "
+              f"({', '.join(flow_models)})...")
+        pkt = paper_models.init_paper_model("mlp", torch.Generator().manual_seed(0), device=dev)
+        flows = {m: paper_models.init_paper_model(m, torch.Generator().manual_seed(1),
+                                                  device=dev) for m in flow_models}
+        scales = calibrate_quant_tables(pkt, flows, steps=q_steps, device=dev)
+        calib = dataclasses.replace(calib, quant_scales=scales)
+    path = autotune.save_calibration(calib, args.out)
+
+    analytic = RuntimeConfig()
+    n_vpe = sum(1 for t in calib.timings if t.vpe_wins)
+    print(f"[calibrate] vpe won {n_vpe}/{len(calib.timings)} shapes")
+    print(f"[calibrate] analytic: tau={analytic.tau} vpe_max_elems={analytic.vpe_max_elems}")
+    print(f"[calibrate] measured: tau={calib.tau:.4f} vpe_max_elems={calib.vpe_max_elems}")
+    print(f"[calibrate] artifact: {path}")
+    print()
+    print("placement divergence (analytic -> calibrated):")
+    print(divergence_report(calib.apply(analytic), flows=args.flows, verbose=args.verbose))
+    if args.quant and calib.quant_scales is not None:
+        print(f"[calibrate] int8 scales: {calib.quant_scales.fingerprint} "
+              f"({len(calib.quant_scales.entries)} layers)")
+        q_steps = args.quant_steps if args.quant_steps is not None else (
+            6 if args.smoke else 10)
+        text, _ = quant_divergence_report(calib.quant_scales, pkt, flows["cnn"], steps=q_steps,
+                                          device=dev)
+        print()
+        print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

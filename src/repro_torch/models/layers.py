@@ -1,7 +1,8 @@
 """Transformer layers of the port's LM stack (the reference's
-``models/layers.py``, attention and the dense MLP): norms, RoPE, attention
-(prefill/train through the flash kernel, cached decode, sliding-window ring
-caches) and the SwiGLU MLP.
+``models/layers.py``, attention, the dense MLP and the MoE layer): norms,
+RoPE, attention (prefill/train through the flash kernel, cached decode,
+sliding-window ring caches), the SwiGLU MLP and the capacity-dispatched
+mixture of experts.
 
 Every projection goes through the Octopus router (``core/router.matmul``),
 which places it on the VPE or the AryPE engine.  The reference keeps the
@@ -14,6 +15,7 @@ and rounded once.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -179,9 +181,10 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
 # ---------------------------------------------------------------- dense MLP
 
 
-def mlp_specs(cfg: ArchConfig) -> dict:
+def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> dict:
+    """The MLP's parameters, ``d_ff`` wide (``cfg.d_ff`` by default)."""
     dt = cfg.param_dtype
-    d, f = cfg.d_model, cfg.d_ff
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     specs = {
         "ln": ParamSpec((d,), ("embed",), "zeros", dtype=dt),
         "wi_up": ParamSpec((d, f), ("embed", "mlp"), "normal", dtype=dt),
@@ -202,3 +205,138 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         return x + mm(gate * up, p["wo"])
     up = mm(h, p["wi_up"], activation="gelu")
     return x + mm(up, p["wo"])
+
+
+# ---------------------------------------------------------------- mixture of experts
+
+
+def moe_specs(cfg: ArchConfig) -> dict:
+    dt = cfg.param_dtype
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    specs = {
+        "ln": ParamSpec((d,), ("embed",), "zeros", dtype=dt),
+        "router": ParamSpec((d, e), ("embed", None), "small_normal", dtype="float32"),
+        "w_gate": ParamSpec((e, d, f), ("expert", "embed", "mlp"), "normal", dtype=dt),
+        "w_up": ParamSpec((e, d, f), ("expert", "embed", "mlp"), "normal", dtype=dt),
+        "w_down": ParamSpec((e, f, d), ("expert", "mlp", "embed"), "normal", dtype=dt),
+    }
+    if cfg.num_shared_experts:
+        fs = f * cfg.num_shared_experts
+        specs["sh_gate"] = ParamSpec((d, fs), ("embed", "mlp"), "normal", dtype=dt)
+        specs["sh_up"] = ParamSpec((d, fs), ("embed", "mlp"), "normal", dtype=dt)
+        specs["sh_down"] = ParamSpec((fs, d), ("mlp", "embed"), "normal", dtype=dt)
+    return specs
+
+
+def moe_capacity(tokens_per_group: int, cfg: ArchConfig) -> int:
+    """Slots per expert per group: ``ceil(T * k / E * capacity_factor)``, at
+    least 1 (the reference's double-precision arithmetic)."""
+    c = math.ceil(tokens_per_group * cfg.experts_per_token / cfg.num_experts
+                  * cfg.capacity_factor)
+    return max(c, 1)
+
+
+def _dispatch_indices(eidx: torch.Tensor, e: int, cap: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """eidx (..., TK) expert id of each routing entry -> (slot, keep), each
+    (..., TK), over the last axis: an entry's slot is ``expert * cap +`` its
+    position among the entries of its expert in entry order; entries past
+    ``cap`` are dropped (``keep`` False) and get the drop row ``e * cap``.
+    The reference's stable argsort, left ``searchsorted`` and inverse
+    permutation, all integer work, so the result is exact."""
+    tk = eidx.shape[-1]
+    eidx = eidx.long()
+    order = torch.sort(eidx, dim=-1, stable=True).indices
+    sorted_e = torch.gather(eidx, -1, order)
+    experts = torch.arange(e, device=eidx.device).expand(*eidx.shape[:-1], e).contiguous()
+    starts = torch.searchsorted(sorted_e.contiguous(), experts)
+    pos = torch.arange(tk, device=eidx.device) - torch.gather(starts, -1, sorted_e)
+    keep_sorted = pos < cap
+    slot_sorted = torch.where(keep_sorted, sorted_e * cap + pos, e * cap)
+    # the inverse permutation: entry order[i] takes sorted position i's values
+    slot = torch.empty_like(slot_sorted).scatter_(-1, order, slot_sorted)
+    keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
+    return slot, keep
+
+
+def moe_route(router_w: torch.Tensor, hg: torch.Tensor, k_top: int
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router on normed tokens hg (G, T, D): (probs (G, T, E), the top
+    ``k_top`` gates renormalised to sum 1, their expert ids (G, T, k_top)).
+    The logits are f32 (hg upcast, exactly, as the reference's astype).  A
+    stable descending sort puts equal probabilities in expert order, as
+    ``lax.top_k`` does (``torch.topk`` promises no order, and the order of
+    the entries decides which ones a full expert drops)."""
+    logits = torch.einsum("gtd,de->gte", hg.float(), router_w.float())
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, top_idx = gate_vals[..., :k_top], top_idx[..., :k_top]
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    return probs, gate_vals, top_idx
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
+              num_groups: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x + the MoE layer on x (B, S, D), and the Switch-style load-balance
+    aux loss (f32 scalar).
+
+    Tokens split into G groups (B for prefill, min(B, 8) for decode, as the
+    reference's); each expert takes at most ``moe_capacity(T)`` entries a
+    group, in entry order, and the rest drop.  The router logits and the
+    expert products are plain products outside any kernel in the reference,
+    so they stay ``torch.einsum``; the shared experts go through
+    ``router.matmul``.  Types follow the reference's promotions: a bf16 x
+    meets the f32 expert weights in f32, and values round only where the
+    reference writes ``astype``: the gated product to x's dtype, the
+    combine in ``moe_combine_dtype``, the output to x's dtype.  The combine
+    adds each token's k entries in entry order (the reference scatter-adds
+    them into zeros; a CUDA ``index_add_`` would add them in any order)."""
+    b, s, d = x.shape
+    e, k_top = cfg.num_experts, cfg.experts_per_token
+    g = num_groups if num_groups is not None else (b if s > 1 else max(1, min(b, 8)))
+    if (b * s) % g:
+        raise ValueError(f"moe_apply: {b * s} tokens do not split into {g} groups")
+    t = (b * s) // g
+    cap = moe_capacity(t, cfg)
+    h = rms_norm(x, p["ln"])
+    hg = h.reshape(g, t, d)
+    probs, gate_vals, top_idx = moe_route(p["router"], hg, k_top)
+
+    # load-balance aux: each expert's share of the entries times its mean prob
+    eidx = top_idx.reshape(g, t * k_top)
+    counts = torch.zeros(g, e, dtype=torch.float32, device=x.device)
+    counts.scatter_add_(1, eidx, torch.ones_like(eidx, dtype=torch.float32))
+    density = counts / (t * k_top)
+    aux = e * torch.mean(torch.sum(density * probs.mean(dim=1), dim=-1))
+
+    slot, keep = _dispatch_indices(eidx, e, cap)
+    tok = torch.arange(t * k_top, device=x.device) // k_top  # the token of each entry
+    src = hg[:, tok] * keep[..., None].to(hg.dtype)  # (G, TK, D)
+    buf = torch.zeros(g, e * cap + 1, d, dtype=hg.dtype, device=x.device)
+    buf.scatter_(1, slot[..., None].expand(-1, -1, d), src)  # the drop row takes the rest
+    disp = buf[:, :e * cap].reshape(g, e, cap, d).float()
+
+    gate = torch.einsum("gecd,edf->gecf", disp, p["w_gate"].float())
+    gate = gate * torch.sigmoid(gate)  # silu
+    up = torch.einsum("gecd,edf->gecf", disp, p["w_up"].float())
+    out_e = torch.einsum("gecf,efd->gecd", (gate * up).to(hg.dtype).float(),
+                         p["w_down"].float())
+
+    cdt = getattr(torch, cfg.moe_combine_dtype)
+    weights = (gate_vals.reshape(g, t * k_top) * keep.float()).to(cdt)
+    flat = torch.cat([out_e.reshape(g, e * cap, d),
+                      torch.zeros(g, 1, d, dtype=out_e.dtype, device=x.device)], dim=1)
+    gathered = (torch.gather(flat, 1, slot[..., None].expand(-1, -1, d)).to(cdt)
+                * weights[..., None]).reshape(g, t, k_top, d)
+    y = gathered[:, :, 0]
+    for j in range(1, k_top):
+        y = y + gathered[:, :, j]
+    y = y.to(x.dtype)
+
+    if cfg.num_shared_experts:
+        mm = functools.partial(router.matmul, out_dtype=x.dtype,
+                               config=RuntimeConfig.from_arch(cfg))
+        sg = mm(hg, p["sh_gate"], activation="silu")
+        su = mm(hg, p["sh_up"])
+        y = y + mm(sg * su, p["sh_down"])
+    return x + y.reshape(b, s, d), aux

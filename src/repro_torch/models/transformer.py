@@ -4,10 +4,10 @@ with forward, prefill and decode entry points.
 
 The superblocks' parameters and caches stay stacked on a leading axis, as the
 reference lays them out for its ``lax.scan``; the port loops over them.  This
-slice runs attention (``attn``, ``attn_local``) and the dense MLP on f32
-weights in f32 or bf16 compute (the registered configs' default: bf16
-activations, each routed matmul summed in f32 and rounded once); what it does
-not run raises ``NotImplementedError``.
+slice runs attention (``attn``, ``attn_local``) with the dense MLP or the
+mixture of experts (``moe``) on f32 weights in f32 or bf16 compute (the
+registered configs' default: bf16 activations, each routed matmul summed in
+f32 and rounded once); what it does not run raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,6 +27,8 @@ from repro_torch.models.layers import (
     init_attn_cache,
     mlp_apply,
     mlp_specs,
+    moe_apply,
+    moe_specs,
     rms_norm,
 )
 from repro_torch.models.spec import ParamSpec
@@ -34,6 +36,7 @@ from repro_torch.runtime import RuntimeConfig
 
 # the mixer kind of each attention layer spec
 _ATTN_KIND = {"attn": "causal", "attn_local": "local"}
+FFN_PORTED = ("mlp", "moe")
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -43,9 +46,9 @@ def check_supported(cfg: ArchConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: mixer {layer.mixer!r} is not ported (cross and shared "
                 "attention, mamba2, mLSTM and sLSTM come with a later slice)")
-        if layer.ffn != "mlp":
+        if layer.ffn not in FFN_PORTED:
             raise NotImplementedError(f"{cfg.name}: ffn {layer.ffn!r} is not ported "
-                                      "(MoE and shared MLPs come with a later slice)")
+                                      "(shared MLPs come with a later slice)")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} frontend is not ported")
     if cfg.compute_dtype not in ("float32", "bfloat16"):
@@ -62,9 +65,11 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------- specs, caches
 
 
-def layer_specs(cfg: ArchConfig) -> dict:
-    """An attention layer with its MLP (the only layer kind this slice runs)."""
-    return {"mixer": attn_specs(cfg), "ffn": mlp_specs(cfg)}
+def layer_specs(cfg: ArchConfig, spec: LayerSpec, *, d_ff_override: Optional[int] = None
+                ) -> dict:
+    """An attention layer with its MLP (``d_ff_override`` wide) or its MoE."""
+    ffn = moe_specs(cfg) if spec.ffn == "moe" else mlp_specs(cfg, d_ff_override)
+    return {"mixer": attn_specs(cfg), "ffn": ffn}
 
 
 def model_specs(cfg: ArchConfig) -> dict:
@@ -72,12 +77,12 @@ def model_specs(cfg: ArchConfig) -> dict:
     dt = cfg.param_dtype
     d, v = cfg.d_model, cfg.padded_vocab
     specs: dict = {"embed": ParamSpec((v, d), ("vocab", "embed"), "small_normal", dtype=dt)}
-    for i in range(len(cfg.head_pattern)):
-        specs[f"pre{i}"] = layer_specs(cfg)
-    superblock = {f"l{i}": layer_specs(cfg) for i in range(len(cfg.block_pattern))}
+    for i, s in enumerate(cfg.head_pattern):
+        specs[f"pre{i}"] = layer_specs(cfg, s, d_ff_override=cfg.first_dense_ff or None)
+    superblock = {f"l{i}": layer_specs(cfg, s) for i, s in enumerate(cfg.block_pattern)}
     specs["blocks"] = pspec.stack_specs(superblock, cfg.num_superblocks)
-    for i in range(len(cfg.tail_pattern)):
-        specs[f"tail{i}"] = layer_specs(cfg)
+    for i, s in enumerate(cfg.tail_pattern):
+        specs[f"tail{i}"] = layer_specs(cfg, s)
     specs["final_norm"] = ParamSpec((d,), ("embed",), "zeros", dtype=dt)
     specs["lm_head"] = ParamSpec((d, v), ("embed", "vocab"), "small_normal", dtype=dt)
     return specs
@@ -111,13 +116,17 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *, device: Device = 
 
 def _apply_layer(lp: dict, h: torch.Tensor, cfg: ArchConfig, spec: LayerSpec, *, mode: str,
                  cache: Optional[AttnCache] = None, lengths: Optional[torch.Tensor] = None):
-    """Returns (h, cache): the attention mixer, then the MLP."""
+    """Returns (h, cache, aux): the attention mixer, then the MLP or the MoE
+    (aux its load-balance loss; 0.0 for the MLP, a float: no kernel)."""
     kind = _ATTN_KIND[spec.mixer]
     if kind == "causal" and not cfg.causal:
         kind = "full"
     h, cache = attn_apply(lp["mixer"], h, cfg, kind=kind, cache=cache, lengths=lengths,
                           mode=mode)
-    return mlp_apply(lp["ffn"], h, cfg), cache
+    if spec.ffn == "moe":
+        h, aux = moe_apply(lp["ffn"], h, cfg)
+        return h, cache, aux
+    return mlp_apply(lp["ffn"], h, cfg), cache, 0.0
 
 
 def _index(tree: Any, i: int) -> Any:
@@ -130,24 +139,33 @@ def _index(tree: Any, i: int) -> Any:
 
 
 def _layers(params: dict, cfg: ArchConfig, h: torch.Tensor, *, mode: str,
-            cache: Optional[dict] = None) -> torch.Tensor:
+            cache: Optional[dict] = None) -> tuple[torch.Tensor, Any]:
     """Every layer in order: head, the superblocks (a loop in place of the
-    reference's scan), tail.  Caches are written in place."""
+    reference's scan), tail.  Caches are written in place.  Returns (h, the
+    summed aux loss: an f32 tensor, or 0.0 without MoE layers), summed in
+    the reference's order: head layers, each superblock's sum, tail layers."""
     lengths = cache["lengths"] if cache is not None else None
 
     def run(h, lp, spec, caches, key):
         c = caches[key] if caches is not None else None
-        return _apply_layer(lp[key], h, cfg, spec, mode=mode, cache=c, lengths=lengths)[0]
+        h, _, aux = _apply_layer(lp[key], h, cfg, spec, mode=mode, cache=c, lengths=lengths)
+        return h, aux
 
+    aux_total = 0.0
     for i, spec in enumerate(cfg.head_pattern):
-        h = run(h, params, spec, cache, f"pre{i}")
+        h, aux = run(h, params, spec, cache, f"pre{i}")
+        aux_total = aux_total + aux
     for sb in range(cfg.num_superblocks):
         sbc = _index(cache["blocks"], sb) if cache is not None else None
+        sb_aux = 0.0
         for i, spec in enumerate(cfg.block_pattern):
-            h = run(h, _index(params["blocks"], sb), spec, sbc, f"l{i}")
+            h, aux = run(h, _index(params["blocks"], sb), spec, sbc, f"l{i}")
+            sb_aux = sb_aux + aux
+        aux_total = aux_total + sb_aux
     for i, spec in enumerate(cfg.tail_pattern):
-        h = run(h, params, spec, cache, f"tail{i}")
-    return h
+        h, aux = run(h, params, spec, cache, f"tail{i}")
+        aux_total = aux_total + aux
+    return h, aux_total
 
 
 # ---------------------------------------------------------------- forward passes
@@ -175,16 +193,17 @@ def _logits(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (logits (B, S, V) f32, aux loss scalar: 0, since no MoE runs)."""
+    """-> (logits (B, S, V) f32, the MoE layers' summed aux loss, an f32
+    scalar: 0 without MoE layers)."""
     check_supported(cfg)
-    h = _layers(params, cfg, _embed_input(params, cfg, batch), mode="train")
-    return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32, device=h.device)
+    h, aux = _layers(params, cfg, _embed_input(params, cfg, batch), mode="train")
+    return _logits(params, cfg, h), torch.as_tensor(aux, dtype=torch.float32, device=h.device)
 
 
 def _forward_cached(params: dict, cfg: ArchConfig, batch: dict, cache: dict, mode: str):
     check_supported(cfg)
     h = _embed_input(params, cfg, batch)
-    h = _layers(params, cfg, h, mode=mode, cache=cache)
+    h, _ = _layers(params, cfg, h, mode=mode, cache=cache)  # the aux dropped, as the reference's
     new_cache = dict(cache, lengths=cache["lengths"] + h.shape[1])
     return _logits(params, cfg, h[:, -1:, :]), new_cache  # the last position's logits
 

@@ -135,11 +135,13 @@ class RoutePlan:
 
     # -------------------------------------------------------------- report
     def explain(self) -> str:
-        """Human-readable placement report, the reference's text (which adds a
-        ``[calibrated: ...]`` tag for measured crossovers; the port has none)."""
+        """Human-readable placement report, the reference's text (with a
+        ``[calibrated: ...]`` tag for thresholds from a measured crossover)."""
         cfg = self.config
         head = (f"RoutePlan: {len(self.steps)} matmuls | policy={cfg.policy} "
                 f"tau={cfg.tau} mxu_tile={cfg.mxu_tile} fill_depth={cfg.fill_depth}")
+        if cfg.calibration:
+            head += f" [calibrated: {cfg.calibration}]"
         if cfg.quantize and cfg.quant_scales is not None:
             head += f" [quantize: {cfg.quant_scales.fingerprint}]"
         if not self.steps:

@@ -1078,3 +1078,43 @@ def test_feature_only_heads_launch_no_engine_kernel(cuda):
     counts = kernels.launches()
     assert counts["flow_update"] == 12 and sum(counts.values()) == 12
     assert gpu.stats.flows > 0 and gpu.rules.rules == cpu.rules.rules
+
+
+def test_smoke_calibration_on_card(cuda):
+    """``autotune.calibrate`` on the card over the 8-point grid: both arms
+    timed (the hand-written ``mm_fused`` and ``vpe_mm``), the fit from those
+    timings, the card's fingerprint."""
+    from repro_torch.runtime import autotune, fit_crossover, platform
+
+    kernels.reset_launches()
+    calib = autotune.calibrate(smoke=True, iters=2, device=cuda)
+    assert len(calib.timings) == 8
+    assert all(t.us_arype > 0 and t.us_vpe > 0 for t in calib.timings)
+    assert (calib.tau, calib.vpe_max_elems) == fit_crossover(calib.timings)
+    assert calib.backend == "cuda" and calib.fingerprint_id == platform.fingerprint_id(device=cuda)
+    counts = kernels.launches()
+    assert counts["mm_fused"] == counts["vpe_mm"] == 8 * 3  # warmup + 2 iters a shape
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_moe_apply_on_card_matches_cpu(cuda, groups):
+    """``moe_apply`` on reduced granite (f32) and its shared-expert form
+    (reduced kimi-k2): the output within rtol 1e-5 of the CPU's, the aux
+    within 1e-6, the expert ids equal."""
+    from repro_torch.models import layers
+    from repro_torch.models.spec import init_params
+
+    for arch in ("granite-moe-1b-a400m", "kimi-k2-1t-a32b"):
+        cfg = reduced_config(get_config(arch))
+        p = init_params(layers.moe_specs(cfg), torch.Generator().manual_seed(0), device="cpu")
+        x = torch.randn(2, 12, cfg.d_model, generator=torch.Generator().manual_seed(1)) * 0.5
+        want, aux_c = layers.moe_apply(p, x, cfg, num_groups=groups)
+        got, aux_g = layers.moe_apply({k: v.to(cuda) for k, v in p.items()}, x.to(cuda), cfg,
+                                      num_groups=groups)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+        assert abs(aux_g.item() - aux_c.item()) <= 1e-6
+        h = layers.rms_norm(x, p["ln"]).reshape(groups, -1, cfg.d_model)
+        ids_c = layers.moe_route(p["router"], h, cfg.experts_per_token)[2]
+        ids_g = layers.moe_route(p["router"].to(cuda), h.to(cuda), cfg.experts_per_token)[2]
+        assert torch.equal(ids_g.cpu(), ids_c)
