@@ -194,7 +194,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      matmul shape (mixed arm) and flash prefill shape against its plain
      version; one request in f32 compute card vs CPU within
      ``LM_LOGIT_TOL``, with the expert ids held to the CPU's on the same
-     layer inputs and the near ties counted.
+     layer inputs and the near ties counted;
+ 24. ``[lm starcoder2-15b]`` (after 23): starcoder2-15b at full width and
+     depth as registered (bf16 weights and compute, 31.9 GB; the peak of the
+     seeded init logged) serving granite's 4 prompts: tokens equal each
+     request served alone, and the batch-1 runs except counted near ties;
+     launches as predicted (241 ``mm_fused`` a forward, 40 ``flash_fwd`` a
+     prefill); ``mm_fused``'s bf16-weight arm at every recorded shape, bit
+     for bit with the f32 arm on x.float(), w.float() and within one bf16
+     step of the plain twin, timed per decode and per 1200-row prefill
+     forward beside ``torch.matmul`` on the same bf16 operands and the
+     bound; the cold decode forward on the served weights; ``flash_fwd`` in
+     bf16 at the prefill shapes (48 heads over 4, D 128); card vs CPU at
+     full width and 2 of 40 superblocks in f32 compute (the f32 x on bf16 w
+     arm) within ``LM_LOGIT_TOL`` and in bf16 compute within
+     ``BF16_LOGIT_TOL``, the f32-compute control printed; ``vpe_mm``'s
+     bf16-weight arm at M 1-8 on the served weights (equal to
+     ``arype_matmul``) and at the VPE shapes of reduced starcoder2's batch-1
+     runs on the card; the int8 pair on bf16 x into bf16 at the pipelines'
+     shapes, bit for bit with its plain twin;
+ 25. ``[lm qwen3-4b]``: qwen3-4b at full width and depth as registered (f32
+     weights, bf16 compute, 17.6 GB), 2 requests of 8 tokens: tokens as
+     served alone and the batch-1 runs except counted near ties; 253
+     ``mm_fused`` a forward, 36 ``flash_fwd`` a prefill.
 
 The second-to-last line is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off everywhere: the reference
@@ -325,6 +347,20 @@ CALIB_ITERS, CALIB_SWEEPS, CALIB_CPU_STEPS, CALIB_CLI_TIMEOUT = 5, 2, 64, 600
 GRANITE_ARCH = "granite-moe-1b-a400m"
 GRANITE_SERVE = dict(batch_slots=4, cache_len=512)
 GRANITE_PROMPTS, GRANITE_MAX_NEW = (300, 45, 160, 97), 16
+# starcoder2-15b at full width and depth as registered (bf16 weights and
+# compute, 31.9 GB), granite's slots and prompts; its card-vs-CPU request at
+# full width with the depth cut to STAR_CPU_SUPERBLOCKS (the host's memory and
+# CPU time do not take 40 superblocks of plain PyTorch)
+STAR_ARCH = "starcoder2-15b"
+STAR_SERVE = dict(batch_slots=4, cache_len=512)
+STAR_PROMPTS, STAR_MAX_NEW, STAR_CPU_SUPERBLOCKS = (300, 45, 160, 97), 16, 2
+# vpe_mm's bf16-weight arm is timed on starcoder2's served weights at these M
+VPE_SERVED_TIMED = (1, 2, 4, 8)
+# qwen3-4b as registered (f32 weights, bf16 compute, 17.6 GB) at LM_SERVE's
+# slots: 2 requests of 8 new tokens; its card-vs-CPU request at full width
+# with the depth cut to QWEN4_CPU_SUPERBLOCKS, as starcoder2's
+QWEN4_ARCH = "qwen3-4b"
+QWEN4_PROMPTS, QWEN4_MAX_NEW, QWEN4_CPU_SUPERBLOCKS = (200, 37), 8, 4
 # Expert routing, card against CPU on the same layer inputs.  The router
 # logits are 1024-term f32 dot products that each device sums in another
 # order (differences near 1e-6); a top-k pick may differ only where the
@@ -961,8 +997,8 @@ def lm_matmul_shapes(cfg, rows: int) -> list:
     slots, d, f = LM_SERVE["batch_slots"], cfg.d_model, cfg.d_ff
     layer = [("wq", d, cfg.q_dim), ("wk", d, cfg.kv_dim), ("wv", d, cfg.kv_dim),
              ("wo", cfg.q_dim, d)]
-    if cfg.block_pattern[0].ffn == "mlp":
-        layer += [("wi_gate", d, f), ("wi_up", d, f), ("wo_mlp", f, d)]
+    if cfg.block_pattern[0].ffn == "mlp":  # the gate only where the MLP is gated
+        layer += [("wi_gate", d, f)] * cfg.mlp_gated + [("wi_up", d, f), ("wo_mlp", f, d)]
     return ([(name, rows, k, n) for name, k, n in layer]
             + [("lm_head", slots, d, cfg.padded_vocab)])
 
@@ -972,51 +1008,70 @@ def bf16_step(torch, v):
     return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0**-126))) - 7)
 
 
-def check_mixed_matmuls(torch, engine, plain, shapes, gen, plan=None) -> dict:
-    """The mixed arm (bf16 x on f32 w) at each (name, m, k, n): bf16 out,
-    f32 for the ``lm_head`` (all four activations at the first shape).  The
-    kernel must equal itself on ``x.float()`` rounded once, bit for bit, and
-    lie within one bf16 step (f32 out: rtol 1e-5) of the plain twin.  Times
-    of the kernel, the twin and the library call for the same function,
-    ``torch.matmul(x.float(), w).to(out)``, summed over the shapes; the bound
-    counts 2 bytes of x, 4 of w, 2 or 4 of out over 3.35 TB/s, or the
-    operations: 2 x 2MKN tf32 products over 495 TFLOP/s on the tf32x3
-    variant (``plan``; the bf16 arm skips the lo*hi product), 2MKN f32 FMAs
-    elsewhere."""
+def check_mixed_matmuls(torch, engine, plain, shapes, gen, plan=None, *, w_dtype=None,
+                        time_it: bool = True, same_as=None) -> dict:
+    """An engine's bf16-x arm at each (name, m, k, n): bf16 x on w of
+    ``w_dtype`` (f32 by default: the mixed arm; bf16: the bf16-weight arm),
+    bf16 out, f32 for the ``lm_head`` (all four activations at the first
+    shape), operands drawn from ``gen`` on its device.  The kernel must
+    equal itself on ``x.float()``, ``w.float()`` rounded once, bit for bit,
+    lie within one bf16 step (f32 out: rtol 1e-5) of the plain twin, and,
+    with ``same_as`` (``arype_matmul`` for the VPE), equal that engine at
+    M <= 8, where both run the skinny split-K.  With ``time_it``: times of
+    the kernel, the twin and the library call for the same function,
+    ``torch.matmul`` on the same operands (on ``x.float()`` for an f32 w),
+    ``.to(out)``, summed over the shapes; the bound counts 2 bytes of x,
+    w's and out's bytes over 3.35 TB/s, or the operations: for a bf16 w, a
+    bf16 x bf16 product, 2MKN over the dense bf16 rate (989 TFLOP/s) on
+    either variant, whatever instruction the kernel issues; for an f32 w, on
+    the tf32x3 variant (``plan``) two tf32 ``mma.sync`` a step (the bf16 x
+    skips lo*hi), 2 x 2MKN over 495 TFLOP/s, and 2MKN f32 FMAs elsewhere."""
+    w_dtype = w_dtype or torch.float32
+    bf16 = torch.bfloat16
     rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                bytes=0, flops=0)
+    label = f"{engine.__name__} bf16 x{', bf16 w' if w_dtype == bf16 else ''}"
     for i, (name, m, k, n) in enumerate(shapes):
-        x = torch.randn(m, k, generator=gen).to(CARD, torch.bfloat16)
-        w = torch.randn(k, n, generator=gen).to(CARD)
-        od = torch.float32 if name == "lm_head" else torch.bfloat16
+        x = torch.randn(m, k, generator=gen, device=gen.device).to(CARD, bf16)
+        w = torch.randn(k, n, generator=gen, device=gen.device).to(CARD, w_dtype)
+        od = torch.float32 if name == "lm_head" else bf16
         for act in (ACTS if i == 0 else ("none",)):
             out = engine(x, w, activation=act, out_dtype=od)
-            if not torch.equal(out, engine(x.float(), w, activation=act).to(od)):
-                raise AssertionError(f"{engine.__name__} bf16 x {name} {act}: differs from the "
-                                     f"f32 arm on x.float()")
+            if not torch.equal(out, engine(x.float(), w.float(), activation=act).to(od)):
+                raise AssertionError(f"{label} {name} ({m},{k},{n}) {act}: differs from the f32 "
+                                     f"arm on x.float(), w.float()")
+            if same_as is not None and m <= 8 and not torch.equal(
+                    out, same_as(x, w, activation=act, out_dtype=od)):
+                raise AssertionError(f"{label} {name} ({m},{k},{n}) {act}: differs from "
+                                     f"{same_as.__name__}")
             ref = plain(x, w, activation=act, out_dtype=od).float()
             diff = (out.float() - ref).abs()
             top = ref.abs().max()
-            ok = (diff <= (bf16_step(torch, ref) if od == torch.bfloat16
+            ok = (diff <= (bf16_step(torch, ref) if od == bf16
                            else MATMUL_RTOL * ref.abs()) + MATMUL_RTOL * top).all()
             if not ok:
-                raise AssertionError(f"{engine.__name__} bf16 x {name} {act}: max err "
+                raise AssertionError(f"{label} {name} ({m},{k},{n}) {act}: max err "
                                      f"{diff.max().item()} from the plain twin")
             rec["max_abs_err"] = max(rec["max_abs_err"], diff.max().item())
+        if not time_it:
+            continue
         t = time_ms(lambda: engine(x, w, out_dtype=od))
-        tp = time_ms(lambda: plain(x, w, out_dtype=od))
-        tl = time_ms(lambda: torch.matmul(x.float(), w).to(od))
-        nbytes = 2 * m * k + 4 * k * n + out.element_size() * m * n
+        tp = time_ms(lambda: plain(x, w, out_dtype=od), calls=5)
+        xl = x if w_dtype == bf16 else x.float()
+        tl = time_ms(lambda: torch.matmul(xl, w).to(od))
+        nbytes = 2 * m * k + w.element_size() * k * n + out.element_size() * m * n
         ops, rate, how = 2 * m * k * n, F32_OPS_PER_S, ""
         if plan is not None:
             p = plan(x.device, m, k, n)
             how = f" [{p.variant} {p.bm}x{p.bn} C={p.split}]"
-            if p.variant == "tf32x3":
+            if p.variant == "tf32x3" and w_dtype != bf16:
                 ops, rate = 2 * ops, TF32_OPS_PER_S
+        if w_dtype == bf16:
+            rate = BF16_OPS_PER_S
         b, by = bound(nbytes, ops, rate)
-        log(f"  {engine.__name__} bf16 x {name} ({m},{k},{n}) -> {str(od)[6:]}{how}: kernel "
-            f"{t:.5f} ms, plain {tp:.5f} ms, torch.matmul(x.float(), w).to() {tl:.5f} ms, "
-            f"bound {b:.6f} ms ({by})")
+        lib = "torch.matmul" if w_dtype == bf16 else "torch.matmul(x.float(), w).to()"
+        log(f"  {label} {name} ({m},{k},{n}) -> {str(od)[6:]}{how}: kernel {t:.5f} ms, plain "
+            f"{tp:.5f} ms, {lib} {tl:.5f} ms, bound {b:.6f} ms ({by})")
         for key, v in (("ms", t), ("plain_ms", tp), ("library_ms", tl), ("bound_ms", b),
                        ("ops_ms", ops / rate * 1e3), ("bytes", nbytes), ("flops", ops)):
             rec[key] += v
@@ -1128,7 +1183,20 @@ def time_decode_forward_cold(torch, arype, cfg, dtype: str = "float32") -> None:
              for _ in range(cfg.num_layers) for _, _, k, n in layer]
     calls.append((xs[head[2]], torch.randn(head[2], head[3], generator=g, device=CARD),
                   torch.float32))
-    nbytes = sum(x.element_size() * x.numel() + 4 * w.numel()
+    time_cold_forward(torch, arype, calls, f"{dtype} x", cfg.num_layers)
+    del calls, xs
+    torch.cuda.empty_cache()
+
+
+def time_cold_forward(torch, arype, calls, label: str, layers: int) -> dict:
+    """A decode forward's matmuls ``calls`` ((x, w, out dtype) in forward
+    order over ``layers`` distinct layers' weights, far past the 50 MB L2),
+    one call each, behind the sleep kernel, median of 5; the kernel and the
+    library call (``torch.matmul``, on x.float() for a bf16 x on f32 w; its
+    output ``.to(out)``) the same way, beside the bound of reading every
+    operand once and writing every output once.  Returns the kernel's and
+    the library's ms and the bound."""
+    nbytes = sum(x.element_size() * x.numel() + w.element_size() * w.numel()
                  + torch.empty((), dtype=od).element_size() * x.shape[0] * w.shape[1]
                  for x, w, od in calls)
 
@@ -1137,23 +1205,26 @@ def time_decode_forward_cold(torch, arype, cfg, dtype: str = "float32") -> None:
             mm(x, w, od)
 
     def library(x, w, od):
-        return torch.matmul(x, w) if x.dtype == torch.float32 else torch.matmul(x.float(), w).to(od)
+        if x.dtype == w.dtype:
+            return torch.matmul(x, w).to(od)
+        return torch.matmul(x.float(), w).to(od)
 
-    # 197 enqueues take a few ms of host time: the sleep must outlast them
+    # a few hundred enqueues take a few ms of host time: the sleep must outlast them
     t = time_ms(lambda: forward(lambda x, w, od: arype.arype_matmul(x, w, out_dtype=od)),
                 calls=1, sleep_cycles=200_000_000)
     tl = time_ms(lambda: forward(library), calls=1, sleep_cycles=200_000_000)
     b, by = bound(nbytes, sum(2 * x.shape[0] * x.shape[1] * w.shape[1] for x, w, _ in calls))
     # a launch that reads no weight: what a skinny call costs beyond its bytes
-    x0, w0 = torch.empty(slots, 0, device=CARD, dtype=dt), torch.empty(0, cfg.d_model, device=CARD)
+    x, w, _ = calls[0]
+    x0, w0 = x[:, :0], w[:0]
     floor = time_ms(lambda: arype.arype_matmul(x0, w0))
-    log(f"[kernels] mm_fused decode forward, {dtype} x, cold L2 ({len(calls)} matmuls over "
-        f"{cfg.num_layers} distinct layers + head, {nbytes / 1e9:.3f} GB, one call each): "
-        f"kernel {t:.4f} ms, {'torch.matmul' if dtype == 'float32' else 'torch.matmul(x.float(), w).to()'} "
-        f"{tl:.4f} ms ({t / tl:.2f}x), bound {b:.4f} ms ({by}), {nbytes / t / 1e6:.1f} GB/s; a "
-        f"call with K = 0 at ({slots},0,{cfg.d_model}) {floor * 1e3:.2f} us")
-    del calls, xs
-    torch.cuda.empty_cache()
+    lib = "torch.matmul" if x.dtype == w.dtype else "torch.matmul(x.float(), w).to()"
+    log(f"[kernels] mm_fused decode forward, {label}, cold L2 ({len(calls)} matmuls over "
+        f"{layers} distinct layers + head, {nbytes / 1e9:.3f} GB, one call each): kernel "
+        f"{t:.4f} ms, {lib} {tl:.4f} ms ({t / tl:.2f}x), bound {b:.4f} ms ({by}), "
+        f"{nbytes / t / 1e6:.1f} GB/s; a call with K = 0 at ({x.shape[0]},0,{w.shape[1]}) "
+        f"{floor * 1e3:.2f} us")
+    return dict(ms=t, library_ms=tl, bound_ms=b, bound_by=by)
 
 
 def greedy_single(torch, model, params, prompt, max_new: int, cache_len: int):
@@ -2596,6 +2667,42 @@ def moe_route_ties(torch, layers, cfg, captured: list) -> None:
         f"log-probability difference {worst:.3e}")
 
 
+def check_recorded_mixed(torch, cfg, shapes, engines, gen, *, time_it: bool = True) -> dict:
+    """Each engine's mixed arm (bf16 x, f32 w) at every matmul shape a serve
+    recorded (``shapes``: kernel -> {(m, k, n): name}; ``engines``: kernel ->
+    (wrapper, plain twin, plan)), through ``check_mixed_matmuls``.  Returns
+    each kernel's largest error from its twin."""
+    errs = {}
+    for kernel, seen in sorted(shapes.items()):
+        engine, plain, plan = engines[kernel]
+        todo = [("lm_head" if n == cfg.padded_vocab else name, m, k, n)
+                for (m, k, n), name in seen.items()]
+        log(f"  {kernel}'s mixed arm (bf16 x, f32 w) at the {len(todo)} shapes the serve and "
+            "the batch-1 runs launched it at, against its plain version:")
+        errs[kernel] = check_mixed_matmuls(torch, engine, plain, todo, gen, plan=plan,
+                                           time_it=time_it)["max_abs_err"]
+        if not time_it:
+            log(f"    bit for bit the f32 arm on x.float(); worst error from the twin "
+                f"{errs[kernel]:.3e}")
+    return errs
+
+
+def check_prefill_flash(torch, fa, gen, cfg, slots: int, prompts) -> float:
+    """``flash_fwd`` in bf16 against its plain twin at a serve's prefill
+    shapes: B ``slots`` and 1, each prompt length, causal.  Returns the
+    largest error."""
+    log(f"  flash_fwd in bf16 at the prefill shapes ({cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads}, D {cfg.head_dim}, causal; the serve's B {slots} and the batch-1 "
+        "runs'):")
+    worst = 0.0
+    for b in (slots, 1):
+        for n in prompts:
+            case = (b, cfg.num_heads, cfg.num_kv_heads, n, n, cfg.head_dim, "causal", 0, None)
+            worst = max(worst, flash_case(torch, fa, gen, case, "bfloat16",
+                                          lm_layout=True)["max_abs_err"])
+    return worst
+
+
 def granite_phase(torch, np, kernels, record_routes, lm_mod, layers, serving, get_config, fa,
                   arype, vpe_matmul, vpe_mm, gen) -> dict:
     """``[lm granite-moe-1b-a400m]``: granite at full width and depth as
@@ -2630,24 +2737,9 @@ def granite_phase(torch, np, kernels, record_routes, lm_mod, layers, serving, ge
              shapes=shapes)
     engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan),
                "vpe_mm": (vpe_matmul, vpe_mm, None)}
-    errs = {}
-    for kernel, seen in sorted(shapes.items()):
-        engine, plain, plan = engines[kernel]
-        todo = [("lm_head" if n == cfg.padded_vocab else name, m, k, n)
-                for (m, k, n), name in seen.items()]
-        log(f"  {kernel}'s mixed arm (bf16 x, f32 w) at the {len(todo)} shapes the serve and "
-            "the batch-1 runs launched it at, against its plain version:")
-        errs[kernel] = check_mixed_matmuls(torch, engine, plain, todo, gen, plan=plan)[
-            "max_abs_err"]
-    log(f"  flash_fwd in bf16 at the prefill shapes ({cfg.num_heads} heads over "
-        f"{cfg.num_kv_heads}, D {cfg.head_dim}, causal; the serve's B {GRANITE_SERVE['batch_slots']} "
-        "and the batch-1 runs'):")
-    errs["flash_fwd"] = 0.0
-    for b in (GRANITE_SERVE["batch_slots"], 1):
-        for p in GRANITE_PROMPTS:
-            case = (b, cfg.num_heads, cfg.num_kv_heads, p, p, cfg.head_dim, "causal", 0, None)
-            r = flash_case(torch, fa, gen, case, "bfloat16", lm_layout=True)
-            errs["flash_fwd"] = max(errs["flash_fwd"], r["max_abs_err"])
+    errs = check_recorded_mixed(torch, cfg, shapes, engines, gen)
+    errs["flash_fwd"] = check_prefill_flash(torch, fa, gen, cfg, GRANITE_SERVE["batch_slots"],
+                                            GRANITE_PROMPTS)
 
     f32 = cfg.replace(compute_dtype="float32")
     log(f"[lm {GRANITE_ARCH} card vs cpu] f32 compute, batch 1, a {LM_CPU_PROMPT}-token "
@@ -2669,6 +2761,280 @@ def granite_phase(torch, np, kernels, record_routes, lm_mod, layers, serving, ge
         raise AssertionError("the CPU run went through no MoE layer")
     moe_route_ties(torch, layers, cfg, captured)
     del params, captured
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_quant_bf16(torch, engine, plain, shapes, g) -> None:
+    """An int8 engine on bf16 x (w f32 and bf16) into bf16 at each (name, m,
+    k, n), with a per-tensor and a per-channel weight scale, under none and
+    relu: bit for bit with its plain twin on the card (each element quantized
+    as its exact f32, the int32 sums exact, one rounding of the same f32
+    value), and with the kernel's own f32 output rounded once.  Times the
+    kernel beside the twin at the per-channel scales on bf16 w, with the
+    bound of 2-byte operands and output (or 2MKN int8 operations).  Raises
+    on any output that differs."""
+    from repro_torch.runtime.quant import pick_scale
+
+    t = tp = 0.0
+    nbytes = ops = 0
+    for name, m, k, n in shapes:
+        x = (torch.randn(m, k, generator=g, device=CARD) * 3).to(torch.bfloat16)
+        sx = pick_scale(x.float().abs().max().item())
+        for wt in (torch.float32, torch.bfloat16):
+            w = torch.randn(k, n, generator=g, device=CARD).to(wt)
+            for sw in (pick_scale(w.float().abs().max().item()),
+                       tuple(pick_scale(v) for v in w.float().abs().amax(0).tolist())):
+                for act in ("none", "relu"):
+                    kw = dict(scale_x=sx, scale_w=sw, activation=act)
+                    out = engine(x, w, **kw)
+                    if out.dtype != torch.bfloat16 or not torch.equal(out, plain(x, w, **kw)):
+                        raise AssertionError(f"{engine.__name__} bf16 x {name} w {wt} {act}: "
+                                             "differs from its plain twin")
+                    if not torch.equal(out, engine(x, w, out_dtype=torch.float32, **kw)
+                                       .to(torch.bfloat16)):
+                        raise AssertionError(f"{engine.__name__} bf16 x {name} w {wt} {act}: "
+                                             "not its f32 output rounded once")
+        t += time_ms(lambda: engine(x, w, scale_x=sx, scale_w=sw))
+        tp += time_ms(lambda: plain(x, w, scale_x=sx, scale_w=sw))
+        nbytes, ops = nbytes + 2 * (m * k + k * n + m * n), ops + 2 * m * k * n
+    b, by = bound(nbytes, ops, INT8_OPS_PER_S)
+    log(f"  {engine.__name__} on bf16 x into bf16 at {[s[0] for s in shapes]}: bit for bit with "
+        f"its plain twin (w f32 and bf16, per tensor and per channel, none and relu); per step "
+        f"(bf16 w) kernel {t:.5f} ms, plain {tp:.5f} ms, bound {b:.6f} ms ({by})")
+
+
+def _stack_head(tree, depth: int):
+    """A stacked parameter tree cut to its first ``depth`` superblocks (views)."""
+    if isinstance(tree, dict):
+        return {k: _stack_head(v, depth) for k, v in tree.items()}
+    return tree[:depth]
+
+
+def starcoder_phase(torch, np, kernels, record_routes, lm_mod, serving, get_config,
+                    reduced_config, fa, arype, vpe_matmul, vpe_mm, vpe_matmul_q, vpe_mm_q,
+                    gen) -> dict:
+    """``[lm starcoder2-15b]``: starcoder2-15b at full width and depth as
+    registered (bf16 weights and compute, 31.9 GB, the peak of the seeded
+    init logged) serving ``STAR_PROMPTS`` through ``ServeEngine`` (tokens
+    equal each request served alone at the same slots, and its batch-1
+    greedy run except counted near ties under ``BF16_TIE_GAP``; launches as
+    predicted: 241 ``mm_fused`` a forward, 40 ``flash_fwd`` a prefill); then
+    ``mm_fused``'s bf16-weight arm at every matmul shape the serve and the
+    batch-1 runs recorded (``check_mixed_matmuls`` on bf16 w), timed per decode and
+    per longest-prefill forward; the cold decode forward on the served
+    weights; ``flash_fwd`` in bf16 at the prefill shapes (48 heads over 4,
+    D 128, causal); the card against the CPU at full width with the depth
+    cut to ``STAR_CPU_SUPERBLOCKS``, in f32 compute (the f32-x-on-bf16-w
+    arm) within ``LM_LOGIT_TOL`` and in bf16 compute within
+    ``BF16_LOGIT_TOL``; ``vpe_mm``'s bf16-weight arm at M 1-8 on the served
+    weights (timed at ``VPE_SERVED_TIMED``) and at the VPE shapes of reduced starcoder2's batch-1 runs on
+    the card; the int8 pair on bf16 x at the pipelines' shapes.  Returns the
+    records of the two bf16-weight arms and each kernel's largest error."""
+    cfg = get_config(STAR_ARCH)
+    bf16 = torch.bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_mod.LM(cfg, device=CARD).init(torch.Generator(device=CARD).manual_seed(0))
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in _leaves(params))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in STAR_PROMPTS]
+    log(f"[lm {STAR_ARCH}] as registered (compute {cfg.compute_dtype}, params "
+        f"{cfg.param_dtype}), d_model {cfg.d_model}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads}, head_dim {cfg.head_dim}, gelu MLP {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.num_layers} layers, {sum(t.numel() for t in _leaves(params))} "
+        f"parameters (seed 0, {held / 1e9:.3f} GB) in {time.perf_counter() - t0:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated while drawing; "
+        f"ServeConfig({STAR_SERVE}), prompts {list(STAR_PROMPTS)}, max_new {STAR_MAX_NEW}; near "
+        f"ties under {BF16_TIE_GAP} counted")
+    shapes: dict = {}
+    counts, _, _, _ = serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params,
+                               prompts, serve=STAR_SERVE, max_new=STAR_MAX_NEW,
+                               near_tie=BF16_TIE_GAP, alone=True, shapes=shapes)
+    if set(shapes) != {"mm_fused"}:
+        raise AssertionError(f"starcoder2 launched {sorted(shapes)}: every matmul is past the "
+                             "VPE's cap, so mm_fused alone")
+    g = torch.Generator(device=CARD).manual_seed(2)
+    todo = [("lm_head" if n == cfg.padded_vocab else name, m, k, n)
+            for (m, k, n), name in shapes["mm_fused"].items()]
+    log(f"  mm_fused's bf16-weight arm (bf16 x, bf16 w) at the {len(todo)} shapes the serve and "
+        "the batch-1 runs launched it at: bit for bit the f32 arm on x.float(), w.float(), "
+        "within one bf16 step of the plain twin")
+    bf16w = dict(w_dtype=bf16, plan=arype.card_plan)
+    errs = {"mm_fused": check_mixed_matmuls(torch, arype.arype_matmul, arype.mm_fused, todo, g,
+                                            time_it=False, **bf16w)["max_abs_err"]}
+    slots, longest = STAR_SERVE["batch_slots"], max(STAR_PROMPTS)
+    rec = dict(max_abs_err=errs["mm_fused"], ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0, bytes=0, flops=0, ops_ms=0.0)
+    for label, rows in (("decode", slots), (f"prefill of {longest} tokens", slots * longest)):
+        *layer, head = lm_matmul_shapes(cfg, rows)
+        log(f"[kernels] mm_fused bf16 x, bf16 w at the {STAR_ARCH} {label} shapes (L2-hot)")
+        a, b = (check_mixed_matmuls(torch, arype.arype_matmul, arype.mm_fused, sh, g, **bf16w)
+                for sh in (layer, [head]))
+        per = {key: cfg.num_layers * a[key] + b[key]
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops",
+                           "ops_ms")}
+        log(f"  per {label} forward ({cfg.num_layers} layers + lm head, L2-hot): kernel "
+            f"{per['ms']:.4f} ms, torch.matmul {per['library_ms']:.4f} ms "
+            f"({per['ms'] / per['library_ms']:.2f}x), plain {per['plain_ms']:.4f} ms, bound "
+            f"{per['bound_ms']:.4f} ms")
+        for key, v in per.items():
+            rec[key] += v
+    rec["bound_by"] = "bytes" if rec["bytes"] / HBM_BYTES_PER_S * 1e3 >= rec.pop("ops_ms") \
+        else "operations"
+    rec["launches"] = counts["mm_fused"]
+    # the decode forward cold, on the served weights themselves (no second copy)
+    *layer, head = lm_matmul_shapes(cfg, slots)
+    xs = {k: torch.randn(slots, k, generator=g, device=CARD).to(bf16)
+          for _, _, k, _ in layer + [head]}
+    names = {"wq": ("mixer", "wq"), "wk": ("mixer", "wk"), "wv": ("mixer", "wv"),
+             "wo": ("mixer", "wo"), "wi_up": ("ffn", "wi_up"), "wo_mlp": ("ffn", "wo")}
+    blocks = params["blocks"]["l0"]
+    calls = [(xs[k], blocks[names[name][0]][names[name][1]][sb], bf16)
+             for sb in range(cfg.num_superblocks) for name, _, k, _ in layer]
+    calls.append((xs[head[2]], params["lm_head"], torch.float32))
+    time_cold_forward(torch, arype, calls, "bf16 x, bf16 w (the served weights)", cfg.num_layers)
+    del calls, xs
+    errs["flash_fwd"] = check_prefill_flash(torch, fa, gen, cfg, slots, STAR_PROMPTS)
+
+    cut = cfg.replace(num_superblocks=STAR_CPU_SUPERBLOCKS)
+    cut_params = dict(params, blocks=_stack_head(params["blocks"], STAR_CPU_SUPERBLOCKS))
+    f32 = cut.replace(compute_dtype="float32")
+    log(f"[lm {STAR_ARCH} card vs cpu] full width, {STAR_CPU_SUPERBLOCKS} of "
+        f"{cfg.num_superblocks} superblocks, bf16 weights in f32 compute (the f32 x on bf16 w "
+        f"arm), batch 1, a {LM_CPU_PROMPT}-token prompt, prefill + {LM_CPU_DECODES} decode steps")
+    lm_card_vs_cpu(torch, lm_mod, f32, cut_params, rng)
+    log(f"[lm {STAR_ARCH} bf16 card vs cpu] the same in bf16 compute, with the request in "
+        f"{LM_SERVE['batch_slots']} slots and the f32-compute control")
+    lm_card_vs_cpu(torch, lm_mod, cut, cut_params, rng, tol=BF16_LOGIT_TOL, tie=BF16_TIE_GAP,
+                   control_cfg=f32)
+
+    log(f"[kernels] vpe_mm's bf16-weight arm at M 1-8 on {STAR_ARCH}'s served weights (layer 0 "
+        "and the head): every activation, equal to arype_matmul and to the f32 arm")
+    weights = [(name, blocks[part][leaf][0]) for name, (part, leaf) in names.items()]
+    served = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops_ms"), 0.0)
+    for name, w in weights + [("lm_head", params["lm_head"])]:
+        x8 = torch.randn(8, w.shape[0], generator=g, device=CARD).to(bf16)
+        od = torch.float32 if name == "lm_head" else bf16
+        for m in range(1, 9):
+            x = x8[:m]
+            for act in ACTS:
+                got = vpe_matmul(x, w, activation=act)
+                if not (torch.equal(got, arype.arype_matmul(x, w, activation=act)) and torch.equal(
+                        got, vpe_matmul(x.float(), w.float(), activation=act).to(bf16))):
+                    raise AssertionError(f"vpe_mm bf16 w {name} M {m} {act}: differs from "
+                                         "arype_matmul or the f32 arm")
+            if m not in VPE_SERVED_TIMED:
+                continue
+            k, n = w.shape
+            nbytes = 2 * (m * k + k * n) + (4 if od == torch.float32 else 2) * m * n
+            b, _ = bound(nbytes, 2 * m * k * n, BF16_OPS_PER_S)
+            for key, v in (("ms", time_ms(lambda: vpe_matmul(x, w, out_dtype=od))),
+                           ("plain_ms", time_ms(lambda: vpe_mm(x, w, out_dtype=od), calls=5)),
+                           ("library_ms", time_ms(lambda: torch.matmul(x, w).to(od))),
+                           ("bound_ms", b), ("bytes", nbytes),
+                           ("ops_ms", 2 * m * k * n / BF16_OPS_PER_S * 1e3)):
+                served[key] += v
+    served["bound_by"] = ("bytes" if served["bytes"] / HBM_BYTES_PER_S * 1e3 >= served["ops_ms"]
+                          else "operations")
+    log(f"  timed at M {list(VPE_SERVED_TIMED)} on the 7 weights ({len(VPE_SERVED_TIMED) * 7} "
+        f"shapes, L2-hot), summed: "
+        f"kernel {served['ms']:.5f} ms, torch.matmul {served['library_ms']:.5f} ms "
+        f"({served['ms'] / served['library_ms']:.2f}x), plain {served['plain_ms']:.5f} ms, bound "
+        f"{served['bound_ms']:.6f} ms ({served['bound_by']})")
+    del params, cut_params, blocks, weights
+    torch.cuda.empty_cache()
+
+    small = reduced_config(cfg).replace(param_dtype="bfloat16", compute_dtype="bfloat16",
+                                        router_policy="collaborative")
+    p_small = lm_mod.LM(small, device=CARD).init(torch.Generator(device=CARD).manual_seed(1))
+    kernels.reset_launches()
+    with record_routes() as routes:
+        for n in (20, 37):
+            greedy_single(torch, lm_mod.LM(small, device=CARD), p_small,
+                          rng.integers(0, small.vocab_size, n), 8, 64)
+    small_counts = kernels.launches()
+    want = kernels.matmul_launches(routes)
+    want["flash_fwd"] = 2 * small.num_layers
+    if small_counts != want or not small_counts["vpe_mm"]:
+        raise AssertionError(f"reduced {STAR_ARCH} batch-1 runs launched {small_counts}, "
+                             f"recorded {want}")
+    small_shapes: dict = {}
+    note_shapes(kernels, routes, "reduced batch 1", small_shapes)
+    log(f"[kernels] vpe_mm's bf16-weight arm at the {len(small_shapes['vpe_mm'])} VPE shapes of "
+        f"reduced {STAR_ARCH}'s batch-1 runs on the card (launches {small_counts}; its "
+        f"{len(small_shapes['mm_fused'])} mm_fused shapes checked too)")
+    small_todo = {kernel: [("lm_head" if n == small.padded_vocab else name, m, k, n)
+                           for (m, k, n), name in seen.items()]
+                  for kernel, seen in small_shapes.items()}
+    vrec = check_mixed_matmuls(torch, vpe_matmul, vpe_mm, small_todo["vpe_mm"], g, w_dtype=bf16,
+                               same_as=arype.arype_matmul)
+    del vrec["ops_ms"]
+    vrec["launches"] = small_counts["vpe_mm"]
+    # beside the reduced model's toy shapes, the served weights' decode sizes
+    vrec.update({f"served_{key}": served[key]
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    errs["mm_fused"] = max(errs["mm_fused"], check_mixed_matmuls(
+        torch, arype.arype_matmul, arype.mm_fused, small_todo["mm_fused"], g, time_it=False,
+        **bf16w)["max_abs_err"])
+    del p_small
+
+    log("[kernels] the int8 pair on bf16 x into bf16 at the pipelines' shapes")
+    check_quant_bf16(torch, vpe_matmul_q, vpe_mm_q, VPE_SHAPES, g)
+    check_quant_bf16(torch, arype.arype_matmul_q, arype.mm_fused_q,
+                     ARYPE_SHAPES + TF_ARYPE_SHAPES, g)
+    torch.cuda.empty_cache()
+    return {"mm_fused": rec, "vpe_mm": vrec, "errs": errs}
+
+
+def qwen4b_phase(torch, np, kernels, record_routes, lm_mod, serving, get_config, fa, arype,
+                 vpe_matmul, vpe_mm, gen) -> dict:
+    """``[lm qwen3-4b]``: qwen3-4b at full width and depth as registered
+    (f32 weights, bf16 compute, 17.6 GB) serving ``QWEN4_PROMPTS`` at
+    ``LM_SERVE``: tokens equal each request served alone, and its batch-1
+    greedy run except counted near ties under ``BF16_TIE_GAP``; launches as
+    predicted (253 ``mm_fused`` a forward, 36 ``flash_fwd`` a prefill); then
+    the engines' mixed arm (bf16 x, f32 w) at every matmul shape the serve
+    and the batch-1 runs recorded, and ``flash_fwd`` in bf16 at the prefill
+    shapes of both (32 heads over 8, D 128, causal), against their plain
+    versions; then the card against the CPU at full width with the depth
+    cut to ``QWEN4_CPU_SUPERBLOCKS``, in f32 compute within
+    ``LM_LOGIT_TOL`` and in bf16 compute within ``BF16_LOGIT_TOL``.  Returns
+    each kernel's largest error."""
+    cfg = get_config(QWEN4_ARCH)
+    t0 = time.perf_counter()
+    params = lm_mod.LM(cfg, device=CARD).init(torch.Generator(device=CARD).manual_seed(0))
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in QWEN4_PROMPTS]
+    log(f"[lm {QWEN4_ARCH}] as registered (compute {cfg.compute_dtype}, params "
+        f"{cfg.param_dtype}), d_model {cfg.d_model}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads}, d_ff {cfg.d_ff}, {cfg.num_layers} layers, "
+        f"{sum(t.numel() for t in _leaves(params))} parameters (seed 0) in "
+        f"{time.perf_counter() - t0:.2f} s; ServeConfig({LM_SERVE}), prompts "
+        f"{list(QWEN4_PROMPTS)}, max_new {QWEN4_MAX_NEW}; near ties under {BF16_TIE_GAP} counted")
+    shapes: dict = {}
+    serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompts,
+             max_new=QWEN4_MAX_NEW, near_tie=BF16_TIE_GAP, alone=True, shapes=shapes)
+    engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan),
+               "vpe_mm": (vpe_matmul, vpe_mm, None)}
+    errs = check_recorded_mixed(torch, cfg, shapes, engines, gen, time_it=False)
+    errs["flash_fwd"] = check_prefill_flash(torch, fa, gen, cfg, LM_SERVE["batch_slots"],
+                                            QWEN4_PROMPTS)
+
+    cut = cfg.replace(num_superblocks=QWEN4_CPU_SUPERBLOCKS)
+    cut_params = dict(params, blocks=_stack_head(params["blocks"], QWEN4_CPU_SUPERBLOCKS))
+    f32 = cut.replace(compute_dtype="float32")
+    log(f"[lm {QWEN4_ARCH} card vs cpu] full width, {QWEN4_CPU_SUPERBLOCKS} of "
+        f"{cfg.num_superblocks} superblocks, f32 compute, batch 1, a {LM_CPU_PROMPT}-token "
+        f"prompt, prefill + {LM_CPU_DECODES} decode steps")
+    lm_card_vs_cpu(torch, lm_mod, f32, cut_params, rng)
+    log(f"[lm {QWEN4_ARCH} bf16 card vs cpu] the same in bf16 compute (as registered), with the "
+        f"request in {LM_SERVE['batch_slots']} slots and the f32-compute control")
+    lm_card_vs_cpu(torch, lm_mod, cut, cut_params, rng, tol=BF16_LOGIT_TOL, tie=BF16_TIE_GAP,
+                   control_cfg=f32)
+    del params, cut_params
     torch.cuda.empty_cache()
     return errs
 
@@ -2727,13 +3093,18 @@ def main() -> int:
     )
     from repro_torch.launch.calibrate import calibrate_quant_scales, quant_divergence_report
     from repro_torch import serving
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduced_config
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import layers as lm_layers
     from repro_torch.models import transformer as lm_mod
     from repro_torch.models.paper_models import cnn_apply, init_paper_model
     from repro_torch.runtime import RuntimeConfig, record_routes
     from repro_torch.serving import OctopusPipeline, PipelineConfig, ShardedOctopusPipeline
+
+    t_start = time.perf_counter()
+
+    def elapsed(phase: str) -> None:
+        log(f"[time] {time.perf_counter() - t_start:.1f} s before phase {phase}")
 
     # -- 1. device and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2747,6 +3118,7 @@ def main() -> int:
         f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'} s)")
     profile = "--profile" in sys.argv[1:]
 
+    elapsed("2")
     # -- 2. kernels vs plain versions
     gen = torch.Generator().manual_seed(0)
     fused_q_plan = lambda m, k, n: arype.mm_fused_q_plan(m, k, n, arype.sm_count(torch.device(0)))
@@ -2804,6 +3176,7 @@ def main() -> int:
         log(f"  sum over the 5 layers: kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
             f"torch.matmul {r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms")
 
+    elapsed("3")
     # -- 3. the f32 pipeline on the card
     log("[pipeline] f32, 8k table, batch 1024, 256 drained flows/step, CNN, 64 steps")
     mlp = init_paper_model("mlp", torch.Generator().manual_seed(1), device="cpu")
@@ -2818,6 +3191,7 @@ def main() -> int:
     if profile:
         profile_steps(torch, pipe, batches[:8], stats.step_us)
 
+    elapsed("4")
     # -- 4. card vs CPU, f32
     for label, cfg, steps in (("ordinary", TRAFFIC, 16), ("collision attack", ATTACK, 8)):
         log(f"[card vs cpu] f32, {label} traffic, {steps} steps")
@@ -2832,6 +3206,7 @@ def main() -> int:
         if label == "collision attack" and fb != steps:
             raise AssertionError(f"the attack took the fallback on {fb} of {steps} steps")
 
+    elapsed("5")
     # -- 5. the int8 pipeline on the card
     t0 = time.perf_counter()
     table = calibrate_quant_scales(mlp, cnn, max_flip_rate=None)
@@ -2847,6 +3222,7 @@ def main() -> int:
         profile_steps(torch, pipe, batches[:8], q_stats.step_us)
     counts.update({name: q_counts[name] for name in ("vpe_mm_q", "mm_fused_q")})
 
+    elapsed("6")
     # -- 6. card vs CPU, int8; 64 steps, since flows first drain after ~30
     steps = 64
     log(f"[card vs cpu] int8, ordinary traffic, {steps} steps")
@@ -2885,6 +3261,7 @@ def main() -> int:
         text, _ = quant_divergence_report(scales, mlp, cnn)
         log(f"  [{name}] " + text.replace("\n", "\n  "))
 
+    elapsed("7")
     # -- 7. the "wo/ collaborating" ablation: the unfused CNN loop and Table 6
     unfused = RuntimeConfig(fused_aggregation=False)
     log("[pipeline] f32, fused_aggregation=False, 8k table, batch 1024, 256 drained "
@@ -2954,6 +3331,7 @@ def main() -> int:
         f"{TABLE6_FLOWS / on['time_s'] / 1e3:.1f} kflow/s, AryPE efficiency "
         f"{off['arype_eff']:.3f} -> {on['arype_eff']:.3f}; paper 53 -> 90 kflow/s, 1.69x)")
 
+    elapsed("8")
     # -- 8. the payload transformer on the loop
     tf_pipe = dict(PIPE, flow_model="transformer")
     log("[pipeline] f32, 8k table, batch 1024, 256 drained flows/step, transformer, 64 steps")
@@ -2975,6 +3353,7 @@ def main() -> int:
     if profile:
         profile_steps(torch, pipe, batches[:8], tf_stats.step_us)
 
+    elapsed("9")
     # -- 9. card vs CPU: the transformer (f32, int8) and the unfused CNN
     steps = 64
     cpu_batches = make_batches(TrafficConfig, TrafficGenerator, TRAFFIC, steps, "cpu")
@@ -2998,11 +3377,13 @@ def main() -> int:
         if drained == 0:
             raise AssertionError(f"{label}: no flow drained")
 
+    elapsed("10")
     # -- 10. placement reports
     for label, params, pcfg in (("cnn", cnn, PIPE), ("transformer", tf, tf_pipe)):
         log(f"[plan] {label}")
         log(OctopusPipeline(mlp, params, PipelineConfig(**pcfg)).explain())
 
+    elapsed("10b")
     # -- 10b. the measured crossover, and the CNN pipeline under it
     errs, _ = calibrate_phase(torch, ft, fx, kernels, record_routes, checks, TrafficConfig,
                               TrafficGenerator, OctopusPipeline, PipelineConfig, mlp, cnn,
@@ -3010,19 +3391,23 @@ def main() -> int:
     for name, err in errs.items():
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
+    elapsed("11")
     # -- 11. the dispatch modes and the two-level flow table
     two_level_phase(torch, kernels, record_routes, cs, prefetch, TrafficConfig,
                     TrafficGenerator, OctopusPipeline, PipelineConfig, mlp, cnn, card)
 
+    elapsed("12")
     # -- 12. masked buckets
     phase_errs = [masked_phase(torch, ff, fx, ft, kernels, record_routes, checks, TrafficConfig,
                                TrafficGenerator, OctopusPipeline, PipelineConfig, mlp, cnn, card)]
 
+    elapsed("13")
     # -- 13. sharded lanes, one lane-batched bank
     phase_errs.append(sharded_phase(
         torch, fx, ft, kernels, record_routes, checks, TrafficConfig, TrafficGenerator,
         OctopusPipeline, ShardedOctopusPipeline, PipelineConfig, mlp, cnn, int8, card, profile))
 
+    elapsed("14")
     # -- 14. the async serving frontend
     phase_errs.append(service_phase(
         torch, fx, build, serving, kernels, record_routes, checks, TrafficConfig,
@@ -3031,6 +3416,7 @@ def main() -> int:
         for name, err in errs.items():
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
+    elapsed("15")
     # -- 15. LM serving: qwen3-0.6b at full width and depth
     t0 = time.perf_counter()
     lm_params = lm_mod.LM(lm_cfg, device=CARD).init(torch.Generator(device=CARD).manual_seed(0))
@@ -3045,11 +3431,13 @@ def main() -> int:
     if profile:
         profile_serve(torch, serving, lm_cfg, lm_params, prompts[:4], " f32")
 
+    elapsed("16")
     # -- 16. LM card vs CPU
     log(f"[lm card vs cpu] batch 1, a {LM_CPU_PROMPT}-token prompt, prefill + {LM_CPU_DECODES} "
         f"decode steps at full depth")
     lm_card_vs_cpu(torch, lm_mod, lm_cfg, lm_params, lm_rng)
 
+    elapsed("17")
     # -- 17. LM serving at the registered compute dtype: bf16 activations on
     # the same f32 weights, the config from get_config unmodified
     bf_cfg = get_config(LM_ARCH)
@@ -3078,6 +3466,7 @@ def main() -> int:
     del lm_params
     torch.cuda.empty_cache()
 
+    elapsed("18")
     # -- 18. gemma3-1b at full width, as registered
     g_cfg = get_config(GEMMA_ARCH)
     t0 = time.perf_counter()
@@ -3096,6 +3485,7 @@ def main() -> int:
     del g_params
     torch.cuda.empty_cache()
 
+    elapsed("18b")
     # -- 18b. granite-moe-1b-a400m at full width and depth, as registered
     errs = granite_phase(torch, np, kernels, record_routes, lm_mod, lm_layers, serving,
                          get_config, fa, arype, vpe_matmul, vpe_mm, gen)
@@ -3103,6 +3493,25 @@ def main() -> int:
         mixed[name]["max_abs_err"] = max(mixed[name]["max_abs_err"], errs.get(name, 0.0))
     flash_bf16["max_abs_err"] = max(flash_bf16["max_abs_err"], errs["flash_fwd"])
 
+    elapsed("18c")
+    # -- 18c. starcoder2-15b at full width and depth: bf16 weights and compute
+    star = starcoder_phase(torch, np, kernels, record_routes, lm_mod, serving, get_config,
+                           reduced_config, fa, arype, vpe_matmul, vpe_mm, vpe_matmul_q,
+                           vpe_mm_q, gen)
+    for name, err in star.pop("errs").items():
+        rec = (flash_bf16 if name == "flash_fwd" else star[name] if name in star
+               else results[name])
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+    elapsed("18d")
+    # -- 18d. qwen3-4b at full width and depth, as registered
+    errs = qwen4b_phase(torch, np, kernels, record_routes, lm_mod, serving, get_config, fa,
+                        arype, vpe_matmul, vpe_mm, gen)
+    for name in ("mm_fused", "vpe_mm"):
+        mixed[name]["max_abs_err"] = max(mixed[name]["max_abs_err"], errs.get(name, 0.0))
+    flash_bf16["max_abs_err"] = max(flash_bf16["max_abs_err"], errs["flash_fwd"])
+
+    elapsed("19-21")
     # -- 19-21. the offline extractor, the per-granularity paths, the scenarios
     trace, trace_state = extractor_phase(torch, kernels, card)
     errs = paths_phase(torch, kernels, record_routes, checks, mlp, cnn, tf, trace, trace_state,
@@ -3112,6 +3521,7 @@ def main() -> int:
     scenarios_phase(torch, kernels, record_routes, TrafficConfig, TrafficGenerator, mlp, cnn,
                     cnn_layers, card)
 
+    elapsed("22")
     # -- 22. records
     source = {name: f"src/repro_torch/csrc/{name}.cu" for name in results}
     source["mm_partials_sum"] = "src/repro_torch/csrc/mm_unfused_partials.cu"
@@ -3130,9 +3540,16 @@ def main() -> int:
     # (its batch-1 single-request runs), timed at the LM's shapes
     record += [dict(name=f"{name} (bf16 x, f32 w)", route="cuda", source=source[name],
                     replaces=replaces[name], **r) for name, r in mixed.items()]
+    # the bf16-weight arms (bf16 x, bf16 w) of mm_fused (starcoder2-15b's
+    # serve) and vpe_mm (reduced starcoder2's batch-1 runs)
+    source_bf16w = {"mm_fused": "src/repro_torch/csrc/mm_fused_bf16w.cu",
+                    "vpe_mm": source["vpe_mm"]}
+    record += [dict(name=f"{name} (bf16 x, bf16 w)", route="cuda", source=source_bf16w[name],
+                    replaces=replaces[name], **r) for name, r in star.items()]
     # flash_fwd's bf16 tensor-core kernel (the bf16 serve's prefill)
     record.append(dict(name="flash_fwd (bf16)", route="cuda", source=source["flash_fwd"],
                        replaces=replaces["flash_fwd"], **flash_bf16))
+    elapsed("end")
     log(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,10 +10,10 @@ import torch.nn.functional as F
 Device = Union[str, torch.device, None]
 
 ACTIVATIONS = {"none": 0, "relu": 1, "silu": 2, "gelu": 3}  # codes of csrc/common.cuh
-# the f32 engine kernels' activation and output types (octo::Dtype codes of
-# csrc/common.cuh): f32, and bf16, the LM's compute type; weights are f32
+# the engine kernels' operand and output types (octo::Dtype codes of
+# csrc/common.cuh): f32, and bf16, the LM's compute and weight type
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the ROADMAP item that holds the engine arms the port does not run yet
+# the ROADMAP item that holds the engine arm the port does not run yet
 BF16_ROADMAP = "ROADMAP Queue 2 item 1"
 
 

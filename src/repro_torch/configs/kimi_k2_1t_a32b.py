@@ -2,8 +2,7 @@
 vocab=163840, MoE 384 experts top-8 + 1 shared expert, the first layer dense
 (the reference's ``configs/kimi_k2_1t_a32b.py``).
 
-At 1.04 T parameters in bf16 it does not fit one card, and the port refuses
-its bf16 params (``models/transformer.py:check_supported``).  It is
+At 1.04 T parameters in bf16 (2.1 TB) it does not fit one card.  It is
 registered for its reduced form, which runs the shared expert and the dense
 first layer.
 """

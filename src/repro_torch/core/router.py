@@ -11,11 +11,12 @@ the two engines:
 
 Each engine is a hand-written CUDA kernel on the card and its plain PyTorch
 twin on the CPU, chosen by the device of the operands.  x is f32 (the
-pipelines) or bf16 (the LM's compute type), w f32; both engines sum in f32
-and round once to ``out_dtype``, x's dtype unless the caller names another,
-as the reference's ``out_dtype or x.dtype``.  With
-``RuntimeConfig.quantize`` and a scale entry for the layer, the engine runs
-its int8 kernel (``vpe_mm_q`` / ``mm_fused_q``) instead.  On ``meta`` tensors
+pipelines) or bf16 (the LM's compute type), w f32 or bf16 (the LM's
+``param_dtype``); both engines sum in f32 and round once to ``out_dtype``,
+x's dtype unless the caller names another, as the reference's ``out_dtype
+or x.dtype``.  With ``RuntimeConfig.quantize`` and a scale entry for the
+layer, the engine runs its int8 kernel (``vpe_mm_q`` / ``mm_fused_q``)
+instead, into the same ``out_dtype``.  On ``meta`` tensors
 (:meth:`repro_torch.runtime.plan.RoutePlan.trace`) the route is recorded and
 nothing runs.
 """
@@ -26,7 +27,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.common.util import BF16_ROADMAP
 from repro_torch.kernels.arype_matmul.ops import arype_matmul, arype_matmul_q
 from repro_torch.kernels.vpe_smallmm.ops import vpe_matmul, vpe_matmul_q
 from repro_torch.runtime.config import RuntimeConfig
@@ -48,9 +48,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, activation: Optional[str] = None
     statistics are recorded first (the calibration tap).  With
     ``config.quantize``, a layer ``name`` that has an entry in
     ``config.quant_scales`` runs on int8 operands with int32 accumulation,
-    dequantized to f32 before the activation; other layers stay f32.  An
-    int8 layer takes f32 x into f32 only (its other types: the ROADMAP item
-    :data:`~repro_torch.common.util.BF16_ROADMAP`).
+    dequantized to f32 before the activation and rounded once to
+    ``out_dtype``, as the reference passes it to its int8 wrappers; other
+    layers stay on the f32-accumulating engines.
 
     ``route`` executes a pre-decided :class:`Route` (a plan step) instead of
     deriving and recording one.  On ``meta`` operands the route is recorded
@@ -68,16 +68,13 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, activation: Optional[str] = None
                if cfg.quantize and cfg.quant_scales is not None else None)
     r = route if route is not None else route_matmul(
         math.prod(batch) * m, k, n, config=cfg, name=name, quantized=qscales is not None)
-    if qscales is not None and (x.dtype, out_dtype) != (torch.float32, torch.float32):
-        raise NotImplementedError(
-            f"matmul {name!r}: the int8 engines take float32 x into float32, got {x.dtype} "
-            f"-> {out_dtype} (not ported: {BF16_ROADMAP})")
     if meta:
         return torch.empty((*batch, m, n), dtype=out_dtype, device="meta")
     x2, w2, act = x.reshape(-1, k).contiguous(), w.contiguous(), activation or "none"
     if qscales is not None:
         engine = vpe_matmul_q if r.path == "vpe" else arype_matmul_q
-        out = engine(x2, w2, scale_x=qscales[0], scale_w=qscales[1], activation=act)
+        out = engine(x2, w2, scale_x=qscales[0], scale_w=qscales[1], activation=act,
+                     out_dtype=out_dtype)
     else:
         engine = vpe_matmul if r.path == "vpe" else arype_matmul
         out = engine(x2, w2, activation=act, out_dtype=out_dtype)

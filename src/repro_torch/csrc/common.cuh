@@ -7,9 +7,9 @@
 
 namespace octo {
 
-// Element types of the kernels' activation operands and outputs: f32, or
-// bf16 held as its raw bits (bf16_bits) on the way in and as __nv_bfloat16 on
-// the way out.  A launcher takes each as a dtype code (kF32 or kBF16).
+// Element types of the kernels' operands (x and w) and outputs: f32, or bf16
+// held as its raw bits (bf16_bits) on the way in and as __nv_bfloat16 on the
+// way out.  A launcher takes each as a dtype code (kF32 or kBF16).
 enum Dtype : int { kF32 = 0, kBF16 = 1 };
 using bf16_bits = uint16_t;
 
@@ -18,6 +18,40 @@ using bf16_bits = uint16_t;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16_bits v) {
   return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+// A type as a value, for the dispatchers below: f(Type<float>{}) and the like.
+template <typename T>
+struct Type {
+  using type = T;
+};
+
+// f(Type<T>{}) for an operand's dtype code, T float or bf16_bits; another
+// code is refused with cudaErrorInvalidValue.
+template <typename F>
+cudaError_t with_type(int code, F f) {
+  if (code == kF32) return f(Type<float>{});
+  if (code == kBF16) return f(Type<bf16_bits>{});
+  return cudaErrorInvalidValue;
+}
+
+// f(Type<TX>{}, Type<TW>{}) for the dtype codes of x and w.
+template <typename F>
+cudaError_t with_inputs(int x_dtype, int w_dtype, F f) {
+  return with_type(x_dtype, [&](auto tx) {
+    return with_type(w_dtype, [&](auto tw) { return f(tx, tw); });
+  });
+}
+
+// f(Type<TX>{}, Type<TW>{}, Type<TO>{}): with_inputs and the output's code,
+// TO float or __nv_bfloat16.  All eight (x, w, out) pairs of types are built.
+template <typename F>
+cudaError_t with_dtypes(int x_dtype, int w_dtype, int out_dtype, F f) {
+  return with_inputs(x_dtype, w_dtype, [&](auto tx, auto tw) -> cudaError_t {
+    if (out_dtype == kF32) return f(tx, tw, Type<float>{});
+    if (out_dtype == kBF16) return f(tx, tw, Type<__nv_bfloat16>{});
+    return cudaErrorInvalidValue;
+  });
 }
 
 // An f32 result stored as the output's type: bf16 rounded once, to nearest

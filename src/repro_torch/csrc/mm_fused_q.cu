@@ -1,6 +1,7 @@
 // mm_fused_q: int8 blocked (M,K) @ (K,N) with an int32 accumulator kept on
 // chip across K, and the per-channel dequant and the activation in the
-// epilogue, from f32 operands in one launch.
+// epilogue, from f32 or bf16 operands into an f32 or bf16 output, in one
+// launch.
 //
 // Replaces src/repro/kernels/arype_matmul/arype_matmul.py:mm_fused_q (body
 // _mm_fused_q_kernel, whose int32 acc_ref stays in VMEM across the K grid
@@ -15,13 +16,16 @@
 // step cost one load latency; and it ran __dp4a, not the tensor cores.
 //
 // Design: the 32-row tile skeleton of mm_fused's tf32x3 variant
-// (gemm_tiles.cuh), on the int8 tensor cores.  The f32 x and w tiles come
-// through the 3-stage cp.async ring (16-byte copies, or 4-byte ones of an
-// operand whose rows or base are not 16-byte aligned; zero-filled past M, N
-// and K), so all of a tile's loads are in flight before any division.  After
+// (gemm_tiles.cuh), on the int8 tensor cores.  The x and w tiles come
+// through the 3-stage cp.async ring in their own types (16-byte copies, or
+// the narrower ones gemm_tiles.cuh names for an operand whose rows or base
+// are not 16-byte aligned; zero-filled past M, N and K), so all of a tile's
+// loads are in flight before any division.  After
 // the wait one pass of the CTA turns the landed tile into int8 codes in
 // shared memory with octo::quantize_code (IEEE division, rint, clip to
-// +-127), each element once per CTA: x's codes row-major [row][k], four k a
+// +-127; a bf16 element is divided as its exact f32, as the reference's
+// quantize_i8 divides v.astype(f32)), each element once per CTA: x's codes
+// row-major [row][k], four k a
 // 32-bit word; w's transposed [n][k], so that a .col B fragment register is 4
 // consecutive k bytes.  Each division is a short serial chain ending in a
 // range check and a branch, so a thread's divisions do not overlap: the CTA
@@ -34,8 +38,10 @@
 // tile.  An int32 sum is exact in any order, so the result equals the plain
 // twin (kernels/vpe_smallmm/ops.py:vpe_mm_q) bit for bit under none/relu.
 // Zero f32 past the edges gives zero codes, which add nothing.  The epilogue
-// writes (float)acc * (scale_x * scale_w[n]) through the activation, the
-// dequant row read before the mainloop so its latency hides under the loads.
+// writes (float)acc * (scale_x * scale_w[n]) through the activation, rounded
+// once to the output's type (out_dtype or x.dtype in the reference's
+// wrapper, arype_matmul.py:141), the dequant row read before the mainloop so
+// its latency hides under the loads.
 //
 // Left for later: wgmma, TMA, and quantizing the weights once (the reference
 // quantizes w on every call too).
@@ -78,14 +84,26 @@ constexpr int smem_bytes() {
   return octo::ring_floats<BM, BN>() * 4 + (BM + BN) * kCodeWords * 4;
 }
 
-template <int BM, int BN, int WM, int WN, int kMinBlocks, int kCopyX, int kCopyW>
+// Four landed x values of one A tile row at `a` as f32: one 16-byte read of
+// f32, one 8-byte read of bf16
+__device__ __forceinline__ float4 read4(const float* a) {
+  return *reinterpret_cast<const float4*>(a);
+}
+__device__ __forceinline__ float4 read4(const octo::bf16_bits* a) {
+  const uint2 u = *reinterpret_cast<const uint2*>(a);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+}
+
+template <int BM, int BN, int WM, int WN, int kMinBlocks, int kCopyX, int kCopyW, typename TA,
+          typename TW>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, kMinBlocks)
-mm_fused_q_kernel(const float* __restrict__ x, const float* __restrict__ w, float scale_x,
-                  const float* __restrict__ scale_w, float* __restrict__ out, int m, int k,
-                  int n, int act) {
+mm_fused_q_kernel(const TA* __restrict__ x, const TW* __restrict__ w, float scale_x,
+                  const float* __restrict__ scale_w, void* __restrict__ out, int out_dtype,
+                  int m, int k, int n, int act) {
   constexpr int kThreads = (BM / WM) * (BN / WN) * 32;
   constexpr int kMT = WM / 16, kNT = WN / 8;
-  constexpr int kAS = octo::kBK + octo::kAPad, kBS = BN + octo::kBPad;
+  constexpr int kAS = octo::a_stride<TA>(), kBS = BN + octo::kBPad;
   static_assert(kThreads % BN == 0, "a thread quantizes one w column");
   extern __shared__ __align__(16) float ring[];
   uint32_t* aq = reinterpret_cast<uint32_t*>(ring + octo::ring_floats<BM, BN>());  // [BM][12]
@@ -111,18 +129,19 @@ mm_fused_q_kernel(const float* __restrict__ x, const float* __restrict__ w, floa
 
   int acc[kMT][kNT][4] = {};
   octo::ring_loop<BM, BN, kThreads, kCopyX, kCopyW>(ring, x, w, m, k, n, row0, col0, 0, k,
-                                                    [&](const float* as, const float* bs) {
-    // the landed f32 tile to int8 codes, each element once
+                                                    [&](const TA* as, const TW* bs) {
+    // the landed tile to int8 codes, each element once
     for (int i = tid; i < BM * octo::kBK / 4; i += kThreads) {
       const int r = i / (octo::kBK / 4), q = i % (octo::kBK / 4);
-      const float4 v = *reinterpret_cast<const float4*>(as + r * kAS + q * 4);
+      const float4 v = read4(as + r * kAS + q * 4);
       aq[r * kCodeWords + q] =
           pack4(code(v.x, scale_x), code(v.y, scale_x), code(v.z, scale_x), code(v.w, scale_x));
     }
     for (int q = tid / BN; q < octo::kBK / 4; q += kThreads / BN) {
-      const float* b = bs + q * 4 * kBS + nb;
+      const TW* b = bs + q * 4 * kBS + nb;
       bq[nb * kCodeWords + q] =
-          pack4(code(b[0], sw), code(b[kBS], sw), code(b[2 * kBS], sw), code(b[3 * kBS], sw));
+          pack4(code(octo::to_f32(b[0]), sw), code(octo::to_f32(b[kBS]), sw),
+                code(octo::to_f32(b[2 * kBS]), sw), code(octo::to_f32(b[3 * kBS]), sw));
     }
     __syncthreads();
     // one m16n8k32 product a fragment: B (k rows tig*4.., 16 + tig*4.. of
@@ -149,7 +168,8 @@ mm_fused_q_kernel(const float* __restrict__ x, const float* __restrict__ w, floa
     }
   });
 
-  octo::store_tile<BM, BN, WM, WN>(out, acc, m, n, row0, col0, [&](int v, int j, int p) {
+  octo::store_tile_as<BM, BN, WM, WN>(out, out_dtype, acc, m, n, row0, col0,
+                                      [&](int v, int j, int p) {
     return octo::activate(static_cast<float>(v) * dq[j][p], act);
   });
 }
@@ -166,40 +186,51 @@ cudaError_t with_q_tile(int tile, F f) {
   });
 }
 
-template <typename T, typename C>
-cudaError_t launch_q(const float* x, const float* w, float scale_x, const float* scale_w,
-                     float* out, int m, int k, int n, int act, cudaStream_t stream) {
+template <typename T, typename C, typename TA, typename TW>
+cudaError_t launch_q(const TA* x, const TW* w, float scale_x, const float* scale_w, void* out,
+                     int out_dtype, int m, int k, int n, int act, cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<T::BM, T::BN>();
   static_assert(kSmem * T::kMinBlocks <= 227 * 1024, "ring exceeds the SM's shared memory");
-  auto kernel = mm_fused_q_kernel<T::BM, T::BN, T::WM, T::WN, T::kMinBlocks, C::X, C::W>;
+  auto kernel =
+      mm_fused_q_kernel<T::BM, T::BN, T::WM, T::WN, T::kMinBlocks, C::X, C::W, TA, TW>;
   static std::atomic<uint64_t> opted{0};
   const cudaError_t opt_in = octo::opt_in_smem(kernel, kSmem, opted);
   if (opt_in != cudaSuccess) return opt_in;
   const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM);
-  kernel<<<grid, T::kThreads, kSmem, stream>>>(x, w, scale_x, scale_w, out, m, k, n, act);
+  kernel<<<grid, T::kThreads, kSmem, stream>>>(x, w, scale_x, scale_w, out, out_dtype, m, k, n,
+                                               act);
   return cudaSuccess;
 }
 
 }  // namespace
 
 // One launch with the plan's tile, an index into kernels/arype_matmul/ops.py:
-// TF32X3_TILES.  A plan this file cannot run (a tile out of range, a grid past
-// its limits) is refused with cudaErrorInvalidValue and launches nothing.
-extern "C" int mm_fused_q_launch(const void* xp, const void* wp, float scale_x,
+// TF32X3_TILES, on x of x_dtype and w of w_dtype into out of out_dtype
+// (octo::Dtype codes, each f32 or bf16: all eight pairs are built).  A plan
+// this file cannot run (a tile out of range, a grid past its limits, an
+// unknown dtype code) is refused with cudaErrorInvalidValue and launches
+// nothing.
+extern "C" int mm_fused_q_launch(const void* x, const void* w, float scale_x,
                                  const void* scale_w, void* out, int m, int k, int n, int act,
-                                 int tile, void* stream) {
-  const float* x = static_cast<const float*>(xp);
-  const float* w = static_cast<const float*>(wp);
+                                 int tile, int x_dtype, int w_dtype, int out_dtype,
+                                 void* stream) {
   const float* sw = static_cast<const float*>(scale_w);
-  float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m <= 0 || n <= 0 || k < 0 || (m + 31) / 32 > 65535)
+  if (m <= 0 || n <= 0 || k < 0 || (m + 31) / 32 > 65535 ||
+      (out_dtype != octo::kF32 && out_dtype != octo::kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int copy_x = octo::copy_width(x, k, sizeof(float));
-  const bool vec_w = n % 4 == 0 && octo::aligned(w, 16);
-  const cudaError_t err = with_q_tile(tile, [&](auto t) {
-    return octo::with_copies<float>(copy_x, vec_w, [&](auto c) {
-      return launch_q<decltype(t), decltype(c)>(x, w, scale_x, sw, o, m, k, n, act, s);
+  const cudaError_t err = octo::with_inputs(x_dtype, w_dtype, [&](auto tx, auto tw) {
+    using TA = typename decltype(tx)::type;
+    using TW = typename decltype(tw)::type;
+    const TA* xp = static_cast<const TA*>(x);
+    const TW* wp = static_cast<const TW*>(w);
+    const int copy_x = octo::copy_width(xp, k, sizeof(TA));
+    const int copy_w = octo::w_copy_width(wp, n, sizeof(TW));
+    return with_q_tile(tile, [&](auto t) {
+      return octo::with_copies<TA, TW>(copy_x, copy_w, [&](auto c) {
+        return launch_q<decltype(t), decltype(c)>(xp, wp, scale_x, sw, out, out_dtype, m, k, n,
+                                                  act, s);
+      });
     });
   });
   const cudaError_t last = cudaGetLastError();

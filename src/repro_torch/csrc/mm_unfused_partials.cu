@@ -155,9 +155,9 @@ extern "C" int mm_unfused_partials_launch(const void* xp, const void* wp, void* 
     return static_cast<int>(cudaErrorInvalidValue);
   // each K block's rows start bk floats in: 16-byte copies need bk % 4 == 0
   const int copy_x = bk % 4 == 0 ? octo::copy_width(x, k, sizeof(float)) : 4;
-  const bool vec_w = n % 4 == 0 && octo::aligned(w, 16);
+  const int copy_w = octo::w_copy_width(w, n, sizeof(float));
   const cudaError_t err = octo::with_tile(tile, [&](auto t) {
-    return octo::with_copies<float>(copy_x, vec_w, [&](auto c) {
+    return octo::with_copies<float, float>(copy_x, copy_w, [&](auto c) {
       return launch_partials<decltype(t), decltype(c)>(x, w, p, m, k, n, bk, s);
     });
   });

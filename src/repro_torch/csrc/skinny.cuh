@@ -1,12 +1,13 @@
 // The skinny-M matmul (M <= 8): cluster split-K that streams the weights, for
-// (M,K) @ (K,N) with x f32 or bf16 bits, w f32, the sum and the activation in
-// f32, the output f32 or bf16 rounded once.  mm_fused's variant A
+// (M,K) @ (K,N) with x and w each f32 or bf16 bits, the sum and the
+// activation in f32, the output f32 or bf16 rounded once.  mm_fused's variant A
 // (mm_fused.cu) and vpe_mm's one-to-eight-row path (vpe_mm.cu) both launch it,
 // each from the plan of kernels/arype_matmul/ops.py:mm_fused_plan, so the two
 // engines give the same bits at every M <= 8.
 //
 // Bound: bytes.  The K*N weights are read once and M*K + M*N are small, so the
-// least time is 4*K*N bytes over 3.35 TB/s (the LM head's 622 MB: 0.19 ms).
+// least time is 4*K*N bytes (2*K*N for bf16 w) over 3.35 TB/s (qwen3-0.6b's
+// f32 head, 622 MB: 0.19 ms; starcoder2-15b's bf16 head, 604 MB: 0.18 ms).
 //
 // Design: the grid is (N/BN column slabs, C K ranks), launched as (1, C, 1)
 // clusters, C <= 8 from (K, N) only, so that slabs * C comes near 192 CTAs on
@@ -19,8 +20,11 @@
 // applies the activation and stores: the aggregation stays on chip, in one
 // launch, and the bits are the same from run to run.  C and the K order do not
 // depend on M, so row r of an M = 4 call equals an M = 1 call on that row.  A
-// bf16 x is converted to its exact f32 while it is staged, so the mixed arm is
-// the f32 kernel on x.float(), bit for bit.  What the bound leaves out is the
+// bf16 x is converted to its exact f32 while it is staged, and a bf16 w is
+// streamed as 2-byte values (half the bytes: 8-byte loads of four columns,
+// with the thread's columns and rows as for f32) widened to their exact f32
+// in registers, so every pair of types is the f32 kernel on x.float(),
+// w.float(), bit for bit: the same FMAs in the same order.  What the bound leaves out is the
 // launch's fixed cost (launch, reduction, cluster syncs), which on the H100 is
 // of the order of a decode layer's 1.3-3.8 us of weights (PERF.md).
 //
@@ -43,9 +47,20 @@ constexpr int kSkinnyUnroll = 8;     // weight rows a thread a step
 constexpr int kSkinnyStage = 1024;   // x rows (of K) staged at a time
 constexpr int kMaxCluster = 8;       // the portable cluster size
 
-template <int BN, bool kVec, typename TX, typename TO>
+// Four weights of one row at src as f32: one 16-byte load of f32, one
+// 8-byte load of bf16 (each value's bits the top half of its f32)
+__device__ __forceinline__ float4 load4(const float* src) {
+  return __ldg(reinterpret_cast<const float4*>(src));
+}
+__device__ __forceinline__ float4 load4(const bf16_bits* src) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+}
+
+template <int BN, bool kVec, typename TX, typename TW, typename TO>
 __global__ void __launch_bounds__(kSkinnyThreads, 2)
-mm_skinny_kernel(const TX* __restrict__ x, const float* __restrict__ w,
+mm_skinny_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                  TO* __restrict__ out, int m, int k, int n, int act, int kc) {
   namespace cg = cooperative_groups;
   constexpr int kQuads = BN / 4;                    // lanes across a weight row
@@ -76,16 +91,16 @@ mm_skinny_kernel(const TX* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int u = 0; u < kSkinnyUnroll; ++u) {
       const int kr = kb + u * kGroups + g;
-      const float* src = w + static_cast<int64_t>(c0 + kr) * n + col;
+      const TW* src = w + static_cast<int64_t>(c0 + kr) * n + col;
       wv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (kr < rows) {
         if (kVec) {
-          if (col < n) wv[u] = __ldg(reinterpret_cast<const float4*>(src));
+          if (col < n) wv[u] = load4(src);
         } else {
-          if (col < n) wv[u].x = __ldg(src);
-          if (col + 1 < n) wv[u].y = __ldg(src + 1);
-          if (col + 2 < n) wv[u].z = __ldg(src + 2);
-          if (col + 3 < n) wv[u].w = __ldg(src + 3);
+          if (col < n) wv[u].x = to_f32(__ldg(src));
+          if (col + 1 < n) wv[u].y = to_f32(__ldg(src + 1));
+          if (col + 2 < n) wv[u].z = to_f32(__ldg(src + 2));
+          if (col + 3 < n) wv[u].w = to_f32(__ldg(src + 3));
         }
       }
     }
@@ -159,8 +174,8 @@ mm_skinny_kernel(const TX* __restrict__ x, const float* __restrict__ w,
   cluster.sync();  // no rank leaves while rank 0 still reads its partials
 }
 
-template <int BN, bool kVec, typename TX, typename TO>
-cudaError_t launch_skinny(const TX* x, const float* w, TO* out, int m, int k, int n, int act,
+template <int BN, bool kVec, typename TX, typename TW, typename TO>
+cudaError_t launch_skinny(const TX* x, const TW* w, TO* out, int m, int k, int n, int act,
                           int split, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((n + BN - 1) / BN, split, 1);
@@ -174,18 +189,18 @@ cudaError_t launch_skinny(const TX* x, const float* w, TO* out, int m, int k, in
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const int kc = (k + split - 1) / split;
-  return cudaLaunchKernelEx(&cfg, mm_skinny_kernel<BN, kVec, TX, TO>, x, w, out, m, k, n, act,
-                            kc);
+  return cudaLaunchKernelEx(&cfg, mm_skinny_kernel<BN, kVec, TX, TW, TO>, x, w, out, m, k, n,
+                            act, kc);
 }
 
 // One launch of slabs of bn columns (64 or 128) over `split` K ranks (1..8);
-// 16-byte weight loads where N and w's base allow them.  The caller has
-// checked 1 <= m <= 8 and split; another bn is refused with
-// cudaErrorInvalidValue and launches nothing.
-template <typename TX, typename TO>
-cudaError_t launch_skinny_plan(const TX* x, const float* w, TO* out, int m, int k, int n,
+// a load of four weights at once (16 bytes of f32, 8 of bf16) where N and w's
+// base allow it.  The caller has checked 1 <= m <= 8 and split; another bn is
+// refused with cudaErrorInvalidValue and launches nothing.
+template <typename TX, typename TW, typename TO>
+cudaError_t launch_skinny_plan(const TX* x, const TW* w, TO* out, int m, int k, int n,
                                int act, int bn, int split, cudaStream_t s) {
-  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % (4 * sizeof(TW)) == 0;
   if (bn == 64)
     return vec ? launch_skinny<64, true>(x, w, out, m, k, n, act, split, s)
                : launch_skinny<64, false>(x, w, out, m, k, n, act, split, s);

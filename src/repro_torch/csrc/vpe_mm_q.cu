@@ -1,10 +1,13 @@
 // vpe_mm_q: int8 small/skinny (M,K) @ (K,N) with int32 accumulation, the
-// per-channel dequant and a fused activation, from f32 operands in one launch.
+// per-channel dequant and a fused activation, from f32 or bf16 operands into
+// an f32 or bf16 output, in one launch.
 //
 // Replaces src/repro/kernels/vpe_smallmm/vpe_smallmm.py:vpe_mm_q (body
 // _vpe_q_kernel) together with the quantize, pad and slice ops its wrapper
-// (ops.py:vpe_matmul_q) runs around it: this kernel reads the f32 x and w,
-// quantizes both on load, and writes the f32 output.
+// (ops.py:vpe_matmul_q) runs around it: this kernel reads x and w, quantizes
+// both on load (a bf16 element divided as its exact f32, as the reference's
+// quantize_i8 divides v.astype(f32)), and writes the output, rounded once to
+// its type (out_dtype or x.dtype in the reference's wrapper).
 //
 // Bound: at the shapes the router sends here (K*N small, M up to a few
 // thousand rows) the launch and one memory round trip; past them, reading x
@@ -41,11 +44,11 @@ constexpr int kMaxCodes = 48 * 1024;    // staged codes a CTA, one byte each
 
 // kOutputs: the outputs a thread owns, the launcher's least power of two
 // that covers the tile, so a one-output tile runs no loop over others
-template <int kOutputs>
+template <int kOutputs, typename TX, typename TW, typename TO>
 __global__ void __launch_bounds__(kThreads)
-vpe_mm_q_kernel(const float* __restrict__ x, const float* __restrict__ w,
+vpe_mm_q_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                 float scale_x, const float* __restrict__ scale_w,
-                float* __restrict__ out, int m, int k, int n, int act,
+                TO* __restrict__ out, int m, int k, int n, int act,
                 int bm, int bn, int bk) {
   extern __shared__ int8_t codes[];
   const int8_t* xs = codes;            // (bm, bk)
@@ -89,12 +92,12 @@ vpe_mm_q_kernel(const float* __restrict__ x, const float* __restrict__ w,
         const int i = min(i0 + e * kThreads + tid, total - 1);
         if (i < nx) {
           const int rr = i / kc, kk = i - rr * kc;
-          v[e] = x[static_cast<int64_t>(row0 + rr) * k + k0 + kk];
+          v[e] = octo::to_f32(x[static_cast<int64_t>(row0 + rr) * k + k0 + kk]);
           sv[e] = scale_x;
           at[e] = rr * bk + kk;
         } else {
           const int kk = (i - nx) / cols, cc = i - nx - kk * cols;
-          v[e] = w[static_cast<int64_t>(k0 + kk) * n + col0 + cc];
+          v[e] = octo::to_f32(w[static_cast<int64_t>(k0 + kk) * n + col0 + cc]);
           sv[e] = scale_w[col0 + cc];
           at[e] = bm * bk + kk * bn + cc;
         }
@@ -124,32 +127,49 @@ vpe_mm_q_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < kOutputs; ++j) {
     if (r[j] < rows && c[j] < cols) {
-      out[static_cast<int64_t>(row0 + r[j]) * n + col0 + c[j]] =
-          octo::activate(static_cast<float>(acc[j]) * (scale_x * sw[j]), act);
+      octo::put(out + static_cast<int64_t>(row0 + r[j]) * n + col0 + c[j],
+                octo::activate(static_cast<float>(acc[j]) * (scale_x * sw[j]), act));
     }
   }
+}
+
+template <typename TX, typename TW, typename TO>
+cudaError_t launch(const void* x, const void* w, float scale_x, const float* scale_w, void* out,
+                   int m, int k, int n, int act, int bm, int bn, int bk, cudaStream_t s) {
+  const dim3 grid((m + bm - 1) / bm, (n + bn - 1) / bn);
+  const int outputs = (bm * bn + kThreads - 1) / kThreads;
+  auto kernel = outputs <= 1 ? vpe_mm_q_kernel<1, TX, TW, TO>
+              : outputs <= 2 ? vpe_mm_q_kernel<2, TX, TW, TO>
+              : outputs <= 4 ? vpe_mm_q_kernel<4, TX, TW, TO>
+                             : vpe_mm_q_kernel<kMaxOutputs, TX, TW, TO>;
+  kernel<<<grid, kThreads, (bm + bn) * bk, s>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w), scale_x, scale_w,
+      static_cast<TO*>(out), m, k, n, act, bm, bn, bk);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // bm, bn, bk come from vpe_q_plan; a tile with more outputs than the CTA's
-// threads hold or more codes than kMaxCodes is refused.
+// threads hold or more codes than kMaxCodes is refused, and so is an unknown
+// dtype code of x, w or out (octo::Dtype, each f32 or bf16: all eight pairs
+// are built).
 extern "C" int vpe_mm_q_launch(const void* x, const void* w, float scale_x,
                                const void* scale_w, void* out, int m, int k,
-                               int n, int act, int bm, int bn, int bk, void* stream) {
+                               int n, int act, int bm, int bn, int bk, int x_dtype,
+                               int w_dtype, int out_dtype, void* stream) {
   if (m < 1 || k < 0 || n < 1 || bm < 1 || bn < 1 || bk < 1 ||
       static_cast<int64_t>(bm) * bn > kThreads * kMaxOutputs ||
       (static_cast<int64_t>(bm) + bn) * bk > kMaxCodes || (n + bn - 1) / bn > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((m + bm - 1) / bm, (n + bn - 1) / bn);
-  const int outputs = (bm * bn + kThreads - 1) / kThreads;
-  auto kernel = outputs <= 1 ? vpe_mm_q_kernel<1>
-              : outputs <= 2 ? vpe_mm_q_kernel<2>
-              : outputs <= 4 ? vpe_mm_q_kernel<4>
-                             : vpe_mm_q_kernel<kMaxOutputs>;
-  kernel<<<grid, kThreads, (bm + bn) * bk, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), scale_x,
-      static_cast<const float*>(scale_w), static_cast<float*>(out), m, k, n, act, bm, bn, bk);
+  const cudaError_t err =
+      octo::with_dtypes(x_dtype, w_dtype, out_dtype, [&](auto tx, auto tw, auto to) {
+        return launch<typename decltype(tx)::type, typename decltype(tw)::type,
+                      typename decltype(to)::type>(
+            x, w, scale_x, static_cast<const float*>(scale_w), out, m, k, n, act, bm, bn, bk,
+            static_cast<cudaStream_t>(stream));
+      });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,11 +4,12 @@
 
 (M, K) @ (K, N) with the accumulator carried across K blocks and the
 activation applied once, in the epilogue (the paper's fused collaborative
-aggregation): in f32 (x f32 or bf16, w f32, the output rounded once to
+aggregation): in f32 (x and w each f32 or bf16, the output rounded once to
 ``out_dtype``), or on int8 codes with an int32 accumulator and a
-per-channel dequant (the paper's fixed-point AryPE).  The unfused form is the
-paper's "wo/ collaborating" ablation: every K block's f32 partial product is
-written to memory and the partials are summed in a second pass.
+per-channel dequant (the paper's fixed-point AryPE), from the same operand
+and output types.  The unfused form is the paper's "wo/ collaborating"
+ablation, f32 only: every K block's f32 partial product is written to memory
+and the partials are summed in a second pass.
 """
 from __future__ import annotations
 
@@ -17,13 +18,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.common.util import ACTIVATIONS, DTYPES, apply_activation, ceil_div
+from repro_torch.common.util import ACTIVATIONS, BF16_ROADMAP, DTYPES, apply_activation, ceil_div
 from repro_torch.kernels.build import H100_SMS, CudaKernel, check_cuda, sm_count, stream_of
 from repro_torch.kernels.vpe_smallmm.ops import (
-    check_matmul_operands,
     check_matmul_shapes,
     check_quant_args,
-    mixed_out_dtype,
+    engine_out_dtype,
     scale_row,
 )
 from repro_torch.kernels.vpe_smallmm.ops import vpe_mm_q as mm_fused_q  # one exact int8 twin
@@ -36,9 +36,9 @@ BLOCK_K = 128
 def mm_fused(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain twin of the kernel: one f32 accumulator summed over K blocks of
-    the reference's depth on ``x.float()``, the activation, then one rounding
-    to ``out_dtype`` (x's dtype by default, as the reference's
-    ``out_dtype or x.dtype``)."""
+    the reference's depth on ``x.float()`` and ``w.float()``, the
+    activation, then one rounding to ``out_dtype`` (x's dtype by default, as
+    the reference's ``out_dtype or x.dtype``)."""
     m, k = x.shape
     acc = torch.zeros((m, w.shape[1]), dtype=torch.float32, device=x.device)
     for k0 in range(0, k, BLOCK_K):
@@ -177,21 +177,21 @@ def card_plan(device: torch.device, m: int, k: int, n: int) -> MmFusedPlan:
     return mm_fused_plan(m, k, n, sms=sm_count(device))
 
 
-MM_FUSED = CudaKernel("mm_fused_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+MM_FUSED = CudaKernel("mm_fused_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                       + [ctypes.c_void_p])
 
 
 def arype_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """(M, K) @ (K, N) -> (M, N) on the AryPE engine: x f32 or bf16, w f32,
-    the sum and the activation in f32, the output ``out_dtype`` (x's by
-    default).  On CPU tensors this is the plain :func:`mm_fused`; on CUDA
+    """(M, K) @ (K, N) -> (M, N) on the AryPE engine: x and w each f32 or
+    bf16, the sum and the activation in f32, the output ``out_dtype`` (x's
+    by default).  On CPU tensors this is the plain :func:`mm_fused`; on CUDA
     tensors one launch of the kernel variant :func:`mm_fused_plan` picks, on
     the tensors as they are (no cast around it), which masks ragged M/N/K
     edges itself (no padding)."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {tuple(ACTIVATIONS)}, got {activation!r}")
-    out_dtype = mixed_out_dtype("arype_matmul", x, w, out_dtype)
+    out_dtype = engine_out_dtype("arype_matmul", x, w, out_dtype)
     if x.device.type == "cpu":
         return mm_fused(x, w, activation=activation, out_dtype=out_dtype)
     if x.device.type != "cuda":
@@ -205,37 +205,43 @@ def arype_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
     if m * n:
         MM_FUSED(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
                  ACTIVATIONS[activation], plan.tile, plan.split, DTYPES[x.dtype],
-                 DTYPES[out_dtype], stream_of(x))
+                 DTYPES[w.dtype], DTYPES[out_dtype], stream_of(x))
     return out
 
 
 MM_FUSED_Q = CudaKernel("mm_fused_q_launch", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
-                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 def arype_matmul_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
-                   activation: str = "none") -> torch.Tensor:
-    """Int8 (M, K) @ (K, N) -> (M, N) f32 on the AryPE engine: f32 operands
-    clip-rounded to int8 on the layer's scales (``scale_w`` a float or a
-    per-output-channel tuple), fused int32 accumulation, dequant, activation.
-    On CPU tensors this is the plain :func:`mm_fused_q`; on CUDA tensors one
-    launch of the kernel with the tile :func:`mm_fused_q_plan` picks, which
-    quantizes each landed tile and masks ragged M/N/K (no padding)."""
+                   activation: str = "none", out_dtype: Optional[torch.dtype] = None
+                   ) -> torch.Tensor:
+    """Int8 (M, K) @ (K, N) -> (M, N) on the AryPE engine: x and w (each f32
+    or bf16) clip-rounded to int8 on the layer's scales (``scale_w`` a float
+    or a per-output-channel tuple), fused int32 accumulation, dequant,
+    activation, one rounding to ``out_dtype`` (x's by default, as the
+    reference's ``out_dtype or x.dtype``).  On CPU tensors this is the plain
+    :func:`mm_fused_q`; on CUDA tensors one launch of the kernel with the
+    tile :func:`mm_fused_q_plan` picks, which quantizes each landed tile and
+    masks ragged M/N/K (no padding)."""
     check_quant_args("arype_matmul_q", x, w, scale_w, activation)
+    out_dtype = engine_out_dtype("arype_matmul_q", x, w, out_dtype)
     if x.device.type == "cpu":
-        return mm_fused_q(x, w, scale_x=scale_x, scale_w=scale_w, activation=activation)
+        return mm_fused_q(x, w, scale_x=scale_x, scale_w=scale_w, activation=activation,
+                          out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"arype_matmul_q: no kernel for {x.device}")
-    check_matmul_operands("arype_matmul_q", x, w)
+    check_matmul_shapes("arype_matmul_q", x, w)
     (m, k), n = x.shape, w.shape[1]
     plan = mm_fused_q_plan(m, k, n, sms=sm_count(x.device))
     if plan.grid(m, n)[1] > GRID_Y_MAX:
         raise ValueError(f"arype_matmul_q: M={m} exceeds the kernel's grid")
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m * n:
         MM_FUSED_Q(x.device, x.data_ptr(), w.data_ptr(), scale_x,
                    scale_row(scale_w, n, x.device).data_ptr(), out.data_ptr(), m, k, n,
-                   ACTIVATIONS[activation], plan.tile, stream_of(x))
+                   ACTIVATIONS[activation], plan.tile, DTYPES[x.dtype], DTYPES[w.dtype],
+                   DTYPES[out_dtype], stream_of(x))
     return out
 
 
@@ -273,14 +279,20 @@ MM_PARTIALS_SUM = CudaKernel("mm_partials_sum_launch",
 
 
 def _check_unfused(name: str, x: torch.Tensor, w: torch.Tensor, bk: int) -> None:
+    """What the unfused matmul takes, on any device: f32 operands (only the
+    f32 CNN runs it; its other types are :data:`BF16_ROADMAP`), and on the
+    card those of :func:`check_matmul_shapes` within the kernels' grids."""
     if bk <= 0:
         raise ValueError(f"{name}: bk must be positive, got {bk}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0] or x.shape[1] == 0:
         raise ValueError(f"{name}: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError(f"{name}: needs float32, got {x.dtype} @ {w.dtype} (other "
+                         f"types of this engine are not ported: {BF16_ROADMAP})")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for {x.device}")
     if x.device.type == "cuda":
-        check_matmul_operands(name, x, w)
+        check_matmul_shapes(name, x, w)
         m, k = x.shape
         if ceil_div(m, TF32X3_TILES[0][0]) > GRID_Y_MAX or ceil_div(k, bk) > 65535:
             raise ValueError(f"{name}: M={m} or K/bk={ceil_div(k, bk)} exceeds the kernel's grid")

@@ -2,9 +2,10 @@
 and the wrappers of the CUDA kernels ``csrc/vpe_mm.cu`` / ``csrc/vpe_mm_q.cu``.
 
 Small or skinny (M, K) @ (K, N) products (K*N small) as a broadcast-multiply
-and a reduce over K, with a fused activation: in f32 (x f32 or bf16, w f32,
-the output rounded once to ``out_dtype``), or on int8 codes with an int32 sum
-and a per-channel dequant (the paper's fixed-point SIMDU).
+and a reduce over K, with a fused activation: in f32 (x and w each f32 or
+bf16, the output rounded once to ``out_dtype``), or on int8 codes with an
+int32 sum and a per-channel dequant (the paper's fixed-point SIMDU), from the
+same operand and output types.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.common.util import ACTIVATIONS, BF16_ROADMAP, DTYPES, apply_activation, ceil_div
+from repro_torch.common.util import ACTIVATIONS, DTYPES, apply_activation, ceil_div
 from repro_torch.kernels.build import CudaKernel, check_cuda, stream_of
 from repro_torch.runtime.quant import I32_MAX_K, dequant_row, quantize_i8
 
@@ -28,7 +29,7 @@ def vpe_mm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
     return apply_activation(out, activation).to(out_dtype or x.dtype)
 
 
-VPE_MM = CudaKernel("vpe_mm_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+VPE_MM = CudaKernel("vpe_mm_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                     + [ctypes.c_void_p])
 
 
@@ -75,41 +76,29 @@ def check_matmul_shapes(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
     check_cuda(name, x, w)
 
 
-def check_matmul_operands(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
-    """What the int8 engines and the unfused partials take: f32 operands of
-    :func:`check_matmul_shapes`."""
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise ValueError(f"{name}: needs float32, got {x.dtype} @ {w.dtype} (other "
-                         f"types of this engine are not ported: {BF16_ROADMAP})")
-    check_matmul_shapes(name, x, w)
-
-
-def mixed_out_dtype(name: str, x: torch.Tensor, w: torch.Tensor,
-                    out_dtype: Optional[torch.dtype]) -> torch.dtype:
-    """The output type of an f32 engine matmul, x's by default, refusing on
-    any device what its kernels do not run: w f32, and f32 x into f32 or
-    bf16 x into f32 or bf16 (the bf16 x bf16 arm and f32 x into bf16, which
-    no path runs, are :data:`BF16_ROADMAP`)."""
+def engine_out_dtype(name: str, x: torch.Tensor, w: torch.Tensor,
+                     out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The output type of an engine matmul, x's by default (the reference's
+    ``out_dtype or x.dtype``), refusing on any device what the kernels do not
+    build: x, w and the output each f32 or bf16 (all eight pairs of types)."""
     out_dtype = out_dtype or x.dtype
-    if (x.dtype not in DTYPES or w.dtype != torch.float32 or out_dtype not in DTYPES
-            or (x.dtype, out_dtype) == (torch.float32, torch.bfloat16)):
-        raise ValueError(f"{name}: runs float32 x into float32 or bfloat16 x into float32 or "
-                         f"bfloat16, on float32 w; got {x.dtype} @ {w.dtype} -> {out_dtype} "
-                         f"(other types are not ported: {BF16_ROADMAP})")
+    if x.dtype not in DTYPES or w.dtype not in DTYPES or out_dtype not in DTYPES:
+        raise ValueError(f"{name}: runs x, w and the output each float32 or bfloat16; got "
+                         f"{x.dtype} @ {w.dtype} -> {out_dtype}")
     return out_dtype
 
 
 def vpe_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """(M, K) @ (K, N) -> (M, N) on the VPE engine: x f32 or bf16, w f32, the
-    sum and the activation in f32, the output ``out_dtype`` (x's by
+    """(M, K) @ (K, N) -> (M, N) on the VPE engine: x and w each f32 or bf16,
+    the sum and the activation in f32, the output ``out_dtype`` (x's by
     default).  On CPU tensors this is the plain :func:`vpe_mm`; on CUDA
     tensors it launches the kernel :func:`vpe_plan` picks on the tensors as
     they are (no cast around it), which masks the ragged edges itself (no
     padding)."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {tuple(ACTIVATIONS)}, got {activation!r}")
-    out_dtype = mixed_out_dtype("vpe_matmul", x, w, out_dtype)
+    out_dtype = engine_out_dtype("vpe_matmul", x, w, out_dtype)
     if x.device.type == "cpu":
         return vpe_mm(x, w, activation=activation, out_dtype=out_dtype)
     if x.device.type != "cuda":
@@ -121,7 +110,7 @@ def vpe_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
         plan = vpe_plan(m, k, n)
         VPE_MM(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
                ACTIVATIONS[activation], plan.bn, plan.split, DTYPES[x.dtype],
-               DTYPES[out_dtype], stream_of(x))
+               DTYPES[w.dtype], DTYPES[out_dtype], stream_of(x))
     return out
 
 
@@ -132,12 +121,14 @@ Q_BLOCK_K = 128  # K block of the plain int8 twin, bounding its (M, K, N) produc
 
 
 def vpe_mm_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
-             activation: str = "none") -> torch.Tensor:
+             activation: str = "none", out_dtype: Optional[torch.dtype] = None
+             ) -> torch.Tensor:
     """Plain twin of both int8 kernels (``vpe_mm_q`` and ``mm_fused_q``):
-    both operands to int8 codes, an exact int32 broadcast-multiply-sum over
-    K blocks (torch has no integer matmul on the card; an integer sum is the
-    same in any order, so one twin serves both engines), the dequant row,
-    the activation."""
+    both operands to int8 codes (a bf16 element divided as its exact f32),
+    an exact int32 broadcast-multiply-sum over K blocks (torch has no integer
+    matmul on the card; an integer sum is the same in any order, so one twin
+    serves both engines), the dequant row, the activation, then one rounding
+    to ``out_dtype`` (x's dtype by default)."""
     (m, k), n = x.shape, w.shape[1]
     xq = quantize_i8(x, scale_x).to(torch.int32)
     wq = quantize_i8(w, scale_w).to(torch.int32)
@@ -146,11 +137,11 @@ def vpe_mm_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
         blk = slice(k0, k0 + Q_BLOCK_K)
         acc += (xq[:, blk, None] * wq[None, blk, :]).sum(dim=1, dtype=torch.int32)
     dq = torch.from_numpy(dequant_row(scale_x, scale_w, n)).to(x.device)
-    return apply_activation(acc.float() * dq, activation)
+    return apply_activation(acc.float() * dq, activation).to(out_dtype or x.dtype)
 
 
 VPE_MM_Q = CudaKernel("vpe_mm_q_launch", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
-                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 Q_THREADS, Q_OUTPUTS = 256, 8  # csrc/vpe_mm_q.cu: threads a CTA, outputs a thread at most
 Q_ROWS = 16  # rows a CTA (see vpe_q_plan)
 Q_MAX_BN = 256  # columns a CTA at most: up to it, every x element is quantized once
@@ -211,24 +202,30 @@ def scale_row(scale_w, n: int, device: torch.device) -> torch.Tensor:
 
 
 def vpe_matmul_q(x: torch.Tensor, w: torch.Tensor, *, scale_x: float, scale_w,
-                 activation: str = "none") -> torch.Tensor:
-    """Int8 (M, K) @ (K, N) -> (M, N) f32 on the VPE engine: f32 operands
-    clip-rounded to int8 on the layer's scales (``scale_w`` a float or a
-    per-output-channel tuple), int32 sum, dequant, activation.  On CPU
-    tensors this is the plain :func:`vpe_mm_q`; on CUDA tensors one launch of
-    the kernel in the tile :func:`vpe_q_plan` picks, which quantizes on load
-    and masks the ragged edges."""
+                 activation: str = "none", out_dtype: Optional[torch.dtype] = None
+                 ) -> torch.Tensor:
+    """Int8 (M, K) @ (K, N) -> (M, N) on the VPE engine: x and w (each f32
+    or bf16) clip-rounded to int8 on the layer's scales (``scale_w`` a float
+    or a per-output-channel tuple), int32 sum, dequant, activation, one
+    rounding to ``out_dtype`` (x's by default, as the reference's
+    ``out_dtype or x.dtype``).  On CPU tensors this is the plain
+    :func:`vpe_mm_q`; on CUDA tensors one launch of the kernel in the tile
+    :func:`vpe_q_plan` picks, which quantizes on load and masks the ragged
+    edges."""
     check_quant_args("vpe_matmul_q", x, w, scale_w, activation)
+    out_dtype = engine_out_dtype("vpe_matmul_q", x, w, out_dtype)
     if x.device.type == "cpu":
-        return vpe_mm_q(x, w, scale_x=scale_x, scale_w=scale_w, activation=activation)
+        return vpe_mm_q(x, w, scale_x=scale_x, scale_w=scale_w, activation=activation,
+                        out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"vpe_matmul_q: no kernel for {x.device}")
-    check_matmul_operands("vpe_matmul_q", x, w)
+    check_matmul_shapes("vpe_matmul_q", x, w)
     (m, k), n = x.shape, w.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m * n:
         plan = vpe_q_plan(m, k, n)
         VPE_MM_Q(x.device, x.data_ptr(), w.data_ptr(), scale_x,
                  scale_row(scale_w, n, x.device).data_ptr(), out.data_ptr(), m, k, n,
-                 ACTIVATIONS[activation], *plan, stream_of(x))
+                 ACTIVATIONS[activation], *plan, DTYPES[x.dtype], DTYPES[w.dtype],
+                 DTYPES[out_dtype], stream_of(x))
     return out

@@ -286,9 +286,11 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
     expert products are plain products outside any kernel in the reference,
     so they stay ``torch.einsum``; the shared experts go through
     ``router.matmul``.  Types follow the reference's promotions: a bf16 x
-    meets the f32 expert weights in f32, and values round only where the
-    reference writes ``astype``: the gated product to x's dtype, the
-    combine in ``moe_combine_dtype``, the output to x's dtype.  The combine
+    meets f32 expert weights in f32 and bf16 ones in bf16 (each product
+    summed in f32 and rounded once to that type, as XLA computes a bf16
+    ``einsum``), and values round only there and where the reference
+    writes ``astype``: the gated product to x's dtype, the combine in
+    ``moe_combine_dtype``, the output to x's dtype.  The combine
     adds each token's k entries in entry order (the reference scatter-adds
     them into zeros; a CUDA ``index_add_`` would add them in any order)."""
     b, s, d = x.shape
@@ -316,11 +318,15 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
     buf.scatter_(1, slot[..., None].expand(-1, -1, d), src)  # the drop row takes the rest
     disp = buf[:, :e * cap].reshape(g, e, cap, d).float()
 
-    gate = torch.einsum("gecd,edf->gecf", disp, p["w_gate"].float())
-    gate = gate * torch.sigmoid(gate)  # silu
-    up = torch.einsum("gecd,edf->gecf", disp, p["w_up"].float())
-    out_e = torch.einsum("gecf,efd->gecd", (gate * up).to(hg.dtype).float(),
-                         p["w_down"].float())
+    def expert_mm(spec: str, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return torch.einsum(spec, a, w.float()).to(torch.promote_types(hg.dtype, w.dtype))
+
+    gate = expert_mm("gecd,edf->gecf", disp, p["w_gate"])
+    # silu as jax.nn.sigmoid lowers it, each op rounded to gate's type: on
+    # bf16 experts the one-rounding torch.sigmoid differs on ~30% of values
+    gate = gate * (1 / (1 + torch.exp(-gate)))
+    up = expert_mm("gecd,edf->gecf", disp, p["w_up"])
+    out_e = expert_mm("gecf,efd->gecd", (gate * up).to(hg.dtype).float(), p["w_down"])
 
     cdt = getattr(torch, cfg.moe_combine_dtype)
     weights = (gate_vals.reshape(g, t * k_top) * keep.float()).to(cdt)

@@ -54,7 +54,9 @@ def _materialize(spec: ParamSpec, generator: torch.Generator, device: torch.devi
         std = 0.02 * spec.scale
     else:
         raise ValueError(f"unknown init {spec.init!r}")
-    w = torch.randn(spec.shape, generator=generator, device=generator.device) * std
+    # scaled in place: a bf16 leaf then needs one f32 draw beside it, not two
+    # (starcoder2-15b's stacked MLP leaf is 24 GB in f32)
+    w = torch.randn(spec.shape, generator=generator, device=generator.device).mul_(std)
     return w.to(device=device, dtype=dtype)
 
 

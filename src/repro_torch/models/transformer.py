@@ -5,9 +5,10 @@ with forward, prefill and decode entry points.
 The superblocks' parameters and caches stay stacked on a leading axis, as the
 reference lays them out for its ``lax.scan``; the port loops over them.  This
 slice runs attention (``attn``, ``attn_local``) with the dense MLP or the
-mixture of experts (``moe``) on f32 weights in f32 or bf16 compute (the
-registered configs' default: bf16 activations, each routed matmul summed in
-f32 and rounded once); what it does not run raises ``NotImplementedError``.
+mixture of experts (``moe``) on f32 or bf16 weights in f32 or bf16 compute
+(the registered configs' default: bf16 activations, each routed matmul
+summed in f32 and rounded once); what it does not run raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.common.util import BF16_ROADMAP, Device, resolve_device
+from repro_torch.common.util import Device, resolve_device
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core import router
 from repro_torch.models import spec as pspec
@@ -51,13 +52,10 @@ def check_supported(cfg: ArchConfig) -> None:
                                       "(shared MLPs come with a later slice)")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} frontend is not ported")
-    if cfg.compute_dtype not in ("float32", "bfloat16"):
-        raise NotImplementedError(f"{cfg.name}: compute_dtype {cfg.compute_dtype!r} is not "
-                                  "ported (float32 and bfloat16 are)")
-    if cfg.param_dtype != "float32":
-        raise NotImplementedError(
-            f"{cfg.name}: param_dtype {cfg.param_dtype!r} is not ported: the engine kernels "
-            f"take float32 weights only (the bf16 x bf16 arm is {BF16_ROADMAP})")
+    for field in ("compute_dtype", "param_dtype"):
+        if getattr(cfg, field) not in ("float32", "bfloat16"):
+            raise NotImplementedError(f"{cfg.name}: {field} {getattr(cfg, field)!r} is not "
+                                      "ported (float32 and bfloat16 are)")
     if cfg.attn_logit_softcap != 0:
         raise NotImplementedError(f"{cfg.name}: attn_logit_softcap is not ported")
 

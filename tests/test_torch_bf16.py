@@ -45,6 +45,7 @@ Tolerances (none widened after a comparison ran):
   are counted and reported.
 """
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -66,8 +67,13 @@ from repro.serving import ServeEngine as JServeEngine
 from repro_torch import convert
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import router
-from repro_torch.kernels.arype_matmul.ops import arype_matmul, mm_fused
-from repro_torch.kernels.vpe_smallmm.ops import vpe_matmul, vpe_mm
+from repro_torch.kernels.arype_matmul.ops import (
+    arype_matmul,
+    arype_matmul_unfused,
+    mm_fused,
+    mm_unfused_partials,
+)
+from repro_torch.kernels.vpe_smallmm.ops import vpe_matmul, vpe_mm, vpe_mm_q
 from repro_torch.models import transformer
 from repro_torch.models.transformer import LM
 from repro_torch.runtime import RuntimeConfig
@@ -75,6 +81,7 @@ from repro_torch.runtime.quant import QuantScales
 from repro_torch.serving import Request, ServeConfig, ServeEngine
 
 ACTS = ["none", "relu", "silu", "gelu"]
+DTYPE_PAIR = (torch.float32, torch.bfloat16)  # each of x, w and out
 F32_RTOL = 1e-5
 OWN_CACHE_TOL = 2e-3  # test_torch_lm.py's, for the f32 stack
 EXACT = {"xla_allow_excess_precision": False}
@@ -159,13 +166,24 @@ def test_plain_vpe_matmul_on_bf16_matches_pallas(m, k, n, act, out, record_prope
 
 
 def test_engines_refuse_what_they_do_not_run():
-    x, w = torch.zeros(4, 3), torch.zeros(3, 2)
+    """Both engines run every (x, w, out) pair of f32 and bf16, on any
+    device the same check: another type of any of the three is refused."""
+    x, w = torch.randn(4, 3), torch.randn(3, 2)
     for engine in (arype_matmul, vpe_matmul):
-        for xx, ww, od in ((x.half(), w, None), (x, w.bfloat16(), None),
-                           (x.bfloat16(), w.bfloat16(), None), (x, w, torch.float16),
-                           (x, w, torch.bfloat16)):
-            with pytest.raises(ValueError, match="ROADMAP Queue 2 item 1"):
+        for xt, wt, ot in itertools.product(DTYPE_PAIR, repeat=3):
+            got = engine(x.to(xt), w.to(wt), out_dtype=ot)
+            assert got.dtype == ot
+            assert torch.equal(got, engine(x.to(xt).float(), w.to(wt).float()).to(ot))
+        for xx, ww, od in ((x.half(), w, None), (x, w.half(), None), (x, w, torch.float16),
+                           (x.double(), w, None)):
+            with pytest.raises(ValueError, match="float32 or bfloat16"):
                 engine(xx, ww, out_dtype=od)
+    # the unfused ablation alone stays f32: its other types are not ported
+    for xx, ww in ((x.bfloat16(), w), (x, w.bfloat16())):
+        with pytest.raises(ValueError, match="ROADMAP Queue 2 item 1"):
+            arype_matmul_unfused(xx, ww)
+        with pytest.raises(ValueError, match="ROADMAP Queue 2 item 1"):
+            mm_unfused_partials(xx, ww, bk=2)
 
 
 # ---------------------------------------------------------------- router
@@ -211,15 +229,21 @@ def test_router_keeps_f32_matmuls_f32():
 
 
 def test_router_refuses_bf16_on_a_quantized_route():
+    """A quantized layer now takes bf16 x and ``out_dtype`` as the
+    reference passes them (its int8 wrappers' ``out_dtype or x.dtype``): the
+    int8 twin of the route's engine, on x's exact f32 values, rounded once.
+    What no engine builds (float16) is still refused."""
     table = QuantScales((("fc", 0.05, 0.01),))
     cfg = RuntimeConfig(quantize=True, quant_scales=table)
     x, w = torch.randn(8, 16), torch.randn(16, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 1"):
-        router.matmul(x.bfloat16(), w, config=cfg, name="fc")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 1"):
-        router.matmul(x, w, out_dtype=torch.bfloat16, config=cfg, name="fc")
-    assert router.matmul(x, w, config=cfg, name="fc").dtype == torch.float32
-    # a layer without an entry stays on the f32 engines, bf16 included
+    for xt, wt, ot in itertools.product(DTYPE_PAIR, repeat=3):
+        got = router.matmul(x.to(xt), w.to(wt), out_dtype=ot, config=cfg, name="fc")
+        want = vpe_mm_q(x.to(xt).float(), w.to(wt).float(), scale_x=0.05, scale_w=0.01)
+        assert got.dtype == ot and torch.equal(got, want.to(ot))
+    assert router.matmul(x.bfloat16(), w, config=cfg, name="fc").dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        router.matmul(x.half(), w, config=cfg, name="fc")
+    # a layer without an entry stays on the f32-accumulating engines
     assert router.matmul(x.bfloat16(), w, config=cfg, name="other").dtype == torch.bfloat16
 
 
@@ -230,12 +254,20 @@ ARCHS = ["qwen3-0.6b", "gemma3-1b"]
 
 
 def test_registered_configs_are_admitted_and_bf16_weights_refused():
+    """Every registered config is admitted, bf16 weights included (each
+    leaf but the MoE router's in ``param_dtype``); float16 weights or
+    compute, which no kernel builds, are refused."""
     for arch in ARCHS:
         cfg = get_config(arch)
         assert (cfg.compute_dtype, cfg.param_dtype) == ("bfloat16", "float32")
         assert LM(cfg, device="cpu").cfg is cfg
+        bf = LM(cfg.replace(param_dtype="bfloat16"), device="cpu").abstract_params()
+        assert {t.dtype for t in jax.tree.leaves(bf)} == {torch.bfloat16}
         with pytest.raises(NotImplementedError, match="param_dtype"):
-            LM(cfg.replace(param_dtype="bfloat16"), device="cpu")
+            LM(cfg.replace(param_dtype="float16"), device="cpu")
+    star = get_config("starcoder2-15b")
+    assert (star.compute_dtype, star.param_dtype) == ("bfloat16", "bfloat16")
+    assert LM(star, device="cpu").cfg is star
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         LM(get_config("qwen3-0.6b").replace(compute_dtype="float16"), device="cpu")
 

@@ -7,6 +7,8 @@ one skips.  On the card:
 
 This file imports neither JAX nor the JAX package, so it runs where only the
 port is installed."""
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -19,12 +21,14 @@ from repro_torch.data.traffic import TrafficConfig, TrafficGenerator
 from repro_torch.common.util import DTYPES
 from repro_torch.kernels.arype_matmul.ops import (
     MM_FUSED,
+    MM_FUSED_Q,
     arype_matmul,
     arype_matmul_q,
     arype_matmul_unfused,
     card_plan,
     mm_fused,
     mm_fused_q,
+    mm_fused_q_plan,
     mm_unfused,
     mm_unfused_partials,
     mm_unfused_partials_plain,
@@ -43,6 +47,7 @@ from repro_torch.kernels.vpe_smallmm.ops import (
     vpe_mm,
     vpe_mm_q,
     vpe_plan,
+    vpe_q_plan,
 )
 from repro_torch.launch.calibrate import calibrate_quant_scales
 from repro_torch.models.paper_models import init_paper_model
@@ -229,25 +234,185 @@ def test_vpe_equals_arype_at_up_to_8_rows(cuda, k, n, arm):
 
 
 def test_engines_refuse_bf16_weights_on_the_card(cuda):
+    """bf16 weights run on the card now, in every (x, w, out) pair of types,
+    one launch each; what is still refused is refused before any launch: a
+    float16 operand by the wrappers, an unknown dtype code (2) by each
+    engine launcher itself, and bf16 by the unfused ablation."""
     x, w = torch.randn(4, 8, device=cuda), torch.randn(8, 3, device=cuda)
     for engine in (arype_matmul, vpe_matmul):
-        with pytest.raises(ValueError, match="ROADMAP Queue 2 item 1"):
-            engine(x.bfloat16(), w.bfloat16())
-        with pytest.raises(ValueError, match="ROADMAP Queue 2 item 1"):
-            engine(x, w, out_dtype=torch.bfloat16)
-    # the launchers themselves refuse f32 x into bf16 (not built): no launch
+        before = kernels.launches()
+        assert engine(x.bfloat16(), w.bfloat16()).dtype == torch.bfloat16
+        assert engine(x, w.bfloat16(), out_dtype=torch.bfloat16).dtype == torch.bfloat16
+        assert sum(kernels.launches().values()) == sum(before.values()) + 2
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            engine(x.half(), w)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            engine(x, w.half())
     out = torch.empty(4, 3, dtype=torch.bfloat16, device=cuda)
     plan = card_plan(x.device, 4, 8, 3)
-    before = kernels.launches()
     vplan = vpe_plan(4, 8, 3)
+    f32, unknown = DTYPES[torch.float32], 2
+    before = kernels.launches()
     for kernel, args in ((MM_FUSED, (0, plan.tile, plan.split)),
                          (VPE_MM, (0, vplan.bn, vplan.split))):
+        for codes in ((unknown, f32, f32), (f32, unknown, f32), (f32, f32, unknown)):
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                kernel(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), 4, 8, 3, *args,
+                       *codes, stream_of(x))
+    sw = scale_row(0.1, 3, cuda)
+    qplan = vpe_q_plan(4, 8, 3)
+    for kernel, args in ((MM_FUSED_Q, (0, mm_fused_q_plan(4, 8, 3).tile)),
+                         (VPE_MM_Q, (0, *qplan))):
         with pytest.raises(RuntimeError, match="CUDA error"):
-            kernel(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), 4, 8, 3, *args,
-                   DTYPES[torch.float32], DTYPES[torch.bfloat16], stream_of(x))
+            kernel(x.device, x.data_ptr(), w.data_ptr(), 0.1, sw.data_ptr(), out.data_ptr(),
+                   4, 8, 3, *args, f32, unknown, f32, stream_of(x))
     assert kernels.launches() == before
     with pytest.raises(ValueError, match="ROADMAP Queue 2 item 1"):
-        arype_matmul_q(x.bfloat16(), w, scale_x=0.1, scale_w=0.1)
+        arype_matmul_unfused(x.bfloat16(), w)
+
+
+# the bf16-weight arms: every (x, w, out) pair of types at the LM's shapes on
+# both variants (the skinny one at M <= 8, tf32x3 past it), starcoder2-15b's
+# K 6144 into N 512 (k, v) and a 49152-wide head slice, ragged N and odd K
+# (w's synchronous copies at N 7, 65, 163, 258 and 130; x's at K 5, 301,
+# 1027), and K 6 (x's 4-byte copies)
+BF16W_SHAPES = [(1, 1024, 1024), (4, 1024, 3072), (8, 257, 130), (3, 301, 163), (9, 301, 163),
+                (77, 1027, 258), (33, 301, 65), (40, 6, 128), (129, 5, 7), (1032, 1024, 1024),
+                (4, 6144, 512), (300, 6144, 512), (4, 512, 49152)]
+DTYPE_TRIPLES = list(itertools.product((torch.float32, torch.bfloat16), repeat=3))
+TRIPLE_IDS = ["-".join(str(t)[6:] for t in triple) for triple in DTYPE_TRIPLES]
+
+
+def _step(ref: torch.Tensor) -> torch.Tensor:
+    """One bf16 step (ulp) at each |ref|."""
+    return torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
+
+
+@pytest.mark.parametrize("m,k,n", BF16W_SHAPES)
+@pytest.mark.parametrize("xt,wt,ot", DTYPE_TRIPLES, ids=TRIPLE_IDS)
+def test_every_dtype_pair_equals_the_f32_kernel_on_upcast_operands(cuda, m, k, n, xt, wt, ot):
+    """mm_fused on x of xt, w of wt into ot: one launch, bit for bit the f32
+    kernel on x.float(), w.float() rounded once to ot (a bf16 value is a tf32
+    value with lo = 0, and the skinny variant widens it exactly), under every
+    activation, and within one bf16 step (f32 out: rtol 1e-5) of the plain
+    twin."""
+    gen = torch.Generator().manual_seed(m * 3 + k + n)
+    x = torch.randn(m, k, generator=gen).to(cuda, xt)
+    w = torch.randn(k, n, generator=gen).to(cuda, wt)
+    for act in ("none", "relu", "silu", "gelu"):
+        before = kernels.launches()
+        got = arype_matmul(x, w, activation=act, out_dtype=ot)
+        after = kernels.launches()
+        assert after["mm_fused"] == before["mm_fused"] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        assert got.dtype == ot
+        assert torch.equal(got, arype_matmul(x.float(), w.float(), activation=act).to(ot)), act
+        ref = mm_fused(x, w, activation=act, out_dtype=ot).float()
+        top = ref.abs().max()
+        tol = _step(ref) if ot == torch.bfloat16 else 1e-5 * ref.abs()
+        assert ((got.float() - ref).abs() <= tol + 1e-5 * top).all(), act
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 2048), (1, 6144, 512), (7, 16, 8), (1024, 6, 12),
+                                   (33, 1, 2), (5120, 3, 32), (20, 96, 32)])
+@pytest.mark.parametrize("xt,wt,ot", DTYPE_TRIPLES, ids=TRIPLE_IDS)
+def test_vpe_every_dtype_pair_equals_the_f32_kernel_on_upcast_operands(cuda, m, k, n, xt, wt,
+                                                                        ot):
+    """vpe_mm on every pair of types, on both of its kernels (the skinny
+    split-K at M <= 8, one thread an output past it, w staged or not): one
+    launch, bit for bit the f32 kernel on x.float(), w.float()."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen).to(cuda, xt)
+    w = torch.randn(k, n, generator=gen).to(cuda, wt)
+    for act in ("none", "silu"):
+        before = kernels.launches()
+        got = vpe_matmul(x, w, activation=act, out_dtype=ot)
+        assert kernels.launches()["vpe_mm"] == before["vpe_mm"] + 1
+        assert got.dtype == ot
+        assert torch.equal(got, vpe_matmul(x.float(), w.float(), activation=act).to(ot)), act
+
+
+@pytest.mark.parametrize("k,n", [(1024, 2048), (6144, 512), (6144, 6144), (301, 163), (257, 130)])
+@pytest.mark.parametrize("xt,wt,ot", DTYPE_TRIPLES, ids=TRIPLE_IDS)
+def test_vpe_equals_arype_at_up_to_8_rows_in_every_dtype_pair(cuda, k, n, xt, wt, ot):
+    """At M 1-8 both engines launch the skinny split-K with one plan, in
+    every pair of types: the same bits, and each row equal to a one-row
+    call on it."""
+    gen = torch.Generator().manual_seed(k + n)
+    w = torch.randn(k, n, generator=gen).to(cuda, wt)
+    x8 = torch.randn(8, k, generator=gen).to(cuda, xt)
+    for m in range(1, 9):
+        x = x8[:m].contiguous()
+        for act in ("none", "gelu"):
+            got = vpe_matmul(x, w, activation=act, out_dtype=ot)
+            assert torch.equal(got, arype_matmul(x, w, activation=act, out_dtype=ot)), (m, act)
+        full = arype_matmul(x, w, out_dtype=ot)
+        for r in range(m):
+            assert torch.equal(arype_matmul(x[r:r + 1].contiguous(), w, out_dtype=ot),
+                               full[r:r + 1]), (m, r)
+
+
+@pytest.mark.parametrize("k,n", [(1024, 1024), (6144, 512), (301, 163)])
+@pytest.mark.parametrize("xt", [torch.float32, torch.bfloat16], ids=["f32x", "bf16x"])
+def test_bf16_weight_rows_do_not_depend_on_m(cuda, k, n, xt):
+    """bf16 w: rows of a 4-row decode call equal one-row calls (the skinny
+    variant), and rows of a 40-row call equal those of 9- and 33-row calls
+    on them (the tf32x3 variant: K's order never depends on M)."""
+    gen = torch.Generator().manual_seed(k * n)
+    w = torch.randn(k, n, generator=gen).to(cuda, torch.bfloat16)
+    x = torch.randn(40, k, generator=gen).to(cuda, xt)
+    out4 = arype_matmul(x[:4], w)
+    for s in range(4):
+        assert torch.equal(arype_matmul(x[s:s + 1], w), out4[s:s + 1]), s
+    out = arype_matmul(x, w)
+    for rows in (9, 33):
+        assert torch.equal(arype_matmul(x[:rows], w), out[:rows]), rows
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 1024), (37, 96, 64), (129, 300, 163), (9, 301, 8),
+                                   (1032, 1024, 1024)])
+@pytest.mark.parametrize("offset", [1, 2, 8, "row"])
+def test_bf16_weights_take_unaligned_views(cuda, m, k, n, offset):
+    """w a bf16 view 1, 2 or 8 elements or one row into its storage: a base
+    not 16-byte aligned takes the synchronous loads (tf32x3) or the scalar
+    ones (skinny), and the result still equals the f32 kernel on w.float()
+    bit for bit."""
+    gen = torch.Generator().manual_seed(m + k * n)
+    start = n if offset == "row" else offset
+    w = torch.randn((k + 1) * n + 8, generator=gen).to(cuda, torch.bfloat16)
+    w = w[start:start + k * n].view(k, n)
+    for xt in (torch.float32, torch.bfloat16):
+        x = torch.randn(m, k, generator=gen).to(cuda, xt)
+        for out in OUTS.values():
+            assert torch.equal(arype_matmul(x, w, activation="silu", out_dtype=out),
+                               arype_matmul(x.float(), w.float(), activation="silu").to(out))
+
+
+@pytest.mark.parametrize("engine,plain", [(vpe_matmul_q, vpe_mm_q), (arype_matmul_q, mm_fused_q)])
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (37, 5, 7), (1024, 6, 12), (5120, 3, 32),
+                                   (2560, 96, 32), (256, 128, 162), (3840, 16, 64),
+                                   (33, 300, 163), (4, 1024, 1024)])
+@pytest.mark.parametrize("xt,wt,ot", DTYPE_TRIPLES, ids=TRIPLE_IDS)
+def test_int8_kernels_take_every_dtype_pair(cuda, engine, plain, m, k, n, xt, wt, ot):
+    """The int8 pair on x of xt and w of wt into ot (the reference's
+    ``out_dtype or x.dtype``): each element quantized as its exact f32, the
+    int32 sums exact, so bit for bit with the plain twin under none/relu,
+    per tensor and per channel; one launch."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = (torch.randn(m, k, generator=gen) * 3).to(cuda, xt)
+    w = torch.randn(k, n, generator=gen).to(cuda, wt)
+    sx = pick_scale(x.float().abs().max().item())
+    for sw in (pick_scale(w.float().abs().max().item()),
+               tuple(pick_scale(v) for v in w.float().abs().amax(0).tolist())):
+        for act in ("none", "relu"):
+            before = kernels.launches()
+            out = engine(x, w, scale_x=sx, scale_w=sw, activation=act, out_dtype=ot)
+            assert sum(kernels.launches().values()) == sum(before.values()) + 1
+            assert out.dtype == ot
+            assert torch.equal(out, plain(x, w, scale_x=sx, scale_w=sw, activation=act,
+                                          out_dtype=ot))
+            assert torch.equal(out, engine(x.float(), w.float(), scale_x=sx, scale_w=sw,
+                                           activation=act).to(ot))
 
 
 # the int8 kernels' shapes: the pipelines', and ragged ones across the 32-row
@@ -767,9 +932,10 @@ def test_vpe_int8_kernel_takes_any_tile(cuda, bm, bn, bk):
     w = torch.randn(k, n, generator=gen).to(cuda)
     sx, sw = pick_scale(x.abs().max().item()), tuple(pick_scale(v) for v in w.abs().amax(0).tolist())
     out = torch.empty(m, n, device=cuda)
+    f32 = DTYPES[torch.float32]
     launch = lambda *tile: VPE_MM_Q(cuda, x.data_ptr(), w.data_ptr(), sx,
                                     scale_row(sw, n, cuda).data_ptr(), out.data_ptr(), m, k, n,
-                                    0, *tile, stream_of(x))
+                                    0, *tile, f32, f32, f32, stream_of(x))
     launch(bm, bn, bk)
     assert torch.equal(out, vpe_mm_q(x, w, scale_x=sx, scale_w=sw))
     with pytest.raises(RuntimeError, match="vpe_mm_q_launch"):

@@ -82,12 +82,13 @@ def test_configs_equal_the_references(arch):
             assert got == want, f.name
         for prop in ("num_layers", "q_dim", "kv_dim", "padded_vocab", "gqa_groups"):
             assert getattr(port, prop) == getattr(ref, prop), prop
-    assert list_archs() == sorted(ARCHS + ["granite-moe-1b-a400m", "kimi-k2-1t-a32b"])
+    assert list_archs() == sorted(ARCHS + ["granite-moe-1b-a400m", "kimi-k2-1t-a32b",
+                                           "qwen3-4b", "starcoder2-15b"])
 
 
 def test_get_config_refuses_unported_archs_and_from_arch_follows_the_reference():
     with pytest.raises(KeyError, match="not ported"):
-        get_config("qwen3-4b")
+        get_config("xlstm-1.3b")
     for arch in ARCHS:
         cfg = get_config(arch).replace(router_policy="arype_only")
         ref = JRuntimeConfig.from_arch(jget_config(arch).replace(router_policy="arype_only"))
@@ -143,7 +144,7 @@ def test_lm_refuses_what_this_slice_does_not_run():
                       (dict(block_pattern=(LayerSpec("attn_cross", "mlp"),)), "attn_cross"),
                       (dict(block_pattern=(LayerSpec("attn", "mlp_shared"),)), "mlp_shared"),
                       (dict(frontend="audio_frames"), "frontend"),
-                      (dict(param_dtype="bfloat16"), "param_dtype"),
+                      (dict(param_dtype="float16"), "param_dtype"),
                       (dict(attn_logit_softcap=30.0), "softcap")):
         with pytest.raises(NotImplementedError, match=match):
             LM(base.replace(**kw), device="cpu")
