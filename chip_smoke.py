@@ -216,7 +216,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  25. ``[lm qwen3-4b]``: qwen3-4b at full width and depth as registered (f32
      weights, bf16 compute, 17.6 GB), 2 requests of 8 tokens: tokens as
      served alone and the batch-1 runs except counted near ties; 253
-     ``mm_fused`` a forward, 36 ``flash_fwd`` a prefill.
+     ``mm_fused`` a forward, 36 ``flash_fwd`` a prefill;
+ 26. ``[train qwen3-0.6b]`` (after 25): qwen3-0.6b as registered (f32
+     weights, bf16 compute, AdamW) trained by ``Trainer.run`` at full width
+     and depth, 6 steps of 8 x 128 tokens from the token pipeline, one
+     checkpoint (9 GB, under ``_train_ckpt/``, deleted after): each step's
+     loss, wall ms, host enqueue and device ms (CUDA events), tokens/s, peak
+     memory, the save's seconds; launches as predicted from the code (619
+     ``mm_fused`` a step: 197 forward, 28 silu recomputes, 197 dX, 197 dW;
+     28 ``flash_fwd``), by (x, w, out) arm; the step's matmul bound at the
+     kernels' instruction rates; each distinct backward product at the
+     step's 1024 rows bit for bit against the kernel called directly and
+     against its plain twin, timed beside ``torch.matmul`` and its bound,
+     with the transposes' copies; one step card vs CPU at full width and 2
+     of 28 superblocks (f32 compute: loss, every gradient leaf, and the
+     update on the card's gradients within their limits; bf16 compute
+     printed beside the f32-compute control); 4 steps straight against a
+     crash at step 3 and a resume from step 2, bit for bit.  ``--profile``
+     traces two steps (device busy, idle share, top kernels).
 
 The second-to-last line is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off everywhere: the reference
@@ -361,6 +378,30 @@ VPE_SERVED_TIMED = (1, 2, 4, 8)
 # with the depth cut to QWEN4_CPU_SUPERBLOCKS, as starcoder2's
 QWEN4_ARCH = "qwen3-4b"
 QWEN4_PROMPTS, QWEN4_MAX_NEW, QWEN4_CPU_SUPERBLOCKS = (200, 37), 8, 4
+# [train qwen3-0.6b]: qwen3-0.6b as registered (f32 weights, bf16 compute,
+# AdamW) trained at full width and depth by Trainer.run for TRAIN_STEPS steps
+# of TRAIN_BATCH x TRAIN_SEQ tokens, saving once at the last step; then card
+# against CPU and the resume, each at full width with the depth cut to
+# TRAIN_CPU_SUPERBLOCKS and batch TRAIN_CPU_BATCH x TRAIN_SEQ.  Checkpoints
+# go under TRAIN_CKPT (inside the checkout) and are deleted after the checks.
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 128
+TRAIN_CPU_SUPERBLOCKS, TRAIN_CPU_BATCH, TRAIN_RESUME_STEPS = 2, 2, 4
+TRAIN_CKPT = ROOT / "_train_ckpt"
+# card against CPU in f32 compute, one train step from the same params: the
+# loss within rtol TRAIN_LOSS_RTOL, each gradient leaf within TRAIN_SHARE of
+# its max|grad|, the updated parameters and moments within TRAIN_SHARE of
+# their leaf's max|value| (the f32 sums of 1024-2048-deep products and of
+# the 151936-deep head dX differ in order between the devices)
+TRAIN_LOSS_RTOL, TRAIN_SHARE = 1e-5, 1e-4
+# in bf16 compute, the gradients' relative L2 over all leaves, card against
+# CPU: a bf16 rounding that a one-ulp difference of an f32 sum flips spreads
+# through the layers, so the devices part by about what a change of the f32
+# sums' order alone does on the CPU, two thirds of what bf16 compute itself
+# moves the gradients from f32 compute (the control).  On an H100 80GB HBM3
+# at 700 W: card vs CPU 1.021e-2, the order alone 9.644e-3, the control
+# 1.505e-2; the limit lies between
+TRAIN_BF16_L2 = 1.25e-2
 # Expert routing, card against CPU on the same layer inputs.  The router
 # logits are 1024-term f32 dot products that each device sums in another
 # order (differences near 1e-6); a top-k pick may differ only where the
@@ -1008,6 +1049,68 @@ def bf16_step(torch, v):
     return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0**-126))) - 7)
 
 
+def product_record() -> dict:
+    """Sums over a kernel's shapes, as the ``kernels`` line takes them."""
+    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                bytes=0, flops=0)
+
+
+def set_bound_by(rec: dict) -> dict:
+    rec["bound_by"] = "bytes" if rec["bytes"] / HBM_BYTES_PER_S * 1e3 >= rec["ops_ms"] \
+        else "operations"
+    return rec
+
+
+def hold_to_plain(torch, label: str, out, ref, rec: dict) -> float:
+    """``out`` within one bf16 step of the plain twin's ``ref`` (f32 out: rtol
+    1e-5), plus 1e-5 of max|ref|; the record keeps the largest error."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    lim = (bf16_step(torch, ref) if out.dtype == torch.bfloat16 else MATMUL_RTOL * ref.abs()) \
+        + MATMUL_RTOL * ref.abs().max()
+    if not (diff <= lim).all():
+        raise AssertionError(f"{label}: max err {diff.max().item()} from the plain twin")
+    err = diff.max().item()
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    return err
+
+
+def time_product(torch, engine, plain, a, b, od, rec: dict, label: str, plan=None, *,
+                 plain_calls: int = 5, plain_reps: int = 5) -> None:
+    """Times of ``engine(a, b)`` into ``od``, its plain twin and the library
+    call for the same function, ``torch.matmul`` on the same operands (on
+    ``a.float()`` where the types differ) ``.to(od)``, added to ``rec`` with
+    the bound: the operands' and the output's bytes over 3.35 TB/s, or the
+    operations: a bf16 x bf16 product 2MKN over the dense bf16 rate (989
+    TFLOP/s), whatever instruction the kernel issues; on the tf32x3 variant
+    (``plan``) one tf32 ``mma.sync`` a step plus one for each f32 operand
+    (a bf16 operand has no lo part), k x 2MKN over 495 TFLOP/s; else 2MKN
+    f32 FMAs."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    m, k, n = a.shape[0], a.shape[1], b.shape[1]
+    t = time_ms(lambda: engine(a, b, out_dtype=od))
+    tp = time_ms(lambda: plain(a, b, out_dtype=od), calls=plain_calls, reps=plain_reps)
+    al = a.float() if a.dtype != b.dtype else a
+    tl = time_ms(lambda: torch.matmul(al, b).to(od))
+    out_size = torch.empty((), dtype=od).element_size()
+    nbytes = a.element_size() * m * k + b.element_size() * k * n + out_size * m * n
+    ops, rate, how = 2 * m * k * n, F32_OPS_PER_S, ""
+    if plan is not None:
+        p = plan(a.device, m, k, n)
+        how = f" [{p.variant} {p.bm}x{p.bn} C={p.split}]"
+        if p.variant == "tf32x3":
+            ops, rate = (1 + (a.dtype == f32) + (b.dtype == f32)) * ops, TF32_OPS_PER_S
+    if a.dtype == b.dtype == bf16:
+        ops, rate = 2 * m * k * n, BF16_OPS_PER_S
+    bnd, by = bound(nbytes, ops, rate)
+    lib = "torch.matmul" if a.dtype == b.dtype else "torch.matmul(x.float(), w).to()"
+    log(f"  {label} ({m},{k},{n}) -> {str(od)[6:]}{how}: kernel {t:.5f} ms, plain {tp:.5f} ms, "
+        f"{lib} {tl:.5f} ms, bound {bnd:.6f} ms ({by})")
+    for key, v in (("ms", t), ("plain_ms", tp), ("library_ms", tl), ("bound_ms", bnd),
+                   ("ops_ms", ops / rate * 1e3), ("bytes", nbytes), ("flops", ops)):
+        rec[key] += v
+
+
 def check_mixed_matmuls(torch, engine, plain, shapes, gen, plan=None, *, w_dtype=None,
                         time_it: bool = True, same_as=None) -> dict:
     """An engine's bf16-x arm at each (name, m, k, n): bf16 x on w of
@@ -1015,21 +1118,13 @@ def check_mixed_matmuls(torch, engine, plain, shapes, gen, plan=None, *, w_dtype
     bf16 out, f32 for the ``lm_head`` (all four activations at the first
     shape), operands drawn from ``gen`` on its device.  The kernel must
     equal itself on ``x.float()``, ``w.float()`` rounded once, bit for bit,
-    lie within one bf16 step (f32 out: rtol 1e-5) of the plain twin, and,
-    with ``same_as`` (``arype_matmul`` for the VPE), equal that engine at
-    M <= 8, where both run the skinny split-K.  With ``time_it``: times of
-    the kernel, the twin and the library call for the same function,
-    ``torch.matmul`` on the same operands (on ``x.float()`` for an f32 w),
-    ``.to(out)``, summed over the shapes; the bound counts 2 bytes of x,
-    w's and out's bytes over 3.35 TB/s, or the operations: for a bf16 w, a
-    bf16 x bf16 product, 2MKN over the dense bf16 rate (989 TFLOP/s) on
-    either variant, whatever instruction the kernel issues; for an f32 w, on
-    the tf32x3 variant (``plan``) two tf32 ``mma.sync`` a step (the bf16 x
-    skips lo*hi), 2 x 2MKN over 495 TFLOP/s, and 2MKN f32 FMAs elsewhere."""
+    lie within one bf16 step (f32 out: rtol 1e-5) of the plain twin
+    (:func:`hold_to_plain`), and, with ``same_as`` (``arype_matmul`` for the
+    VPE), equal that engine at M <= 8, where both run the skinny split-K.
+    With ``time_it``: :func:`time_product` at each shape, summed."""
     w_dtype = w_dtype or torch.float32
     bf16 = torch.bfloat16
-    rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0,
-               bytes=0, flops=0)
+    rec = product_record()
     label = f"{engine.__name__} bf16 x{', bf16 w' if w_dtype == bf16 else ''}"
     for i, (name, m, k, n) in enumerate(shapes):
         x = torch.randn(m, k, generator=gen, device=gen.device).to(CARD, bf16)
@@ -1044,40 +1139,11 @@ def check_mixed_matmuls(torch, engine, plain, shapes, gen, plan=None, *, w_dtype
                     out, same_as(x, w, activation=act, out_dtype=od)):
                 raise AssertionError(f"{label} {name} ({m},{k},{n}) {act}: differs from "
                                      f"{same_as.__name__}")
-            ref = plain(x, w, activation=act, out_dtype=od).float()
-            diff = (out.float() - ref).abs()
-            top = ref.abs().max()
-            ok = (diff <= (bf16_step(torch, ref) if od == bf16
-                           else MATMUL_RTOL * ref.abs()) + MATMUL_RTOL * top).all()
-            if not ok:
-                raise AssertionError(f"{label} {name} ({m},{k},{n}) {act}: max err "
-                                     f"{diff.max().item()} from the plain twin")
-            rec["max_abs_err"] = max(rec["max_abs_err"], diff.max().item())
-        if not time_it:
-            continue
-        t = time_ms(lambda: engine(x, w, out_dtype=od))
-        tp = time_ms(lambda: plain(x, w, out_dtype=od), calls=5)
-        xl = x if w_dtype == bf16 else x.float()
-        tl = time_ms(lambda: torch.matmul(xl, w).to(od))
-        nbytes = 2 * m * k + w.element_size() * k * n + out.element_size() * m * n
-        ops, rate, how = 2 * m * k * n, F32_OPS_PER_S, ""
-        if plan is not None:
-            p = plan(x.device, m, k, n)
-            how = f" [{p.variant} {p.bm}x{p.bn} C={p.split}]"
-            if p.variant == "tf32x3" and w_dtype != bf16:
-                ops, rate = 2 * ops, TF32_OPS_PER_S
-        if w_dtype == bf16:
-            rate = BF16_OPS_PER_S
-        b, by = bound(nbytes, ops, rate)
-        lib = "torch.matmul" if w_dtype == bf16 else "torch.matmul(x.float(), w).to()"
-        log(f"  {label} {name} ({m},{k},{n}) -> {str(od)[6:]}{how}: kernel {t:.5f} ms, plain "
-            f"{tp:.5f} ms, {lib} {tl:.5f} ms, bound {b:.6f} ms ({by})")
-        for key, v in (("ms", t), ("plain_ms", tp), ("library_ms", tl), ("bound_ms", b),
-                       ("ops_ms", ops / rate * 1e3), ("bytes", nbytes), ("flops", ops)):
-            rec[key] += v
-    rec["bound_by"] = "bytes" if rec["bytes"] / HBM_BYTES_PER_S * 1e3 >= rec["ops_ms"] \
-        else "operations"
-    return rec
+            hold_to_plain(torch, f"{label} {name} ({m},{k},{n}) {act}", out,
+                          plain(x, w, activation=act, out_dtype=od), rec)
+        if time_it:
+            time_product(torch, engine, plain, x, w, od, rec, f"{label} {name}", plan)
+    return set_bound_by(rec)
 
 
 def check_lm_matmuls(torch, arype, gen, cfg, longest: int) -> dict:
@@ -3039,6 +3105,424 @@ def qwen4b_phase(torch, np, kernels, record_routes, lm_mod, serving, get_config,
     return errs
 
 
+class ArmSpy:
+    """Counts the AryPE engine calls ``router.matmul`` makes, forward and
+    backward, by (x, w, out) dtype, with the distinct (m, k, n, activation)
+    each ran, by standing in for ``router.arype_matmul`` inside the block
+    (the kernel's own launch count must equal their sum)."""
+
+    def __init__(self, router):
+        self.router, self.engine = router, router.arype_matmul
+        self.calls: dict = {}  # arm -> calls
+        self.shapes: dict = {}  # (arm, (m, k, n)) -> calls
+
+    def __enter__(self):
+        def spy(x, w, *, activation="none", out_dtype=None):
+            out = self.engine(x, w, activation=activation, out_dtype=out_dtype)
+            arm, shape = (x.dtype, w.dtype, out.dtype), (x.shape[0], x.shape[1], w.shape[1])
+            self.calls[arm] = self.calls.get(arm, 0) + 1
+            self.shapes[arm, shape] = self.shapes.get((arm, shape), 0) + 1
+            return out
+
+        self.router.arype_matmul = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.router.arype_matmul = self.engine
+
+
+def arm_name(torch, arm) -> str:
+    short = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    return f"mm_fused ({short[arm[0]]} x, {short[arm[1]]} w -> {short[arm[2]]})"
+
+
+def disk_free_gb(path) -> float:
+    import shutil
+
+    return shutil.disk_usage(path).free / 1e9
+
+
+def tree_share(torch, got, want) -> tuple[float, str]:
+    """The largest max|got - want| / max|want| over the leaves of two trees
+    of the same structure (``tree_items``), and its leaf."""
+    from repro_torch.common.tree import tree_items
+
+    worst, where = 0.0, ""
+    for (key, a), (_, b) in zip(tree_items(got), tree_items(want)):
+        b = b.float().cpu()
+        share = ((a.float().cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        if share > worst:
+            worst, where = share, key
+    return worst, where
+
+
+def tree_l2(torch, got, want) -> tuple[float, float, tuple[float, str]]:
+    """||got - want|| / ||want|| over all the leaves of two trees of the same
+    structure, its median over the leaves, and the worst leaf's with its
+    path."""
+    from repro_torch.common.tree import tree_items
+
+    num = den = 0.0
+    per_leaf = []
+    for (key, a), (_, b) in zip(tree_items(got), tree_items(want)):
+        a, b = a.double().cpu(), b.double().cpu()
+        d2, b2 = (a - b).pow(2).sum().item(), b.pow(2).sum().item()
+        num, den = num + d2, den + b2
+        per_leaf.append(((d2 / max(b2, 1e-300)) ** 0.5, key))
+    per_leaf.sort()
+    return (num / max(den, 1e-300)) ** 0.5, per_leaf[len(per_leaf) // 2][0], per_leaf[-1]
+
+
+def check_backward_arms(torch, router, arype, cfg, gen, rows: int) -> dict:
+    """The backward of every distinct routed matmul of a qwen3 layer and the
+    head at ``rows`` tokens, as training runs it (bf16 x on f32 w; the
+    layers' outputs bf16, the head's f32): operands drawn from ``gen``, one
+    ``router.matmul`` forward and ``backward`` on the card, dX and dW bit for
+    bit the kernel called directly on the transposed operands (after the
+    recomputed f32 product for the silu gate); then each backward product
+    (and the recompute) against the plain twin on the card
+    (:func:`hold_to_plain`) and timed beside ``torch.matmul`` and the bound
+    (:func:`time_product`: on the tf32x3 variant dX takes 3 x 2MKN, dW and
+    the recompute 2 x 2MKN).  Each shape's plan is logged, with the
+    transposes' copies.  Returns a record per arm (name -> sums over its
+    shapes, as the kernels line takes them)."""
+    from repro_torch.common.util import activation_vjp
+    from repro_torch.runtime import RuntimeConfig
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, f, q, kv = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
+    layers = [("wq", d, q, "none", bf16), ("wk", d, kv, "none", bf16), ("wo", q, d, "none", bf16),
+              ("wi_gate", d, f, "silu", bf16), ("wo_mlp", f, d, "none", bf16),
+              ("lm_head", d, cfg.padded_vocab, "none", f32)]
+    recs: dict = {}
+    transposes = 0.0
+    for name, k, n, act, od in layers:
+        x = torch.randn(rows, k, generator=gen).to(CARD, bf16).requires_grad_()
+        w = (torch.randn(k, n, generator=gen) * k ** -0.5).to(CARD).requires_grad_()
+        ct = torch.randn(rows, n, generator=gen).to(CARD, od)
+        out = router.matmul(x, w, activation=act, out_dtype=od,
+                            config=RuntimeConfig.from_arch(cfg))
+        out.backward(ct)
+        with torch.no_grad():
+            g = ct.float()
+            if act != "none":
+                g = activation_vjp(arype.arype_matmul(x, w, out_dtype=f32), g, act)
+            wt, xt = w.t().contiguous(), x.t().contiguous()
+            t_wt = time_ms(lambda: w.t().contiguous(), calls=5)
+            t_xt = time_ms(lambda: x.t().contiguous(), calls=5)
+            transposes += t_wt + t_xt
+            products = [("dX", g, wt, bf16, x.grad), ("dW", xt, g, f32, w.grad)]
+            if act != "none":
+                products.append(("recompute", x.detach(), w.detach(), f32, None))
+            for label, a, b, o, got in products:
+                m, kk, nn = a.shape[0], a.shape[1], b.shape[1]
+                direct = arype.arype_matmul(a, b, out_dtype=o)
+                if got is not None and not torch.equal(got, direct):
+                    raise AssertionError(f"{name} {label} ({m},{kk},{nn}): the backward differs "
+                                         "from the kernel called directly")
+                arm = arm_name(torch, (a.dtype, b.dtype, o))
+                rec = recs.setdefault(arm, product_record())
+                err = hold_to_plain(torch, f"{arm} {name} {label} ({m},{kk},{nn})", direct,
+                                    arype.mm_fused(a, b, out_dtype=o), rec)
+                time_product(torch, arype.arype_matmul, arype.mm_fused, a, b, o, rec,
+                             f"{arm} {name} {label} (max err {err:.3e})", arype.card_plan,
+                             plain_calls=2, plain_reps=3)
+            log(f"  {name}: the transposes' copies w^T ({k}x{n} f32) {t_wt:.5f} ms, x^T "
+                f"({rows}x{k} bf16) {t_xt:.5f} ms")
+        del x, w, ct, out
+    log(f"  the transposes of one layer's distinct shapes and the head: {transposes:.5f} ms")
+    return {arm: set_bound_by(rec) for arm, rec in recs.items()}
+
+
+def profile_train(torch, step_fn, params, opt_state, batch, step_ms: float, steps: int = 2
+                  ) -> None:
+    """Device-busy time of ``steps`` train steps from a torch.profiler trace
+    (each step ending in its loss's read-back) against the unprofiled step
+    time ``step_ms`` (the trace's own wall time carries the profiler's
+    cost): the device's idle share; and the kernels that took the most
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            params, opt_state, metrics = step_fn(params, opt_state, i, batch)
+            float(metrics["loss"])
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / steps / 1e3
+    if busy_ms == 0:
+        log("[profile] the trace holds no device time: idle share not measured")
+        return
+    log(f"[profile] train, {steps} steps: device busy {busy_ms:.3f} ms a step of {step_ms:.3f} ms "
+        f"unprofiled ({wall_ms:.3f} ms traced), idle share {1 - busy_ms / step_ms:.4f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
+        log(f"  {e.self_device_time_total / steps / 1e3:9.3f} ms/step  "
+            f"{e.count // steps:5d}/step  {e.key[:90]}")
+
+
+def train_phase(torch, np, kernels, get_config, arype, gen, profile: bool = False) -> dict:
+    """``[train qwen3-0.6b]``: qwen3-0.6b as registered (f32 weights, bf16
+    compute, AdamW on the cosine schedule) trained by ``Trainer.run`` at
+    full width and depth for ``TRAIN_STEPS`` steps of the token pipeline,
+    saving once at the last step: the loss of each step finite; each step's
+    wall ms (step and loss read-back), host enqueue ms and device ms
+    between CUDA events; tokens/s; peak memory; the seconds of the save;
+    launches exactly as predicted from the code (each of the 197 forward
+    matmuls and its dX and dW, each silu gate recomputed: 619 ``mm_fused`` a
+    step; one ``flash_fwd`` a layer), with each (x, w, out) arm's count.
+    Then :func:`check_backward_arms` at the step's 1024 rows; one train step
+    card against CPU at full width and ``TRAIN_CPU_SUPERBLOCKS`` superblocks
+    (f32 compute held to ``TRAIN_LOSS_RTOL``/``TRAIN_SHARE``; bf16 compute
+    printed beside the f32-compute control); and ``TRAIN_RESUME_STEPS``
+    steps straight against a run that fails at step 3 and resumes from its
+    step-2 checkpoint, at that depth: the same losses and final parameters,
+    bit for bit.  Returns the backward arms' records."""
+    import shutil
+
+    from repro_torch.common.tree import tree_items, tree_map
+    from repro_torch.common.util import apply_activation
+    from repro_torch.core import router
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.optim import clip_by_global_norm, make_optimizer
+    from repro_torch.train.loop import Trainer, TrainLoopConfig
+    from repro_torch.train.steps import grads_of
+
+    cfg = get_config(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    log(f"[train {TRAIN_ARCH}] as registered (params {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}, {cfg.optimizer}), {cfg.num_layers} layers, vocab "
+        f"{cfg.vocab_size}; Trainer.run, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, one checkpoint at the last step into {TRAIN_CKPT} "
+        f"({disk_free_gb(ROOT):.1f} GB free)")
+    loop = TrainLoopConfig(total_steps=TRAIN_STEPS, checkpoint_every=10**9, log_every=10**9,
+                           checkpoint_dir=str(TRAIN_CKPT / "full"))
+    data = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH)
+    trainer = Trainer(cfg, loop, data, device=CARD)
+    split = []
+    step_fn, save_fn, wait_fn = trainer.train_step, trainer.ckpt.save, trainer.ckpt.wait
+
+    def timed_step(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = step_fn(*args)
+        end.record()
+        split.append((time.perf_counter() - t0, start, end))
+        return out
+
+    saves = {"the snapshot to the host": 0.0, "the write (joined)": 0.0}
+
+    def timed(fn, label):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            fn(*args, **kw)
+            saves[label] += time.perf_counter() - t0
+        return call
+
+    trainer.train_step = timed_step
+    trainer.ckpt.save = timed(save_fn, "the snapshot to the host")
+    trainer.ckpt.wait = timed(wait_fn, "the write (joined)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with ArmSpy(router) as spy:
+        t0 = time.perf_counter()
+        out = trainer.run(seed=0)
+        total = time.perf_counter() - t0
+    counts = kernels.launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for _, t in tree_items(out["params"]))
+    history = out["history"]
+    if len(history) != TRAIN_STEPS or not all(np.isfinite(history)):
+        raise AssertionError(f"train: losses {history}")
+    forward = 7 * cfg.num_layers + 1  # wq wk wv wo, gate up down a layer; the head
+    want = {"mm_fused": TRAIN_STEPS * (3 * forward + cfg.num_layers),
+            "flash_fwd": TRAIN_STEPS * cfg.num_layers}
+    got = {name: counts[name] for name in want}
+    if got != want or sum(counts.values()) != sum(want.values()) or \
+            sum(spy.calls.values()) != counts["mm_fused"]:
+        raise AssertionError(f"train launches {counts}, predicted {want}; the arms' calls "
+                             f"{sum(spy.calls.values())}")
+    log(f"  {n_params} parameters; launches over {TRAIN_STEPS} steps {counts_text(got)}: "
+        f"{got['mm_fused'] // TRAIN_STEPS} mm_fused a step (predicted {forward} forward + "
+        f"{cfg.num_layers} silu recomputes + {2 * forward} dX/dW) and "
+        f"{got['flash_fwd'] // TRAIN_STEPS} flash_fwd, as predicted")
+    for arm, n in sorted(spy.calls.items(), key=lambda kv: -kv[1]):
+        distinct = sum(1 for a, _ in spy.shapes if a == arm)
+        log(f"    {arm_name(torch, arm)}: {n} launches, {distinct} distinct shapes")
+    # the step's products at the kernels' instruction rates: tf32x3 (M > 8)
+    # runs three tf32 mma.sync a step for f32 x, two for bf16 x on f32 w
+    flops = instr = 0
+    for ((x_dt, _, _), (m, k, n)), calls in spy.shapes.items():
+        flops += calls * 2 * m * k * n
+        instr += calls * 2 * m * k * n * ((3 if x_dt == torch.float32 else 2)
+                                           if m > arype.SKINNY_MAX_M else 0)
+    log(f"  a step's products: {flops / TRAIN_STEPS / 1e12:.4f} TFLOP, "
+        f"{instr / TRAIN_STEPS / 1e12:.4f} TFLOP of tf32 mma.sync at the kernels' passes: bound "
+        f"{instr / TRAIN_STEPS / TF32_OPS_PER_S * 1e3:.3f} ms a step at 495 TFLOP/s")
+    walls = [t * 1e3 for t in trainer.step_times]
+    for i, ((host, start, end), wall) in enumerate(zip(split, walls)):
+        log(f"  step {i}: loss {history[i]:.5f}, {wall:.3f} ms (host enqueue {host * 1e3:.3f} ms, "
+            f"device {start.elapsed_time(end):.3f} ms), {tokens / wall * 1e3:.1f} tokens/s")
+    med = statistics.median(walls)
+    dev_med = statistics.median(s.elapsed_time(e) for _, s, e in split)
+    log(f"  median step {med:.3f} ms (device {dev_med:.3f} ms), {tokens / med * 1e3:.1f} "
+        f"tokens/s; peak memory {peak:.2f} GB; run {total:.2f} s (init included)"
+        + "; the checkpoint: " + ", ".join(f"{label} {sec:.2f} s" for label, sec in saves.items()))
+    steps_saved = [d for d in sorted((TRAIN_CKPT / "full").iterdir())]
+    size = sum(f.stat().st_size for d in steps_saved for f in d.iterdir()) / 1e9
+    log(f"  checkpoints {[d.name for d in steps_saved]}, {size:.2f} GB; "
+        f"{disk_free_gb(ROOT):.1f} GB free before deleting them")
+    if [d.name for d in steps_saved] != [f"step_{TRAIN_STEPS:08d}"]:
+        raise AssertionError(f"train: checkpoints {steps_saved}")
+    shutil.rmtree(TRAIN_CKPT / "full")
+    launches = {arm_name(torch, arm): n for arm, n in spy.calls.items()}
+    if profile:
+        profile_train(torch, step_fn, out["params"], out["opt_state"],
+                      {k: torch.as_tensor(v).to(CARD) for k, v in trainer.pipeline.batch(0).items()},
+                      med)
+    trained = out["params"]
+    del out, trainer
+    torch.cuda.empty_cache()
+
+    log(f"  the backward arms at the step's shapes ({tokens} rows), against the kernel called "
+        "directly and the plain twin:")
+    recs = check_backward_arms(torch, router, arype, cfg, gen, tokens)
+    for name, rec in recs.items():
+        rec["launches"] = launches.get(name, 0)
+        log(f"  {name}: {rec['launches']} launches in the run; over its shapes kernel "
+            f"{rec['ms']:.5f} ms, plain {rec['plain_ms']:.5f} ms, torch.matmul "
+            f"{rec['library_ms']:.5f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+
+    # -- card against CPU at full width, the depth cut
+    cut = cfg.replace(num_superblocks=TRAIN_CPU_SUPERBLOCKS)
+    start = dict(trained, blocks=_stack_head(trained["blocks"], TRAIN_CPU_SUPERBLOCKS))
+    start = tree_map(lambda t: t.detach().cpu().clone(), start)
+    del trained
+    torch.cuda.empty_cache()
+    batch = TokenPipeline(TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                              global_batch=TRAIN_CPU_BATCH)).batch(0)
+    log(f"[train {TRAIN_ARCH} card vs cpu] full width, {TRAIN_CPU_SUPERBLOCKS} of "
+        f"{cfg.num_superblocks} superblocks, batch {TRAIN_CPU_BATCH} x {TRAIN_SEQ}, one train "
+        "step (the loss's gradient, the clip, AdamW at 3e-4) from the trained parameters")
+
+    def f64_sums(x, w, *, activation="none", out_dtype=None):
+        """The engines' function with the f32 sums taken in f64 and rounded
+        once: the same products, the sums in another order and precision."""
+        acc = (x.double() @ w.double()).float()
+        return apply_activation(acc, activation).to(out_dtype or x.dtype)
+
+    def one_step(c, dev, grads=None, engine=None):
+        """(loss, grads, the updated params and AdamW state) of one step on
+        ``dev`` from ``start``; with ``grads`` (a host tree) the update applies
+        those instead of the step's own; with ``engine`` (on the CPU) every
+        routed matmul runs it."""
+        p = tree_map(lambda t: t.clone().to(dev), start)
+        engines = router.arype_matmul, router.vpe_matmul
+        if engine is not None:
+            router.arype_matmul = router.vpe_matmul = engine
+        try:
+            own, metrics = grads_of(p, c, {k: torch.as_tensor(v).to(dev)
+                                           for k, v in batch.items()})
+        finally:
+            router.arype_matmul, router.vpe_matmul = engines
+        opt = make_optimizer(c.optimizer, 3e-4)
+        use = own if grads is None else tree_map(lambda t: t.to(dev), grads)
+        p, state = opt.update(clip_by_global_norm(use, 1.0)[0], opt.init(p), p, 0)
+        host = tree_map(lambda t: t.cpu(), {"grads": own, "params": p, "opt": state})
+        return float(metrics["loss"]), host
+
+    runs = {}
+    for compute in ("float32", "bfloat16"):
+        c = cut.replace(compute_dtype=compute)
+        runs[compute, "card"] = one_step(c, CARD)
+        torch.cuda.empty_cache()
+        runs[compute, "cpu"] = one_step(c, "cpu")
+    runs["bfloat16", "cpu f64 sums"] = one_step(cut.replace(compute_dtype="bfloat16"), "cpu",
+                                                engine=f64_sums)
+    (l_card, card32), (l_cpu, cpu32) = runs["float32", "card"], runs["float32", "cpu"]
+    # AdamW's first step is g / (|g| + 1e-8) a value: where |g| is near 1e-8
+    # the gradients' last-bit differences move the update by a share of the
+    # rate, so the update is held on the card's own gradients
+    _, on_card_grads = one_step(cut.replace(compute_dtype="float32"), "cpu", card32["grads"])
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    g_share, g_at = tree_share(torch, card32["grads"], cpu32["grads"])
+    p_share, p_at = tree_share(torch, {"params": card32["params"], "opt": card32["opt"]},
+                               {"params": on_card_grads["params"], "opt": on_card_grads["opt"]})
+    e2e, e2e_at = tree_share(torch, card32["params"], cpu32["params"])
+    log(f"  f32 compute: loss card {l_card:.7f} cpu {l_cpu:.7f} (rel {rel:.3e}); worst "
+        f"gradient leaf {g_share:.3e} of its max|grad| ({g_at}); the CPU's AdamW on the card's "
+        f"gradients: worst updated leaf {p_share:.3e} of its max|value| ({p_at}); limits "
+        f"{TRAIN_LOSS_RTOL:.0e}, {TRAIN_SHARE:.0e}, {TRAIN_SHARE:.0e}; each device on its own "
+        f"gradients (not held): worst parameter {e2e:.3e} ({e2e_at})")
+    if not (rel <= TRAIN_LOSS_RTOL and g_share <= TRAIN_SHARE and p_share <= TRAIN_SHARE):
+        raise AssertionError("train card vs cpu: f32 compute outside its tolerances")
+    # bf16 compute: a one-ulp difference in an f32 sum flips a bf16 rounding
+    # now and then, and the flips spread through the layers; the readings set
+    # the card's distance from the CPU beside what a change of the sums'
+    # order alone does on the CPU and beside the distance from f32 compute
+    card16, cpu16, f64s16 = (runs["bfloat16", dev] for dev in ("card", "cpu", "cpu f64 sums"))
+    readings = {"card vs cpu": (card16, cpu16),
+                "cpu f64 sums vs cpu (the order alone)": (f64s16, cpu16),
+                "control: card vs cpu f32 compute": (card16, runs["float32", "cpu"]),
+                "control: cpu vs cpu f32 compute": (cpu16, runs["float32", "cpu"])}
+    l2 = {}
+    for label, ((la, a), (lb, b)) in readings.items():
+        gs, gs_at = tree_share(torch, a["grads"], b["grads"])
+        l2[label], med, (worst, worst_at) = tree_l2(torch, a["grads"], b["grads"])
+        log(f"  bf16 compute, {label}: loss {la:.7f} against {lb:.7f} (rel "
+            f"{abs(la - lb) / abs(lb):.3e}); the gradients' relative L2 {l2[label]:.3e} over "
+            f"all leaves, {med:.3e} the median leaf, {worst:.3e} the worst ({worst_at}); worst "
+            f"leaf by max|diff| {gs:.3e} of its max|grad| ({gs_at})")
+    sound, control = l2["card vs cpu"], l2["control: card vs cpu f32 compute"]
+    log(f"  bf16 compute: the gradients' relative L2, card vs cpu {sound:.3e}, limit "
+        f"{TRAIN_BF16_L2:.3e} (control {control:.3e})")
+    if not sound <= TRAIN_BF16_L2:
+        raise AssertionError("train card vs cpu: bf16 compute outside its tolerance")
+    del runs, card32, cpu32, card16, cpu16, f64s16, on_card_grads
+
+    # -- resume at full width, the depth cut
+    resume_data = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_CPU_BATCH)
+
+    def resume_loop(name: str, **kw) -> TrainLoopConfig:
+        return TrainLoopConfig(total_steps=TRAIN_RESUME_STEPS, checkpoint_every=2,
+                               log_every=10**9, checkpoint_dir=str(TRAIN_CKPT / name), **kw)
+
+    log(f"[train {TRAIN_ARCH} resume] full width, {TRAIN_CPU_SUPERBLOCKS} superblocks, "
+        f"{TRAIN_RESUME_STEPS} steps straight against a run that fails at step 3 and resumes "
+        f"from its step-2 checkpoint ({disk_free_gb(ROOT):.1f} GB free)")
+    straight = Trainer(cut, resume_loop("straight"), resume_data, device=CARD).run()
+    shutil.rmtree(TRAIN_CKPT / "straight")
+    try:
+        Trainer(cut, resume_loop("resumed", fail_at_step=3), resume_data, device=CARD).run()
+        raise AssertionError("train resume: the injected failure did not happen")
+    except RuntimeError as e:
+        log(f"  {e}")
+    resumed_trainer = Trainer(cut, resume_loop("resumed"), resume_data, device=CARD)
+    log(f"  restarting from step {resumed_trainer.ckpt.latest_step()}; "
+        f"{disk_free_gb(ROOT):.1f} GB free before deleting the checkpoints")
+    resumed = resumed_trainer.run()
+    shutil.rmtree(TRAIN_CKPT)
+    same_loss = resumed["history"] == straight["history"][2:]
+    same = [torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(straight["params"]),
+                                                        tree_items(resumed["params"]))]
+    log(f"  losses straight {straight['history']}, resumed {resumed['history']}; final "
+        f"parameters equal bit for bit in {sum(same)} of {len(same)} leaves")
+    if not (same_loss and all(same)):
+        share, at = tree_share(torch, resumed["params"], straight["params"])
+        raise AssertionError(f"train resume: not bit for bit (worst leaf {share:.3e} of its "
+                             f"max|value| at {at})")
+    del straight, resumed
+    torch.cuda.empty_cache()
+    return recs
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3511,6 +3995,10 @@ def main() -> int:
         mixed[name]["max_abs_err"] = max(mixed[name]["max_abs_err"], errs.get(name, 0.0))
     flash_bf16["max_abs_err"] = max(flash_bf16["max_abs_err"], errs["flash_fwd"])
 
+    elapsed("18e")
+    # -- 18e. training qwen3-0.6b at full width and depth
+    train = train_phase(torch, np, kernels, get_config, arype, gen, profile)
+
     elapsed("19-21")
     # -- 19-21. the offline extractor, the per-granularity paths, the scenarios
     trace, trace_state = extractor_phase(torch, kernels, card)
@@ -3546,6 +4034,11 @@ def main() -> int:
                     "vpe_mm": source["vpe_mm"]}
     record += [dict(name=f"{name} (bf16 x, bf16 w)", route="cuda", source=source_bf16w[name],
                     replaces=replaces[name], **r) for name, r in star.items()]
+    # the arms the training backward reaches: dX (f32 cotangent on f32 w
+    # into bf16) and dW and the silu recompute (bf16 x on an f32 cotangent
+    # or w into f32), launches counted over [train]'s full-width run
+    record += [dict(name=name, route="cuda", source=source["mm_fused"],
+                    replaces=replaces["mm_fused"], **r) for name, r in train.items()]
     # flash_fwd's bf16 tensor-core kernel (the bf16 serve's prefill)
     record.append(dict(name="flash_fwd (bf16)", route="cuda", source=source["flash_fwd"],
                        replaces=replaces["flash_fwd"], **flash_bf16))

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -59,4 +60,26 @@ def apply_activation(out: torch.Tensor, activation: Optional[str]) -> torch.Tens
         return out * torch.sigmoid(out)
     if activation == "gelu":
         return F.gelu(out, approximate="tanh")
+    raise ValueError(f"activation must be one of {tuple(ACTIVATIONS)}, got {activation!r}")
+
+
+def activation_vjp(z: torch.Tensor, g: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
+    """``g`` pulled back through the engines' activation at its f32 input
+    ``z``, in f32, as ``jax.grad`` differentiates the reference's
+    ``_apply_activation``: relu as ``jnp.maximum(z, 0)`` (slope 1/2 at
+    z == 0), silu as ``z * sigmoid(z)`` by the product rule, gelu as the
+    tanh form ``z * 0.5 * (1 + tanh(c * (z + 0.044715 z^3)))``."""
+    if activation in (None, "none"):
+        return g
+    if activation == "relu":
+        return g * torch.where(z > 0, 1.0, torch.where(z == 0, 0.5, 0.0))
+    if activation == "silu":
+        s = torch.sigmoid(z)
+        return g * s + (g * z) * (s * (1 - s))
+    if activation == "gelu":
+        c = float(np.float32(np.sqrt(2 / np.pi)))
+        t = torch.tanh(c * (z + 0.044715 * z ** 3))
+        cdf = 0.5 * (1.0 + t)
+        dcdf = 0.5 * (1 - t * t) * c * (1 + 3 * 0.044715 * z * z)
+        return g * cdf + (g * z) * dcdf
     raise ValueError(f"activation must be one of {tuple(ACTIVATIONS)}, got {activation!r}")

@@ -10,9 +10,12 @@ The fields that chose an implementation or a distribution in the reference
 (``use_pallas``, ``attn_impl``, ``inner_unroll``, ``attn_av_dtype``,
 ``scan_layers``, ``remat``, ``fsdp``, ``sequence_parallel``,
 ``moe_dp_attention``, ``shard_kv_seq_decode``) are left out: the port has one
-implementation per device and runs on one card.  So are the recurrent and
-frontend sizes and the optimizer: they come with the slices that run them.
-The MoE sizes and the combine type are here: the port serves the MoE layer.
+implementation per device and runs on one card.  ``remat`` is left out too:
+the port's eager training loop keeps every activation, and at the full-width
+batches it trains (qwen3-0.6b at 8 x 128 tokens) they fit the card.  So are
+the recurrent and frontend sizes: they come with the slices that run them.
+The MoE sizes and the combine type are here (the port serves the MoE
+layer), and so is ``optimizer`` (the port trains).
 """
 from __future__ import annotations
 
@@ -79,6 +82,7 @@ class ArchConfig:
     moe_combine_dtype: str = "float32"  # dtype of the expert outputs' gather and combine
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    optimizer: str = "adamw"  # adamw|adafactor|sgd
     vocab_round_to: int = 128
     # -- technique (Octopus)
     router_policy: str = "collaborative"  # collaborative|arype_only|vpe_only

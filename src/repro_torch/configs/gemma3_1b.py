@@ -31,4 +31,5 @@ def make() -> ArchConfig:
         rope_theta_local=1e4,
         embed_scale=True,
         param_dtype="float32",
+        optimizer="adamw",
     )

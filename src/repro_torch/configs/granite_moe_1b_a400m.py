@@ -27,4 +27,5 @@ def make() -> ArchConfig:
         moe_d_ff=512,
         rope_theta=1e4,
         param_dtype="float32",
+        optimizer="adamw",
     )

@@ -30,5 +30,6 @@ def make() -> ArchConfig:
         first_dense_ff=16384,
         rope_theta=5e4,
         param_dtype="bfloat16",
+        optimizer="adafactor",
         compute_dtype="bfloat16",
     )

@@ -19,4 +19,5 @@ def make() -> ArchConfig:
         use_qk_norm=True,
         rope_theta=1e6,
         param_dtype="float32",
+        optimizer="adamw",
     )

@@ -25,4 +25,5 @@ def make() -> ArchConfig:
         mlp_gated=False,  # starcoder2 uses a plain gelu MLP (keeps ~15B params)
         rope_theta=1e5,
         param_dtype="bfloat16",
+        optimizer="adamw",
     )

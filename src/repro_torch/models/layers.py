@@ -1,8 +1,9 @@
 """Transformer layers of the port's LM stack (the reference's
 ``models/layers.py``, attention, the dense MLP and the MoE layer): norms,
 RoPE, attention (prefill/train through the flash kernel, cached decode,
-sliding-window ring caches), the SwiGLU MLP and the capacity-dispatched
-mixture of experts.
+sliding-window ring caches; in training a backward through the reference's
+plain attention), the SwiGLU MLP and the capacity-dispatched mixture of
+experts.
 
 Every projection goes through the Octopus router (``core/router.matmul``),
 which places it on the VPE or the AryPE engine.  The reference keeps the
@@ -75,10 +76,135 @@ def attn_specs(cfg: ArchConfig) -> dict:
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kind: str,
                    window: int = 0) -> torch.Tensor:
     """q (B, S, Hq, D) over k, v (B, Sk, Hkv, D) -> (B, S, Hq, D), through the
-    flash kernel (the reference's ``use_pallas`` arm; the port has no other)."""
+    flash kernel (the reference's ``use_pallas`` arm; the port has no other).
+    On ``meta`` tensors (a ``RoutePlan`` trace of an LM) an empty ``meta``
+    result: nothing runs."""
+    if q.device.type == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           mask=kind, window=window)
     return out.transpose(1, 2)
+
+
+# ---------------------------------------------------------------- attention, training
+
+
+# the reference's attention_core chooses the materialized scores while S * Sk
+# stays at or under this, else the blockwise online softmax in 512-chunks
+NAIVE_MAX_SCORES = 1 << 20
+TRAIN_CHUNK = 512
+
+
+def _naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kind: str,
+                     window: int) -> torch.Tensor:
+    """The reference's ``_naive_attention``: q (B, S, Hkv, G, D) over k, v
+    (B, Sk, Hkv, D), the whole (S, Sk) score matrix in f32, an f32 AV
+    product, the output in q's type."""
+    b, s, hkv, g, dh = q.shape
+    sk = k.shape[1]
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float() * float(1.0 / np.sqrt(dh)), k.float())
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    valid = torch.ones((s, sk), dtype=torch.bool, device=q.device)
+    if kind == "causal":
+        valid = valid & (qpos >= kpos)
+    elif kind == "local":
+        valid = valid & (qpos >= kpos) & (qpos - kpos < window)
+    scores = torch.where(valid, scores, NEG_INF)
+    p = torch.where(valid, torch.exp(scores - scores.amax(dim=-1, keepdim=True)), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p / torch.where(l == 0, 1.0, l), v.float())
+    return out.to(q.dtype)
+
+
+def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kind: str,
+                         window: int, chunk_q: int = TRAIN_CHUNK,
+                         chunk_kv: int = TRAIN_CHUNK) -> torch.Tensor:
+    """The reference's ``_blockwise_attention`` (its f32 ``attn_av_dtype``):
+    every query chunk at once, a loop over KV chunks in place of its scan
+    carrying the running max ``m``, normalizer ``l`` and accumulator, S and
+    Sk padded up to whole chunks."""
+    b, s, hkv, g, dh = q.shape
+    sk = k.shape[1]
+    cq, ck = min(chunk_q, s), min(chunk_kv, sk)
+    nq, nk = -(-s // cq), -(-sk // ck)
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, nq * cq - s))
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nk * ck - sk))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nk * ck - sk))
+    qc = q.reshape(b, nq, cq, hkv, g, dh).float() * float(1.0 / np.sqrt(dh))
+    kc, vc = k.reshape(b, nk, ck, hkv, dh), v.reshape(b, nk, ck, hkv, dh)
+    dev = q.device
+    qpos = torch.arange(nq, device=dev)[:, None] * cq + torch.arange(cq, device=dev)[None, :]
+    m = torch.full((b, nq, hkv, g, cq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, nq, hkv, g, cq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, nq, hkv, g, cq, dh), dtype=torch.float32, device=dev)
+    for j in range(nk):
+        scores = torch.einsum("bnqhgd,bkhd->bnhgqk", qc, kc[:, j].float())
+        kpos = j * ck + torch.arange(ck, device=dev)
+        valid = (kpos[None, None] < sk) & torch.ones((nq, cq, ck), dtype=torch.bool, device=dev)
+        if kind == "causal":
+            valid = valid & (qpos[:, :, None] >= kpos[None, None, :])
+        elif kind == "local":
+            dpos = qpos[:, :, None] - kpos[None, None, :]
+            valid = valid & (dpos >= 0) & (dpos < window)
+        valid = valid[None, :, None, None]
+        scores = torch.where(valid, scores, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        p = torch.where(valid, torch.exp(scores - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bnhgqk,bkhd->bnhgqd", p, vc[:, j].float())
+        m = m_new
+    out = (acc / torch.where(l == 0, 1.0, l)[..., None]).to(q.dtype)  # (b, nq, hkv, g, cq, dh)
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, nq * cq, hkv, g, dh)
+    return out[:, :s]
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kind: str,
+                        window: int = 0) -> torch.Tensor:
+    """The reference's training attention (``attention_core`` without
+    ``use_pallas``), plain PyTorch: KV heads repeated to q's (GQA), then the
+    naive scores where S * Sk <= :data:`NAIVE_MAX_SCORES`, else blockwise.
+    q (B, S, Hq, D), k, v (B, Sk, Hkv, D) -> (B, S, Hq, D)."""
+    b, s, hq, dh = q.shape
+    g = hq // k.shape[2]
+    if g > 1:
+        k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    qg = q.reshape(b, s, hq, 1, dh)
+    attend = _naive_attention if s * k.shape[1] <= NAIVE_MAX_SCORES else _blockwise_attention
+    return attend(qg, k, v, kind=kind, window=window).reshape(b, s, hq, dh)
+
+
+class TrainAttention(torch.autograd.Function):
+    """Attention for autograd: the forward is :func:`attention_core` (the
+    flash kernel on the card); the backward recomputes the reference's
+    training arm, :func:`reference_attention`, under autograd and pulls the
+    cotangent back through it (the reference has no backward kernel to
+    port).  dq, dk, dv come back in q's type."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kind: str, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.kind, ctx.window = kind, window
+        return attention_core(q, k, v, kind=kind, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = reference_attention(q, k, v, kind=ctx.kind, window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), None, None
+
+
+def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kind: str,
+                    window: int = 0) -> torch.Tensor:
+    """:func:`attention_core` in ``mode="train"``: through
+    :class:`TrainAttention` where autograd needs its backward, else the
+    forward alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return TrainAttention.apply(q, k, v, kind, window)
+    return attention_core(q, k, v, kind=kind, window=window)
 
 
 class AttnCache(NamedTuple):
@@ -165,7 +291,7 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
     q, k = apply_rope(q, positions, theta), apply_rope(k, positions, theta)
     attn_kind = "full" if (kind == "causal" and not cfg.causal) else kind
     if mode == "train":
-        out = attention_core(q, k, v, kind=attn_kind, window=cfg.window_size)
+        out = attention_train(q, k, v, kind=attn_kind, window=cfg.window_size)
     else:
         if cache is None or lengths is None:
             raise ValueError(f"attn_apply: mode {mode!r} needs a cache and lengths")

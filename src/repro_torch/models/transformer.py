@@ -1,6 +1,6 @@
 """The LM assembly of the port (the reference's ``models/transformer.py``):
 embed -> head layers -> superblocks -> tail layers -> final norm -> lm head,
-with forward, prefill and decode entry points.
+with the training forward and loss, prefill and decode entry points.
 
 The superblocks' parameters and caches stay stacked on a leading axis, as the
 reference lays them out for its ``lax.scan``; the port loops over them.  This
@@ -16,6 +16,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.common.util import Device, resolve_device
 from repro_torch.configs.base import ArchConfig, LayerSpec
@@ -136,6 +137,15 @@ def _index(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _unstack(tree: dict, n: int) -> list:
+    """The ``n`` superblocks of a stacked parameter tree, each leaf unbound
+    once (views; under autograd each stacked leaf's gradient is then one
+    stack of its superblocks' gradients, not ``n`` full-size scatters)."""
+    flat = {k: _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in tree.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
 def _layers(params: dict, cfg: ArchConfig, h: torch.Tensor, *, mode: str,
             cache: Optional[dict] = None) -> tuple[torch.Tensor, Any]:
     """Every layer in order: head, the superblocks (a loop in place of the
@@ -153,11 +163,12 @@ def _layers(params: dict, cfg: ArchConfig, h: torch.Tensor, *, mode: str,
     for i, spec in enumerate(cfg.head_pattern):
         h, aux = run(h, params, spec, cache, f"pre{i}")
         aux_total = aux_total + aux
+    blocks = _unstack(params["blocks"], cfg.num_superblocks)
     for sb in range(cfg.num_superblocks):
         sbc = _index(cache["blocks"], sb) if cache is not None else None
         sb_aux = 0.0
         for i, spec in enumerate(cfg.block_pattern):
-            h, aux = run(h, _index(params["blocks"], sb), spec, sbc, f"l{i}")
+            h, aux = run(h, blocks[sb], spec, sbc, f"l{i}")
             sb_aux = sb_aux + aux
         aux_total = aux_total + sb_aux
     for i, spec in enumerate(cfg.tail_pattern):
@@ -174,7 +185,9 @@ def _embed_input(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     a numpy f32 scalar, which JAX types strongly: a bf16 row times it is
     f32, so under ``embed_scale`` (gemma3) the stack runs in f32 after one
     bf16 rounding of the embedding, and the port does the same."""
-    h = params["embed"][batch["tokens"].long()].to(getattr(torch, cfg.compute_dtype))
+    # F.embedding: its backward sums each row's gradients deterministically
+    # on the card, where indexing's would scatter-add them
+    h = F.embedding(batch["tokens"].long(), params["embed"]).to(getattr(torch, cfg.compute_dtype))
     if cfg.embed_scale:
         h = h.float() * float(np.float32(np.sqrt(cfg.d_model)))
     return h
@@ -190,12 +203,34 @@ def _logits(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def forward_train(params: dict, cfg: ArchConfig, batch: dict
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S, V) f32, the MoE layers' summed aux loss, an f32
-    scalar: 0 without MoE layers)."""
+    scalar: 0 without MoE layers).  Differentiable: with parameters that
+    require grad, every routed matmul and the attention carry their
+    backward (``router.EngineMatmul``, ``layers.TrainAttention``), and the
+    MoE's aux (an f32 tensor) keeps its graph.  Nothing here waits for the
+    device."""
     check_supported(cfg)
     h, aux = _layers(params, cfg, _embed_input(params, cfg, batch), mode="train")
-    return _logits(params, cfg, h), torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    if not isinstance(aux, torch.Tensor):  # no MoE layer: a zero made on the device, no copy
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _logits(params, cfg, h), aux
+
+
+forward = forward_train  # the serving tests' name
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, dict]:
+    """The reference's loss: mean cross entropy of ``batch["labels"]`` (the
+    logsumexp minus the gold logit) plus ``router_aux_weight`` times the aux
+    loss.  Returns (loss, {"ce", "aux", "loss"}), each a 0-d f32 tensor."""
+    logits, aux = forward_train(params, cfg, batch)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    ce = (lse - gold).mean()
+    loss = ce + cfg.router_aux_weight * aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}
 
 
 def _forward_cached(params: dict, cfg: ArchConfig, batch: dict, cache: dict, mode: str):
@@ -239,8 +274,11 @@ class LM:
     def init_cache(self, batch: int, cache_len: int) -> dict:
         return init_cache(self.cfg, batch, cache_len, device=self.device)
 
+    def loss(self, params: dict, batch: dict):
+        return loss_fn(params, self.cfg, batch)
+
     def forward(self, params: dict, batch: dict):
-        return forward(params, self.cfg, batch)
+        return forward_train(params, self.cfg, batch)
 
     def prefill(self, params: dict, batch: dict, cache: dict):
         return prefill(params, self.cfg, batch, cache)

@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.common.tree import tree_map
 from repro_torch.runtime import routing
 from repro_torch.runtime.config import RuntimeConfig
 
@@ -54,15 +55,11 @@ class PlannedMatmul:
 
 
 def _to_meta(tree: Any) -> Any:
-    """Every tensor of ``tree`` (nested dicts, lists and tuples) as an empty
-    ``meta`` tensor of the same shape and dtype; anything else unchanged."""
-    if isinstance(tree, torch.Tensor):
-        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
-    if isinstance(tree, dict):
-        return {k: _to_meta(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_meta(v) for v in tree)
-    return tree
+    """Every tensor of ``tree`` (nested dicts, lists, tuples and NamedTuples
+    such as an LM cache's ``AttnCache``) as an empty ``meta`` tensor of the
+    same shape and dtype; anything else unchanged."""
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                    if isinstance(t, torch.Tensor) else t, tree)
 
 
 @dataclass(frozen=True)

@@ -98,6 +98,21 @@ def mxu_utilization(m: int, k: int, n: int, tile: int, fill: int) -> float:
     return fill_k * fill_n * stream
 
 
+def place(m: int, k: int, n: int, config: Optional[RuntimeConfig] = None) -> Route:
+    """The engine for an (m,k)x(k,n) matmul under ``config``, recording
+    nothing (the backward's products place themselves through this: autograd
+    may run them on another thread, outside any :func:`record_routes`)."""
+    cfg = config if config is not None else RuntimeConfig()
+    util = mxu_utilization(m, k, n, tile=cfg.mxu_tile, fill=cfg.fill_depth)
+    if cfg.policy == "arype_only":
+        return Route("arype", util, "forced")
+    if cfg.policy == "vpe_only":
+        return Route("vpe", util, "forced")
+    if util < cfg.tau and m * k * n <= cfg.vpe_max_elems:
+        return Route("vpe", util, f"util {util:.3f} < {cfg.tau} and working set fits VPU path")
+    return Route("arype", util, f"util {util:.3f}")
+
+
 def route_matmul(m: int, k: int, n: int, *, config: Optional[RuntimeConfig] = None,
                  name: Optional[str] = None, quantized: bool = False,
                  unfused: bool = False) -> Route:
@@ -105,16 +120,7 @@ def route_matmul(m: int, k: int, n: int, *, config: Optional[RuntimeConfig] = No
     :func:`record_routes` block is active; ``quantized`` is what the caller
     found in the scale table (``router.matmul`` passes it), ``unfused`` that
     the caller runs the product unfused should it land on the AryPE."""
-    cfg = config if config is not None else RuntimeConfig()
-    util = mxu_utilization(m, k, n, tile=cfg.mxu_tile, fill=cfg.fill_depth)
-    if cfg.policy == "arype_only":
-        route = Route("arype", util, "forced")
-    elif cfg.policy == "vpe_only":
-        route = Route("vpe", util, "forced")
-    elif util < cfg.tau and m * k * n <= cfg.vpe_max_elems:
-        route = Route("vpe", util, f"util {util:.3f} < {cfg.tau} and working set fits VPU path")
-    else:
-        route = Route("arype", util, f"util {util:.3f}")
+    route = place(m, k, n, config)
     records = _recorder.get()
     if records is not None:
         scope = _name_scope.get()

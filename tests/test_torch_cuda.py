@@ -18,6 +18,7 @@ from repro_torch.core import flow_tracker as ft
 from repro_torch.core.collaborative import collaborative_forward, plan_stack, usecase2_layers
 from repro_torch.core.feature_extractor import packet_meta_features
 from repro_torch.data.traffic import TrafficConfig, TrafficGenerator
+from repro_torch.common.tree import tree_items, tree_map
 from repro_torch.common.util import DTYPES
 from repro_torch.kernels.arype_matmul.ops import (
     MM_FUSED,
@@ -1284,3 +1285,140 @@ def test_moe_apply_on_card_matches_cpu(cuda, groups):
         ids_c = layers.moe_route(p["router"], h, cfg.experts_per_token)[2]
         ids_g = layers.moe_route(p["router"].to(cuda), h.to(cuda), cfg.experts_per_token)[2]
         assert torch.equal(ids_g.cpu(), ids_c)
+
+
+# ---------------------------------------------------------------- training
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 96, 80), (4, 1024, 1024), (1024, 1024, 2048)])
+@pytest.mark.parametrize("xt,ot,act", [(torch.float32, torch.float32, "none"),
+                                       (torch.float32, torch.float32, "gelu"),
+                                       (torch.bfloat16, torch.bfloat16, "silu"),
+                                       (torch.bfloat16, torch.float32, "relu")],
+                         ids=["f32", "f32-gelu", "bf16-silu", "bf16x-f32out-relu"])
+def test_engine_backward_equals_direct_kernel_calls(cuda, m, k, n, xt, ot, act):
+    """``router.matmul``'s backward on the card: dX and dW bit for bit the
+    kernel called directly on the transposed operands (and the cotangent
+    pulled back through the activation at the recomputed f32 product), with
+    one launch a product: the forward, the recompute, dX, dW."""
+    from repro_torch.common.util import activation_vjp
+    from repro_torch.core import router
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(m, k, generator=gen, device=cuda).to(xt)
+    w = (torch.randn(k, n, generator=gen, device=cuda) * k ** -0.5).requires_grad_()
+    ct = torch.randn(m, n, generator=gen, device=cuda).to(ot)
+    x.requires_grad_()
+    cfg = RuntimeConfig(policy="arype_only")
+    kernels.reset_launches()
+    out = router.matmul(x, w, activation=act, out_dtype=ot, config=cfg)
+    out.backward(ct)
+    torch.cuda.synchronize()
+    assert kernels.launches()["mm_fused"] == 3 + (act != "none")
+    with torch.no_grad():
+        assert torch.equal(out, arype_matmul(x, w, activation=act, out_dtype=ot))
+        g = ct.float()
+        if act != "none":
+            g = activation_vjp(arype_matmul(x, w, out_dtype=torch.float32), g, act)
+        assert torch.equal(x.grad, arype_matmul(g, w.t().contiguous(), out_dtype=xt))
+        assert torch.equal(w.grad, arype_matmul(x.t().contiguous(), g, out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("kind,window,hkv", [("causal", 0, 2), ("local", 48, 1), ("full", 0, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_on_card_matches_cpu(cuda, kind, window, hkv, dtype):
+    """dq, dk, dv of the training attention (``flash_fwd`` forward, the
+    plain reference arm's backward) on the card against the CPU: f32 within
+    rtol 1e-4, atol 1e-5 of max|grad|; bf16 within two bf16 steps of max."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 160, h, 128, generator=gen).to(dtype) for h in (4, hkv, hkv))
+    ct = torch.randn(2, 160, 4, 128, generator=gen).to(dtype)
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        kernels.reset_launches()
+        layers.attention_train(*leaves, kind=kind, window=window).backward(ct.to(dev))
+        grads.append([t.grad.float().cpu() for t in leaves])
+    assert kernels.launches()["flash_fwd"] == 1
+    for name, want, got in zip("qkv", *grads):
+        top = want.abs().max().item()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * top, msg=name)
+        else:
+            assert (got - want).abs().max().item() <= 2 * 2.0 ** -8 * top, name
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of reduced qwen3-0.6b (AdamW) from the same params on
+    the card and on the CPU: the loss within rtol 1e-5, each gradient leaf
+    within 1e-4 of its max|grad|; the card's updated parameters and moments
+    within 1e-4 of their leaf's max|value| of the CPU's AdamW applied to the
+    card's own gradients (AdamW's first step divides each gradient by its
+    magnitude plus 1e-8, which magnifies last-bit differences of gradients
+    near 1e-8); and the launches of a step: each forward matmul once, each
+    silu gate again (the recompute), dX and dW each, one ``flash_fwd`` a
+    layer."""
+    from repro_torch.optim import clip_by_global_norm, make_optimizer
+    from repro_torch.train.steps import grads_of, make_train_step
+
+    cfg = reduced_config(get_config("qwen3-0.6b")).replace(router_policy="arype_only")
+    params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1].int(), "labels": toks[:, 1:].int()}
+    b = {k: v.to(cuda) for k, v in batch.items()}
+    grads, metrics = grads_of(_tree_to(params, cuda), cfg, b)
+    cpu_grads, cpu_metrics = grads_of(_tree_to(params, "cpu"), cfg, batch)
+    assert abs(float(metrics["loss"]) - float(cpu_metrics["loss"])) <= \
+        1e-5 * abs(float(cpu_metrics["loss"]))
+    opt = make_optimizer("adamw", 1e-2)
+    p = _tree_to(params, cuda)
+    kernels.reset_launches()
+    p, state, _ = make_train_step(cfg, opt)(p, opt.init(p), 0, b)
+    counts = kernels.launches()
+    forward = 7 * cfg.num_superblocks + 1  # wq wk wv wo, gate up down; the head
+    assert counts["mm_fused"] == 3 * forward + cfg.num_superblocks
+    assert counts["flash_fwd"] == cfg.num_superblocks
+    on_cpu = _tree_to(params, "cpu")
+    on_cpu, cpu_state = opt.update(clip_by_global_norm(_tree_to(grads, "cpu"), 1.0)[0],
+                                   opt.init(on_cpu), on_cpu, 0)
+    pairs = [(tree_items(grads), tree_items(cpu_grads)),
+             (tree_items({"p": p, "s": state}), tree_items({"p": on_cpu, "s": cpu_state}))]
+    for got_items, want_items in pairs:
+        for (key, got), (_, want) in zip(got_items, want_items):
+            top = want.abs().max().item()
+            assert (got.cpu() - want).abs().max().item() <= 1e-4 * max(top, 1e-30), key
+
+
+def _tree_to(tree, dev):
+    """A copy of a tree of tensors (dicts, NamedTuples) on ``dev``."""
+    return tree_map(lambda t: t.detach().to(dev, copy=True), tree)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-1b-a400m"])
+def test_forward_without_grad_launches_and_computes_as_before(cuda, arch):
+    """With no grad required the forward takes no autograd path: the same
+    launches and the same bits whether or not the parameters require grad
+    under ``torch.no_grad``, and the training forward with grad gives the
+    same logits too."""
+    cfg = reduced_config(get_config(arch)).replace(compute_dtype="bfloat16")
+    model = LM(cfg, device=cuda)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda, dtype=torch.int32)
+    runs = []
+    for live in (False, True):
+        p = _tree_to(params, cuda)
+        if live:
+            for _, leaf in tree_items(p):
+                leaf.requires_grad_()
+        for grad in (False, True) if live else (False,):
+            kernels.reset_launches()
+            with torch.set_grad_enabled(grad):
+                logits, _ = model.forward(p, {"tokens": toks})
+            torch.cuda.synchronize()
+            runs.append((logits.detach(), kernels.launches(), logits.requires_grad))
+    base = runs[0]
+    assert not base[2] and not runs[1][2] and runs[2][2]
+    for logits, counts, _ in runs[1:]:
+        assert torch.equal(logits, base[0]) and counts == base[1]
