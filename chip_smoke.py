@@ -85,7 +85,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  10. the placement reports (``OctopusPipeline.explain``) of the CNN and the
      transformer pipelines;
  11. ``[pipeline two-level]``: the CNN f32 loop at the 8k table on traffic of
-     65536 live flows (8 a hot slot), 64 steps through ``prefetch``, hot-only
+     65536 live flows (8 a hot slot), 32 steps through ``prefetch``, hot-only
      and with a 2^20-entry cold table (``cold_policy`` "age"), each at
      ``scan_len`` 1 and 4, ``overlap`` off and on, and "lru" at scan_len 1
      eager and scan_len 4 overlapped: launch counts as ``record_routes``
@@ -131,7 +131,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      pipelines;
  15. ``[lm]``: LM serving, qwen3-0.6b at full width and depth in f32 compute
      with seeded port-initialised weights: ``ServeEngine`` (4 slots, 512
-     cache rows) serves 8 requests of 16-300 prompt tokens and 32 new tokens;
+     cache rows) serves 8 requests of 16-300 prompt tokens and 16 new tokens;
      every request's tokens equal its single-request greedy run, and the
      launch counts equal the prediction (197 ``mm_fused`` a forward, 28
      ``flash_fwd`` a prefill); prefill ms, decode ms a step and tok/s;
@@ -233,7 +233,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      update on the card's gradients within their limits; bf16 compute
      printed beside the f32-compute control); 4 steps straight against a
      crash at step 3 and a resume from step 2, bit for bit.  ``--profile``
-     traces two steps (device busy, idle share, top kernels).
+     traces two steps (device busy, idle share, top kernels).  Then
+     ``flash_fwd`` alone at the step's shape (bf16, B 8, S 128, 16 heads over
+     8, D 128) beside its plain twin, SDPA and its bound;
+ 27. ``[lm xlstm-1.3b]`` and ``[lm zamba2-2.7b]`` (after 26): the recurrent
+     archs at full width and depth as registered (f32 weights, bf16
+     compute; xlstm 42 mLSTM + 6 sLSTM blocks, zamba2 45 mamba2 blocks and
+     its shared attention + MLP block at 9 places, head_dim 80), seed 0,
+     serving 4 prompts of 45-300 tokens (8 new) at 4 slots x 512: tokens equal each
+     request served alone and its batch-1 run except counted near ties
+     under ``BF16_TIE_GAP`` (xlstm's batch-1 runs in f32 compute, since its
+     random-weight stack carries a bf16 rounding past the logits' scale:
+     ``RECURRENT_BATCH1``); launches as counted from the code
+     (``lm_forward_matmuls``: 97 and 154 ``mm_fused`` a forward, 9
+     ``flash_fwd`` a zamba2 prefill); prefill ms an admit, decode ms a step,
+     tok/s and the peak GB; ``mm_fused``'s mixed arm at every recorded shape
+     (zamba2's in_proj N 10448 off every tile multiple) against its plain
+     twin, timed beside ``torch.matmul``; zamba2's ``flash_fwd`` at D 80 (the
+     128-wide tile) at the prefill shapes against its plain twin and SDPA on
+     f32 inputs, and on views into NaN-padded rows (no column past D read or
+     written); one request in f32 compute card vs CPU at full width and 1
+     superblock within ``LM_LOGIT_TOL``, beside the CPU's own move under a
+     one-ulp change of the embedding.
 
 The second-to-last line is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off everywhere: the reference
@@ -288,10 +309,10 @@ COLLAB_STACK = [(TABLE6_FLOWS, 300), (300, 64), (64, 96), (96, 8)]
 COLLAB_ACTS = ["relu", "gelu", None]
 # the LM serving path: qwen3-0.6b at full width and depth, f32 compute,
 # port-initialised weights; 8 requests with prompts of 16-300 tokens (some past
-# the 128-row flash block), 32 new tokens each, 4 slots of 512 cache rows
+# the 128-row flash block), 16 new tokens each, 4 slots of 512 cache rows
 LM_ARCH = "qwen3-0.6b"
 LM_SERVE = dict(batch_slots=4, cache_len=512)
-LM_REQUESTS, LM_MAX_NEW, LM_PROMPT = 8, 32, (16, 300)
+LM_REQUESTS, LM_MAX_NEW, LM_PROMPT = 8, 16, (16, 300)
 LM_CPU_PROMPT, LM_CPU_DECODES = 160, 4
 # gemma3-1b at full width and its registered default (bf16 compute, which
 # its embed_scale promotes to an f32 stack), 4 slots of 1024 cache rows: one
@@ -305,7 +326,7 @@ GEMMA_PROMPTS, GEMMA_MAX_NEW = (700, 37, 256, 530), 16
 COLD_SIZE = 1 << 20
 SPILL_TRAFFIC = dict(batch_size=1024, active_flows=65536, table_size=8192,
                      collision_free=False, seed=0)
-TWO_LEVEL_STEPS, TWO_LEVEL_CPU_STEPS, CHUNK = 64, 16, 4
+TWO_LEVEL_STEPS, TWO_LEVEL_CPU_STEPS, CHUNK = 32, 16, 4
 # masked buckets: a small request batch, and one past flow_update's chunk
 BUCKETS, MASKED_STEPS = (256, 8192), 6
 # sharded lanes: one lane-batched bank of S lanes of the 8k table, 64 steps
@@ -359,18 +380,18 @@ ADV_STEPS = 16
 # smoke run in a subprocess
 CALIB_ITERS, CALIB_SWEEPS, CALIB_CPU_STEPS, CALIB_CLI_TIMEOUT = 5, 2, 64, 600
 # granite-moe-1b-a400m at full width and depth as registered (bf16 compute on
-# f32 weights, 5.5 GB), 4 slots of 512 cache rows, 4 requests of 16 new
+# f32 weights, 5.5 GB), 4 slots of 512 cache rows, 4 requests of 8 new
 # tokens (one prompt of 300 tokens, past two 128-row flash blocks)
 GRANITE_ARCH = "granite-moe-1b-a400m"
 GRANITE_SERVE = dict(batch_slots=4, cache_len=512)
-GRANITE_PROMPTS, GRANITE_MAX_NEW = (300, 45, 160, 97), 16
+GRANITE_PROMPTS, GRANITE_MAX_NEW = (300, 45, 160, 97), 8
 # starcoder2-15b at full width and depth as registered (bf16 weights and
 # compute, 31.9 GB), granite's slots and prompts; its card-vs-CPU request at
 # full width with the depth cut to STAR_CPU_SUPERBLOCKS (the host's memory and
 # CPU time do not take 40 superblocks of plain PyTorch)
 STAR_ARCH = "starcoder2-15b"
 STAR_SERVE = dict(batch_slots=4, cache_len=512)
-STAR_PROMPTS, STAR_MAX_NEW, STAR_CPU_SUPERBLOCKS = (300, 45, 160, 97), 16, 2
+STAR_PROMPTS, STAR_MAX_NEW, STAR_CPU_SUPERBLOCKS = (300, 45, 160, 97), 8, 2
 # vpe_mm's bf16-weight arm is timed on starcoder2's served weights at these M
 VPE_SERVED_TIMED = (1, 2, 4, 8)
 # qwen3-4b as registered (f32 weights, bf16 compute, 17.6 GB) at LM_SERVE's
@@ -378,6 +399,27 @@ VPE_SERVED_TIMED = (1, 2, 4, 8)
 # with the depth cut to QWEN4_CPU_SUPERBLOCKS, as starcoder2's
 QWEN4_ARCH = "qwen3-4b"
 QWEN4_PROMPTS, QWEN4_MAX_NEW, QWEN4_CPU_SUPERBLOCKS = (200, 37), 8, 4
+# the recurrent archs at full width and depth as registered (f32 weights,
+# bf16 compute): xlstm-1.3b (42 mLSTM + 6 sLSTM blocks, 7.1 GB) and
+# zamba2-2.7b (45 mamba2 blocks and the shared attention + MLP block at 9
+# places, head_dim 80, 8.3 GB), 4 slots of 512 cache rows, granite's prompts
+# of 45-300 tokens; card vs CPU in f32 compute at RECURRENT_CPU_SUPERBLOCKS of
+# their superblocks, at full width
+RECURRENT_ARCHS = ("xlstm-1.3b", "zamba2-2.7b")
+RECURRENT_SERVE = dict(batch_slots=4, cache_len=512)
+RECURRENT_PROMPTS, RECURRENT_MAX_NEW, RECURRENT_CPU_SUPERBLOCKS = (300, 45, 160, 97), 8, 1
+# The compute type in which each arch's serve is held to its batch-1 greedy
+# runs.  xlstm's random-weight mLSTM stack amplifies a difference at a layer's
+# input some 1.18-fold a layer: the first mLSTM's plain products (cuBLAS at
+# another batch size) part batch 1 from the 4-slot row by 7.6e-06 of max|h| in
+# f32 and by one bf16 step in bf16, and 48 layers carry that to 2.884e-03 of
+# max|logit| in f32 and past the logits' own scale in bf16 (on an H100 80GB
+# HBM3 at 700 W).  So its bf16 serve is held to each request served alone at
+# the same slots, exactly, and the batch-1 check runs in f32 compute, a token
+# differing only where the batch-1 run's top two logits are closer than
+# RECURRENT_F32_TIE_GAP (over three times that reading)
+RECURRENT_BATCH1 = {"xlstm-1.3b": "float32", "zamba2-2.7b": "bfloat16"}
+RECURRENT_F32_TIE_GAP = 1e-2
 # [train qwen3-0.6b]: qwen3-0.6b as registered (f32 weights, bf16 compute,
 # AdamW) trained at full width and depth by Trainer.run for TRAIN_STEPS steps
 # of TRAIN_BATCH x TRAIN_SEQ tokens, saving once at the last step; then card
@@ -1030,18 +1072,55 @@ def lm_prompts(cfg, rng) -> list:
             for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)]
 
 
+# the mixers whose layers run attention (a prefill: one flash_fwd each)
+ATTN_MIXERS = ("attn", "attn_local", "attn_shared")
+
+
+def layer_matmuls(cfg, i: int, layer) -> list:
+    """(name, k, n) of the routed matmuls of ``layer``, the ``i``-th of the
+    model, counted from the model code: an attention mixer's four
+    projections (a shared one's too), mamba2's in_proj and out_proj, the
+    mLSTM's w_up and w_down, the sLSTM's w_gates and w_down; a dense or
+    shared MLP's three (two when not gated), an MoE's shared experts' three
+    (its experts are plain products), nothing for no FFN."""
+    d, m, out = cfg.d_model, layer.mixer, []
+    if m in ATTN_MIXERS:
+        out += [("wq", d, cfg.q_dim), ("wk", d, cfg.kv_dim), ("wv", d, cfg.kv_dim),
+                ("wo", cfg.q_dim, d)]
+    elif m == "mamba2":
+        din = cfg.ssm_d_inner
+        out += [("in_proj", d, 2 * din + 2 * cfg.ssm_state + cfg.ssm_heads), ("out_proj", din, d)]
+    elif m == "mlstm":
+        out += [("w_up", d, 2 * cfg.mlstm_d_inner), ("w_down", cfg.mlstm_d_inner, d)]
+    elif m == "slstm":
+        out += [("w_gates", d, 4 * d), ("w_down", d, d)]
+    if layer.ffn in ("mlp", "mlp_shared"):
+        f = cfg.first_dense_ff if i < len(cfg.head_pattern) and cfg.first_dense_ff else cfg.d_ff
+        out += [("wi_gate", d, f)] * cfg.mlp_gated + [("wi_up", d, f), ("wo_mlp", f, d)]
+    elif layer.ffn == "moe" and cfg.num_shared_experts:
+        f = cfg.moe_d_ff * cfg.num_shared_experts
+        out += [("sh_gate", d, f), ("sh_up", d, f), ("sh_down", f, d)]
+    return out
+
+
+def lm_forward_matmuls(cfg) -> list:
+    """(name, k, n) of every routed matmul of one LM forward: each layer's
+    (``layer_matmuls``), then the lm head."""
+    return ([mm for i, layer in enumerate(cfg.all_layers()) for mm in layer_matmuls(cfg, i, layer)]
+            + [("lm_head", cfg.d_model, cfg.padded_vocab)])
+
+
 def lm_matmul_shapes(cfg, rows: int) -> list:
-    """(name, m, k, n) of one LM forward's routed matmuls over ``rows``
-    token rows: a layer's (the four projections, then the MLP's three; an
-    MoE layer's experts are plain products), then the lm head on the last
-    positions."""
-    slots, d, f = LM_SERVE["batch_slots"], cfg.d_model, cfg.d_ff
-    layer = [("wq", d, cfg.q_dim), ("wk", d, cfg.kv_dim), ("wv", d, cfg.kv_dim),
-             ("wo", cfg.q_dim, d)]
-    if cfg.block_pattern[0].ffn == "mlp":  # the gate only where the MLP is gated
-        layer += [("wi_gate", d, f)] * cfg.mlp_gated + [("wi_up", d, f), ("wo_mlp", f, d)]
-    return ([(name, rows, k, n) for name, k, n in layer]
-            + [("lm_head", slots, d, cfg.padded_vocab)])
+    """(name, m, k, n) of the first block layer's routed matmuls
+    (``layer_matmuls``) over ``rows`` token rows, then the lm head on the
+    last positions of ``LM_SERVE``'s slots."""
+    i = len(cfg.head_pattern)
+    return ([(name, rows, k, n) for name, k, n in layer_matmuls(cfg, i, cfg.block_pattern[0])]
+            + [("lm_head", LM_SERVE["batch_slots"], cfg.d_model, cfg.padded_vocab)])
+
+
+def attention_layers(cfg) -> int:
+    return sum(layer.mixer in ATTN_MIXERS for layer in cfg.all_layers())
 
 
 def bf16_step(torch, v):
@@ -1326,15 +1405,14 @@ def serve_alone(serving, cfg, params, prompt, serve: dict, max_new: int) -> list
 
 def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompts, *,
              serve: dict = LM_SERVE, max_new: int = LM_MAX_NEW, near_tie=None,
-             alone: bool = False, shapes: dict | None = None):
+             alone: bool = False, shapes: dict | None = None, batch1: bool = True):
     """Serve the requests with every launch count at 0 just before and read
     just after; tokens must equal each request's single-request greedy run,
-    and launches the prediction: a layer's routed matmuls (``lm_matmul_shapes``)
-    plus the lm head a forward, every one on the AryPE at these shapes
-    (``mm_fused``), one
-    forward a prefill and one a decode step (every wave of ``max_new``-token
-    requests takes ``max_new - 1`` steps), and one ``flash_fwd`` a layer a
-    prefill.  With ``near_tie`` (a share of max|logit|) a request may leave
+    and launches the prediction: a forward's routed matmuls
+    (``lm_forward_matmuls``), every one on the AryPE at these shapes
+    (``mm_fused``), one forward a prefill and one a decode step (every wave of ``max_new``-token
+    requests takes ``max_new - 1`` steps), and one ``flash_fwd`` an
+    attention layer a prefill.  With ``near_tie`` (a share of max|logit|) a request may leave
     its batch-1 tokens where that run's top two logits were closer than it
     (counted; the rest of that request is not compared): at batch 1 the
     plain PyTorch decode attention sums in another order than at the
@@ -1345,13 +1423,14 @@ def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompt
     depend on the other slots).  Returns (launch counts, the engine's stats,
     the batch-1 runs' launch counts, near ties).  With ``shapes`` the
     serve's and the batch-1 runs' recorded matmuls are noted there
-    (``note_shapes``)."""
+    (``note_shapes``).  ``batch1=False`` leaves the batch-1 runs out (their
+    launch counts then all 0)."""
     refs_alone = [serve_alone(serving, cfg, params, p, serve, max_new) for p in prompts] \
         if alone else None
     kernels.reset_launches()
     with record_routes() as single_routes:
         refs = [greedy_single(torch, lm_mod.LM(cfg, device=CARD), params, p, max_new,
-                              serve["cache_len"]) for p in prompts]
+                              serve["cache_len"]) for p in prompts] if batch1 else None
     single_counts = kernels.launches()
     eng = serving.ServeEngine(cfg, params, serving.ServeConfig(**serve), device=CARD)
     reqs = [serving.Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
@@ -1372,7 +1451,7 @@ def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompt
         log(f"  tokens equal, exactly, to each request served alone at "
             f"{serve['batch_slots']} slots")
     ties = 0
-    for r, (ref, gaps) in zip(reqs, refs):
+    for r, (ref, gaps) in zip(reqs, refs or ()):
         if r.out_tokens == ref:
             continue
         t = next(i for i, (a, b) in enumerate(zip(r.out_tokens, ref)) if a != b)
@@ -1383,12 +1462,13 @@ def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompt
             f"gap {gaps[t]:.3e} of max|logit| < {near_tie:.3e})")
         ties += 1
     waves = -(-len(reqs) // serve["batch_slots"])
-    per_forward = (len(lm_matmul_shapes(cfg, 1)) - 1) * cfg.num_layers + 1
+    matmuls, flash_layers = lm_forward_matmuls(cfg), attention_layers(cfg)
+    per_forward = len(matmuls)
     forwards = len(reqs) + waves * (max_new - 1)
     want = dict.fromkeys(kernels.KERNELS, 0)
     want["mm_fused"] = per_forward * forwards
-    want["flash_fwd"] = cfg.num_layers * len(reqs)
-    checked = {(k, n) for _, _, k, n in lm_matmul_shapes(cfg, 1)}
+    want["flash_fwd"] = flash_layers * len(reqs)
+    checked = {(k, n) for _, k, n in matmuls}
     if {(r.k, r.n) for r in routes} != checked:
         raise AssertionError(f"the serve's matmuls {sorted({(r.k, r.n) for r in routes})} "
                              f"are not the checked {sorted(checked)}")
@@ -1396,19 +1476,21 @@ def serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompt
         note_shapes(kernels, routes, "serve", shapes)
         note_shapes(kernels, single_routes, "batch 1", shapes)
     recorded = kernels.matmul_launches(routes)
-    recorded["flash_fwd"] = cfg.num_layers * st.prefills
+    recorded["flash_fwd"] = flash_layers * st.prefills
     if counts != want or recorded != want or st.prefills + st.decode_steps != forwards:
         raise AssertionError(f"launches {counts}, recorded routes {recorded}, "
                              f"{st.prefills} prefills + {st.decode_steps} decode steps: "
                              f"predicted {want} over {forwards} forwards")
-    log(f"  {len(done)}/{len(reqs)} requests done, tokens equal to each one's single-request "
-        f"greedy run{f' except {ties} near ties' if near_tie is not None else ''}; "
+    log(f"  {len(done)}/{len(reqs)} requests done"
+        + (f", tokens equal to each one's single-request greedy run"
+           f"{f' except {ties} near ties' if near_tie is not None else ''}" if batch1 else "")
+        + "; "
         f"{st.prefills} prefills, {st.decode_steps} decode steps, {st.tokens} tokens")
     log(f"  prefill {st.prefill_s / st.prefills * 1e3:.3f} ms per admit ({serve['batch_slots']}-"
         f"slot batch, prompts {min(map(len, prompts))}-{max(map(len, prompts))}), decode "
         f"{st.decode_s / st.decode_steps * 1e3:.3f} ms per step, {st.tok_per_s:.1f} generated tok/s")
     log(f"  launches {counts} = predicted: {per_forward} mm_fused a forward x {forwards} "
-        f"forwards, {cfg.num_layers} flash_fwd a prefill x {len(reqs)}")
+        f"forwards, {flash_layers} flash_fwd a prefill x {len(reqs)}")
     single = {name: n for name, n in single_counts.items() if n}
     log(f"  the {len(prompts)} single-request runs launched {single}")
     return counts, st, single_counts, ties
@@ -2737,20 +2819,22 @@ def check_recorded_mixed(torch, cfg, shapes, engines, gen, *, time_it: bool = Tr
     """Each engine's mixed arm (bf16 x, f32 w) at every matmul shape a serve
     recorded (``shapes``: kernel -> {(m, k, n): name}; ``engines``: kernel ->
     (wrapper, plain twin, plan)), through ``check_mixed_matmuls``.  Returns
-    each kernel's largest error from its twin."""
-    errs = {}
+    each kernel's record: its largest error from its twin and, with
+    ``time_it``, its times summed over the shapes (one call each)."""
+    recs = {}
+    names = {(k, n): name for name, k, n in lm_forward_matmuls(cfg)}  # the unnamed projections
     for kernel, seen in sorted(shapes.items()):
         engine, plain, plan = engines[kernel]
-        todo = [("lm_head" if n == cfg.padded_vocab else name, m, k, n)
+        todo = [("lm_head" if n == cfg.padded_vocab else names.get((k, n), name), m, k, n)
                 for (m, k, n), name in seen.items()]
         log(f"  {kernel}'s mixed arm (bf16 x, f32 w) at the {len(todo)} shapes the serve and "
             "the batch-1 runs launched it at, against its plain version:")
-        errs[kernel] = check_mixed_matmuls(torch, engine, plain, todo, gen, plan=plan,
-                                           time_it=time_it)["max_abs_err"]
+        recs[kernel] = check_mixed_matmuls(torch, engine, plain, todo, gen, plan=plan,
+                                           time_it=time_it)
         if not time_it:
             log(f"    bit for bit the f32 arm on x.float(); worst error from the twin "
-                f"{errs[kernel]:.3e}")
-    return errs
+                f"{recs[kernel]['max_abs_err']:.3e}")
+    return recs
 
 
 def check_prefill_flash(torch, fa, gen, cfg, slots: int, prompts) -> float:
@@ -2803,7 +2887,8 @@ def granite_phase(torch, np, kernels, record_routes, lm_mod, layers, serving, ge
              shapes=shapes)
     engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan),
                "vpe_mm": (vpe_matmul, vpe_mm, None)}
-    errs = check_recorded_mixed(torch, cfg, shapes, engines, gen)
+    errs = {k: r["max_abs_err"] for k, r in
+            check_recorded_mixed(torch, cfg, shapes, engines, gen).items()}
     errs["flash_fwd"] = check_prefill_flash(torch, fa, gen, cfg, GRANITE_SERVE["batch_slots"],
                                             GRANITE_PROMPTS)
 
@@ -3085,7 +3170,8 @@ def qwen4b_phase(torch, np, kernels, record_routes, lm_mod, serving, get_config,
              max_new=QWEN4_MAX_NEW, near_tie=BF16_TIE_GAP, alone=True, shapes=shapes)
     engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan),
                "vpe_mm": (vpe_matmul, vpe_mm, None)}
-    errs = check_recorded_mixed(torch, cfg, shapes, engines, gen, time_it=False)
+    errs = {k: r["max_abs_err"] for k, r in
+            check_recorded_mixed(torch, cfg, shapes, engines, gen, time_it=False).items()}
     errs["flash_fwd"] = check_prefill_flash(torch, fa, gen, cfg, LM_SERVE["batch_slots"],
                                             QWEN4_PROMPTS)
 
@@ -3103,6 +3189,234 @@ def qwen4b_phase(torch, np, kernels, record_routes, lm_mod, serving, get_config,
     del params, cut_params
     torch.cuda.empty_cache()
     return errs
+
+
+def flash_record(torch, fa, gen, cfg, slots: int, prompts) -> dict:
+    """``flash_fwd`` in bf16 at a serve's prefill shapes (B ``slots`` and 1,
+    each prompt length, causal, the LM's layout) against its plain twin
+    (``flash_case``, which times it beside SDPA), then ``check_flash_padding``
+    at the longest and the shortest.  Returns the record of the B ``slots``
+    shapes, one call each."""
+    d, hq, hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    log(f"  flash_fwd in bf16 at the prefill shapes ({hq} heads over {hkv}, D {d} in the "
+        f"{fa.flash_plan(d, torch.bfloat16).width}-wide tile, causal; the serve's B {slots} and "
+        "the batch-1 runs'):")
+    rec = product_record()
+    for b in (slots, 1):
+        for n in prompts:
+            case = (b, hq, hkv, n, n, d, "causal", 0, None)
+            r = flash_case(torch, fa, gen, case, "bfloat16", lm_layout=True)
+            rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+            if b == slots:
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"):
+                    rec[key] += r[key]
+    rec["ops_ms"] = rec["flops"] / BF16_OPS_PER_S * 1e3
+    for b, n in ((slots, max(prompts)), (1, min(prompts))):
+        check_flash_padding(torch, fa, gen, b, hq, n, d)
+    return set_bound_by(rec)
+
+
+def check_flash_padding(torch, fa, gen, b: int, h: int, n: int, d: int) -> None:
+    """``flash_fwd`` in bf16 at a head width D short of its tile's DP (causal,
+    B ``b``, ``h`` heads, S ``n``): against SDPA on the inputs upcast to f32
+    (the exact function) within ``FLASH_TOL``; and, launched on q, k, v views
+    into rows of DP columns that hold NaN past D, into an output view of such
+    rows, equal to the dense call bit for bit with the output's NaN columns
+    untouched: no column past D is read or written."""
+    import torch.nn.functional as F
+
+    plan = fa.flash_plan(d, torch.bfloat16)
+    rtol, atol = FLASH_TOL["bfloat16"]
+    wide = torch.full((3, b, n, h, plan.width), float("nan"), device=CARD, dtype=torch.bfloat16)
+    wide[..., :d] = torch.randn(3, b, n, h, d, generator=gen).to(CARD, torch.bfloat16)
+    q, k, v = (t[..., :d].transpose(1, 2) for t in wide)
+    dense = fa.flash_attention(*(t.contiguous() for t in (q, k, v)))
+    exact = F.scaled_dot_product_attention(*(t.float() for t in (q, k, v)), is_causal=True)
+    err = (dense.float() - exact).abs().max().item()
+    if not torch.allclose(dense.float(), exact, rtol=rtol, atol=atol):
+        raise AssertionError(f"flash_fwd D {d} B {b} S {n}: max err {err} from SDPA in f32")
+    out_wide = torch.full((b, n, h, plan.width), float("nan"), device=CARD, dtype=torch.bfloat16)
+    out = out_wide[..., :d].transpose(1, 2)
+    fa.FLASH_FWD(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, b, h, h,
+                 n, n, d, *(st for t in (q, k, v, out) for st in t.stride()[:3]),
+                 fa.MASKS["causal"], 0, n, 1.0 / (d ** 0.5), plan.tile, fa.stream_of(q))
+    torch.cuda.synchronize()
+    if not torch.equal(out, dense):
+        raise AssertionError(f"flash_fwd D {d} B {b} S {n}: the views into padded rows differ "
+                             "from the dense call (a column past D was read)")
+    if not torch.isnan(out_wide[..., d:].float()).all():
+        raise AssertionError(f"flash_fwd D {d} B {b} S {n}: a column past D was written")
+    log(f"  flash_fwd D {d} B {b} S {n}: within FLASH_TOL of SDPA on f32 inputs (max err "
+        f"{err:.3e}); on views into {plan.width}-wide rows with NaN past D: equal to the dense "
+        "call, no column past D written")
+
+
+def batch_divergence(torch, lm_mod, cfg, params, prompt) -> None:
+    """A prompt's prefill at batch 1 against its row of a
+    ``RECURRENT_SERVE``-slot prefill (the other rows zero tokens), layer by
+    layer: where the two first part and by how much (max|diff| over
+    max|h| of that layer's output), at the last layer and at the logits.
+    The first parting must be within one bf16 step of the row's scale (2^-7
+    of max|h|): the two differ by roundings, not by a fault."""
+    apply_layer, outs = lm_mod._apply_layer, []
+
+    def spy(*args, **kw):
+        out = apply_layer(*args, **kw)
+        outs[-1].append(out[0][0].float())
+        return out
+
+    runs = []
+    lm_mod._apply_layer = spy
+    try:
+        for b in (1, RECURRENT_SERVE["batch_slots"]):
+            outs.append([])
+            toks = torch.zeros((b, len(prompt)), dtype=torch.long)
+            toks[0] = torch.as_tensor(prompt)
+            model = lm_mod.LM(cfg, device=CARD)
+            logits, _ = model.prefill(params, {"tokens": toks.to(CARD)},
+                                      model.init_cache(b, RECURRENT_SERVE["cache_len"]))
+            runs.append(logits[0, -1, :cfg.vocab_size].float())
+    finally:
+        lm_mod._apply_layer = apply_layer
+    share = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(*outs)]
+    first = next((i for i, d in enumerate(share) if d > 0), None)
+    logit = ((runs[0] - runs[1]).abs().max() / runs[1].abs().max()).item()
+    where = (f"first at layer {first} ({cfg.all_layers()[first].mixer}) by {share[first]:.3e}"
+             if first is not None else "nowhere")
+    log(f"  {cfg.compute_dtype} prefill of {len(prompt)} tokens, batch 1 against its row of "
+        f"{RECURRENT_SERVE['batch_slots']} slots: they part {where} of max|h|, "
+        f"{share[-1]:.3e} at the last layer, {logit:.3e} of max|logit|")
+    if first is not None and share[first] > 2.0**-7:
+        raise AssertionError(f"batch 1 and the slot row part at layer {first} by more than a "
+                             "bf16 step")
+
+
+def hold_recorded_f32(torch, arype, shapes, gen) -> None:
+    """``mm_fused``'s f32 arm at every shape a serve in f32 compute recorded,
+    against its plain twin (``hold_to_plain``; no timing: phase 2 times the
+    f32 arm at the LM's shapes)."""
+    rec = product_record()
+    for m, k, n in shapes.get("mm_fused", {}):
+        x = torch.randn(m, k, generator=gen).to(CARD)
+        w = torch.randn(k, n, generator=gen).to(CARD)
+        hold_to_plain(torch, f"mm_fused f32 ({m},{k},{n})", arype.arype_matmul(x, w),
+                      arype.mm_fused(x, w), rec)
+    log(f"  mm_fused's f32 arm at the {len(shapes.get('mm_fused', {}))} shapes that serve "
+        f"recorded: within rtol {MATMUL_RTOL} of its plain twin (worst error "
+        f"{rec['max_abs_err']:.3e})")
+
+
+def recurrent_phase(torch, np, kernels, record_routes, lm_mod, serving, get_config, fa, arype,
+                    vpe_matmul, vpe_mm, gen, arch: str) -> dict:
+    """``[lm xlstm-1.3b]`` and ``[lm zamba2-2.7b]``: the recurrent arch at full
+    width and depth as registered (f32 weights, bf16 compute), seed 0 on the
+    card, serving ``RECURRENT_PROMPTS`` through ``ServeEngine`` at
+    ``RECURRENT_SERVE``: tokens equal each request served alone at the same
+    slots, and its batch-1 greedy run except counted near ties under
+    ``BF16_TIE_GAP`` (xlstm: the batch-1 check in f32 compute, under
+    ``RECURRENT_F32_TIE_GAP``, after ``batch_divergence`` in both types; see
+    ``RECURRENT_BATCH1``); launches as counted from the code
+    (``lm_forward_matmuls``: 97 ``mm_fused`` a forward for xlstm, 154 for
+    zamba2; 9 ``flash_fwd`` a zamba2 prefill); prefill ms an admit, decode
+    ms a step, tok/s and the serve's peak GB.  Then ``mm_fused``'s and
+    ``vpe_mm``'s mixed arms at every shape the serve and the batch-1 runs
+    recorded, timed beside ``torch.matmul``, and (zamba2) ``flash_fwd`` at
+    the D 80 prefill shapes (``flash_record``); then one request in f32
+    compute card vs CPU at full width and ``RECURRENT_CPU_SUPERBLOCKS``
+    superblocks within ``LM_LOGIT_TOL``, beside what a one-ulp change of
+    the embedding moves the CPU's own logits (the stack's conditioning);
+    then in bf16 compute on the first layer of each mixer kind, card vs CPU
+    and 4 slots vs batch 1 within ``BF16_LOGIT_TOL``, beside the
+    f32-compute control.  Returns the kernels' records (``launches`` from
+    this serve)."""
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_mod.LM(cfg, device=CARD).init(torch.Generator(device=CARD).manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in RECURRENT_PROMPTS]
+    mixers = ", ".join(f"{layer.mixer}/{layer.ffn}" for layer in cfg.block_pattern)
+    log(f"[lm {arch}] as registered (compute {cfg.compute_dtype}, params {cfg.param_dtype}), "
+        f"d_model {cfg.d_model}, superblock [{mixers}] x {cfg.num_superblocks}, "
+        f"{cfg.num_heads} heads of {cfg.head_dim}, chunk {cfg.ssm_chunk}, vocab "
+        f"{cfg.vocab_size}; {sum(t.numel() for t in leaves)} parameters "
+        f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} GB, seed 0) in "
+        f"{time.perf_counter() - t0:.2f} s; ServeConfig({RECURRENT_SERVE}), prompts "
+        f"{list(RECURRENT_PROMPTS)}, max_new {RECURRENT_MAX_NEW}; near ties under "
+        f"{BF16_TIE_GAP} counted; routed matmuls a forward {len(lm_forward_matmuls(cfg))}, "
+        f"flash_fwd a prefill {attention_layers(cfg)}")
+    shapes: dict = {}
+    batch1 = RECURRENT_BATCH1[arch] == cfg.compute_dtype
+    counts, st, singles, _ = serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params,
+                                      prompts, serve=RECURRENT_SERVE, max_new=RECURRENT_MAX_NEW,
+                                      near_tie=BF16_TIE_GAP, alone=True, shapes=shapes,
+                                      batch1=batch1)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB (weights, the "
+        f"serve's caches and the single-request runs')")
+    if not batch1:
+        held = cfg.replace(compute_dtype=RECURRENT_BATCH1[arch])
+        for c in (cfg, held):
+            batch_divergence(torch, lm_mod, c, params, prompts[0])
+        log(f"[lm {arch} {held.compute_dtype}] the same requests in {held.compute_dtype} compute, "
+            f"held to their batch-1 runs (near ties under {RECURRENT_F32_TIE_GAP} counted)")
+        held_shapes: dict = {}
+        serve_lm(torch, kernels, record_routes, lm_mod, serving, held, params, prompts,
+                 serve=RECURRENT_SERVE, max_new=RECURRENT_MAX_NEW,
+                 near_tie=RECURRENT_F32_TIE_GAP, shapes=held_shapes)
+        hold_recorded_f32(torch, arype, held_shapes, gen)
+    engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan),
+               "vpe_mm": (vpe_matmul, vpe_mm, None)}
+    recs = check_recorded_mixed(torch, cfg, shapes, engines, gen)
+    recs["mm_fused"]["launches"] = counts["mm_fused"]
+    if "vpe_mm" in recs:
+        recs["vpe_mm"]["launches"] = singles["vpe_mm"]
+    else:  # every projection's M·K·N is past vpe_max_elems, even at one row
+        log("  vpe_mm: no shape recorded (the router placed every projection on the AryPE, "
+            "batch 1 too)")
+    if attention_layers(cfg):
+        recs["flash_fwd"] = flash_record(torch, fa, gen, cfg, RECURRENT_SERVE["batch_slots"],
+                                         RECURRENT_PROMPTS)
+        recs["flash_fwd"]["launches"] = counts["flash_fwd"]
+
+    cut = cfg.replace(num_superblocks=RECURRENT_CPU_SUPERBLOCKS, compute_dtype="float32")
+    cut_params = dict(params, blocks=_stack_head(params["blocks"], RECURRENT_CPU_SUPERBLOCKS))
+    log(f"[lm {arch} card vs cpu] full width, {RECURRENT_CPU_SUPERBLOCKS} of "
+        f"{cfg.num_superblocks} superblocks, f32 compute, batch 1, a {LM_CPU_PROMPT}-token "
+        f"prompt, prefill + {LM_CPU_DECODES} decode steps")
+    lm_card_vs_cpu(torch, lm_mod, cut, cut_params, rng)
+    cpu = _tree_to(cut_params, "cpu")
+    tokens = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, LM_CPU_PROMPT)))}
+    model = lm_mod.LM(cut, device="cpu")
+    base, _ = model.prefill(cpu, tokens, model.init_cache(1, RECURRENT_SERVE["cache_len"]))
+    nudged, _ = model.prefill(dict(cpu, embed=cpu["embed"] * (1 + 2.0**-23)), tokens,
+                              model.init_cache(1, RECURRENT_SERVE["cache_len"]))
+    log(f"  conditioning: a one-ulp change of the embedding moves the CPU's own prefill logits "
+        f"by {((nudged - base).abs().max() / base.abs().max()).item():.3e} of max|logit|")
+    # bf16 compute (as registered) on the first layer of each mixer kind of
+    # the first superblock (xlstm: one mLSTM and the sLSTM; zamba2: one
+    # mamba2 and the shared block), beside the f32-compute control, as
+    # [lm qwen3-4b] is at 4 superblocks.  Deeper, bf16's own roundings swamp
+    # the logits: over xlstm's whole first superblock card vs CPU read
+    # 1.082e-01 of max|logit| (control 1.713e-01), over its first mLSTM and
+    # the sLSTM 5.619e-03 (control 1.370e-02); over zamba2's whole
+    # superblock 1.044e-02 (control 1.628e-02), on an H100 80GB HBM3 at 700 W
+    first = {}
+    for i, layer in enumerate(cfg.block_pattern):
+        first.setdefault(layer.mixer, i)
+    keep = sorted(first.values())
+    one = cut.replace(block_pattern=tuple(cfg.block_pattern[i] for i in keep))
+    one_params = dict(cut_params, blocks={f"l{j}": cut_params["blocks"][f"l{i}"]
+                                          for j, i in enumerate(keep)})
+    log(f"[lm {arch} bf16 card vs cpu] full width, layers {keep} of the first superblock (the "
+        f"first of each mixer kind), bf16 compute (as registered), with the request in "
+        f"{LM_SERVE['batch_slots']} slots and the f32-compute control")
+    lm_card_vs_cpu(torch, lm_mod, one.replace(compute_dtype=cfg.compute_dtype), one_params, rng,
+                   tol=BF16_LOGIT_TOL, tie=BF16_TIE_GAP, control_cfg=one)
+    del params, cut_params, cpu, one_params
+    torch.cuda.empty_cache()
+    return recs
 
 
 class ArmSpy:
@@ -3998,6 +4312,21 @@ def main() -> int:
     elapsed("18e")
     # -- 18e. training qwen3-0.6b at full width and depth
     train = train_phase(torch, np, kernels, get_config, arype, gen, profile)
+    t_cfg = get_config(TRAIN_ARCH)
+    log(f"[train {TRAIN_ARCH}] flash_fwd alone at the training step's shape (bf16, B "
+        f"{TRAIN_BATCH}, S {TRAIN_SEQ}, {t_cfg.num_heads} heads over {t_cfg.num_kv_heads}, D "
+        f"{t_cfg.head_dim}, causal):")
+    flash_train = flash_case(torch, fa, gen, (TRAIN_BATCH, t_cfg.num_heads, t_cfg.num_kv_heads,
+                                              TRAIN_SEQ, TRAIN_SEQ, t_cfg.head_dim, "causal", 0,
+                                              None), "bfloat16", lm_layout=True)
+    flash_bf16["max_abs_err"] = max(flash_bf16["max_abs_err"], flash_train["max_abs_err"])
+
+    # -- 18f, 18g. the recurrent archs at full width and depth, as registered
+    recurrent = {}
+    for phase, arch in zip(("18f", "18g"), RECURRENT_ARCHS):
+        elapsed(phase)
+        recurrent[arch] = recurrent_phase(torch, np, kernels, record_routes, lm_mod, serving,
+                                          get_config, fa, arype, vpe_matmul, vpe_mm, gen, arch)
 
     elapsed("19-21")
     # -- 19-21. the offline extractor, the per-granularity paths, the scenarios
@@ -4042,6 +4371,13 @@ def main() -> int:
     # flash_fwd's bf16 tensor-core kernel (the bf16 serve's prefill)
     record.append(dict(name="flash_fwd (bf16)", route="cuda", source=source["flash_fwd"],
                        replaces=replaces["flash_fwd"], **flash_bf16))
+    # the recurrent archs' serves: the mixed arms at every recorded shape, and
+    # zamba2's shared-attention prefill at head_dim 80, launches from each serve
+    arm = {"mm_fused": "mm_fused (bf16 x, f32 w)", "vpe_mm": "vpe_mm (bf16 x, f32 w)",
+           "flash_fwd": "flash_fwd (bf16, D 80)"}
+    for arch, recs in recurrent.items():
+        record += [dict(name=f"{arm[name]}, {arch}", route="cuda", source=source[name],
+                        replaces=replaces[name], **r) for name, r in recs.items()]
     elapsed("end")
     log(card)
     print(json.dumps({"kernels": record}))

@@ -13,9 +13,11 @@ The fields that chose an implementation or a distribution in the reference
 implementation per device and runs on one card.  ``remat`` is left out too:
 the port's eager training loop keeps every activation, and at the full-width
 batches it trains (qwen3-0.6b at 8 x 128 tokens) they fit the card.  So are
-the recurrent and frontend sizes: they come with the slices that run them.
-The MoE sizes and the combine type are here (the port serves the MoE
-layer), and so is ``optimizer`` (the port trains).
+the frontend sizes: they come with the slice that runs them.  The MoE sizes
+and the combine type are here (the port serves the MoE layer), the
+recurrent mixers' sizes (mamba2's state, heads, expansion and conv width,
+the chunk of its and the mLSTM's scans, the mLSTM's up-projection), and
+``optimizer`` (the port trains).
 """
 from __future__ import annotations
 
@@ -75,6 +77,13 @@ class ArchConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.001
     first_dense_ff: int = 0  # FFN width of the dense head layers (kimi-style); 0 = d_ff
+    # -- SSM / recurrent
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256  # the chunk of the mamba2 and mLSTM scans
+    ssm_conv_width: int = 4
+    mlstm_proj_factor: int = 2
     # -- modality frontend (refused by the LM)
     frontend: str = "none"  # none|audio_frames|vision_patches
     # -- numerics
@@ -111,6 +120,18 @@ class ArchConfig:
             raise ValueError(f"num_heads {self.num_heads} is not a multiple of "
                              f"num_kv_heads {self.num_kv_heads}")
         return self.num_heads // max(self.num_kv_heads, 1)
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
+    def mlstm_d_inner(self) -> int:
+        return self.mlstm_proj_factor * self.d_model
 
     def all_layers(self) -> tuple[LayerSpec, ...]:
         return (self.head_pattern + self.block_pattern * self.num_superblocks
@@ -167,4 +188,6 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
                   num_shared_experts=min(cfg.num_shared_experts, 1),
                   first_dense_ff=64 if cfg.first_dense_ff else 0,
                   capacity_factor=8.0)
+    if cfg.ssm_state:  # the mLSTM's chunk stays: only an SSM config has a state
+        kw.update(ssm_state=8, ssm_head_dim=16, ssm_chunk=8)
     return cfg.replace(**kw)

@@ -8,8 +8,8 @@ leaf in field order, so a reference ``TrackerState`` passes through
 reference's ``QuantScales.to_dict()`` (also the ``quant_scales`` block of its
 calibration artifact).  An LM's parameter tree and cache arrive as the
 reference's nested dicts with numpy leaves (``jax.tree.map(np.asarray,
-tree)``; a cache's ``AttnCache`` tuples stay tuples) and keep their
-structure, stacked leading axes included.  A sharded pipeline's stacked
+tree)``; a cache's NamedTuples stay NamedTuples) and keep their structure,
+stacked leading axes included.  A sharded pipeline's stacked
 state (tracker leaves (S, F, ...), cold leaves (S, C, ...), clocks (S,))
 converts through the same functions, leaf by leaf.
 """
@@ -23,7 +23,7 @@ import torch
 from repro_torch.common.util import Device, resolve_device
 from repro_torch.core.cold_store import ColdState, TwoLevelState
 from repro_torch.core.flow_tracker import PacketBatch, TrackerState
-from repro_torch.models.layers import AttnCache
+from repro_torch.models.transformer import CACHE_TYPES
 from repro_torch.runtime.quant import QuantScales
 
 
@@ -93,15 +93,26 @@ def lm_params_from_numpy(tree: Mapping, *, device: Device = None) -> dict:
 
 
 def lm_cache_from_numpy(tree: Mapping, *, device: Device = None) -> dict:
-    """A reference LM cache seen through numpy (``blocks``, head/tail layers
-    as ``(k, v, pos)`` tuples, ``lengths``) as the port's cache."""
+    """A reference LM cache seen through numpy (``blocks``, head/tail layers,
+    ``lengths``) as the port's cache.  Each layer's NamedTuple becomes the
+    port's of the same name (``transformer.CACHE_TYPES``): an ``MLSTMCache``
+    has three leaves, as an ``AttnCache`` has, so the leaf count cannot tell
+    them apart.  A layer without a mixer keeps its ``()``; any other tuple
+    raises."""
     dev = resolve_device(device)
+    by_name = {t.__name__: t for t in CACHE_TYPES.values() if t is not tuple}
 
     def conv(v):
         if isinstance(v, Mapping):
             return {k: conv(x) for k, x in v.items()}
         if isinstance(v, tuple):
-            return AttnCache(*(_tensor(x, dev) for x in v))
+            if len(v) == 0:
+                return ()
+            kind = by_name.get(type(v).__name__)
+            if kind is None or getattr(v, "_fields", None) != kind._fields:
+                raise ValueError(f"a {type(v).__name__} of {len(v)} leaves is no cache type "
+                                 f"of the port ({', '.join(sorted(by_name))})")
+            return kind(*(_tensor(x, dev) for x in v))
         return _tensor(v, dev)
 
     return conv(tree)

@@ -3,6 +3,10 @@ arch, serving a batch of synthetic requests end to end.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # plain PyTorch versions
+
+Every registered arch serves, the recurrent ones too (``--arch xlstm-1.3b``,
+``--arch zamba2-2.7b``): their fixed-size states ride in the same cache dict
+and merge per slot like the attention caches (``serving.engine.merge_slot``).
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ source of shapes and inits for a model's nested dict of parameters.
 From a spec tree the port derives the materialized tensors
 (:func:`init_params`, from an explicit ``torch.Generator``) and the abstract
 shapes (:func:`abstract_params`, ``meta`` tensors: no memory).  The inits are
-the reference's (fan-in scaled normal, small normal, zeros, ones); the random
+the reference's (fan-in scaled normal, small normal, zeros, ones, and
+mamba2's ``dt_bias`` and ``A_log`` from uniforms); the random
 numbers differ from JAX's, and tests carry JAX's weights across through
 ``convert.lm_params_from_numpy`` when they must match.
 """
@@ -23,7 +24,7 @@ from repro_torch.common.util import Device, resolve_device
 class ParamSpec:
     shape: tuple[int, ...]
     axes: tuple[Optional[str], ...]  # logical axis name per dim (None = replicated)
-    init: str = "normal"  # normal|zeros|ones|small_normal
+    init: str = "normal"  # normal|zeros|ones|small_normal|mamba_dt|mamba_alog
     scale: float = 1.0
     dtype: str = "float32"
 
@@ -40,6 +41,14 @@ def map_specs(fn: Callable[[ParamSpec], Any], specs: Any) -> Any:
     return {k: map_specs(fn, specs[k]) for k in sorted(specs)}
 
 
+# mamba2's inits: (low, high, map) of a uniform draw.  dt_bias is the
+# softplus inverse of a uniform in [1e-3, 1e-1], A_log the log of one in [1, 16]
+_UNIFORM_INITS = {
+    "mamba_dt": (1e-3, 1e-1, lambda u: torch.log(torch.expm1(u))),
+    "mamba_alog": (1.0, 16.0, torch.log),
+}
+
+
 def _materialize(spec: ParamSpec, generator: torch.Generator, device: torch.device
                  ) -> torch.Tensor:
     dtype = getattr(torch, spec.dtype)
@@ -47,6 +56,10 @@ def _materialize(spec: ParamSpec, generator: torch.Generator, device: torch.devi
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init in _UNIFORM_INITS:
+        lo, hi, fn = _UNIFORM_INITS[spec.init]
+        u = torch.rand(spec.shape, generator=generator, device=generator.device).mul_(hi - lo).add_(lo)
+        return fn(u).to(device=device, dtype=dtype)
     if spec.init == "normal":  # fan-in scaled
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale / np.sqrt(max(fan_in, 1))

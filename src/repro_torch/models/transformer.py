@@ -3,16 +3,20 @@ embed -> head layers -> superblocks -> tail layers -> final norm -> lm head,
 with the training forward and loss, prefill and decode entry points.
 
 The superblocks' parameters and caches stay stacked on a leading axis, as the
-reference lays them out for its ``lax.scan``; the port loops over them.  This
-slice runs attention (``attn``, ``attn_local``) with the dense MLP or the
-mixture of experts (``moe``) on f32 or bf16 weights in f32 or bf16 compute
-(the registered configs' default: bf16 activations, each routed matmul
-summed in f32 and rounded once); what it does not run raises
+reference lays them out for its ``lax.scan``; the port loops over them.  The
+port runs attention (``attn``, ``attn_local``), the recurrent mixers
+(``mamba2``, ``mlstm``, ``slstm``: ``models/recurrent.py``) and zamba2's
+shared block (``attn_shared`` with ``mlp_shared``: one attention and one MLP
+stored once in ``params["shared"]``, each occurrence with its own KV cache),
+with the dense MLP, the mixture of experts (``moe``) or no FFN (``none``),
+on f32 or bf16 weights in f32 or bf16 compute (the registered configs'
+default: bf16 activations, each routed matmul summed in f32 and rounded
+once).  Cross attention and the modality frontends raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.common.util import Device, resolve_device
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core import router
+from repro_torch.models import recurrent as rec
 from repro_torch.models import spec as pspec
 from repro_torch.models.layers import (
     AttnCache,
@@ -36,21 +41,28 @@ from repro_torch.models.layers import (
 from repro_torch.models.spec import ParamSpec
 from repro_torch.runtime import RuntimeConfig
 
-# the mixer kind of each attention layer spec
-_ATTN_KIND = {"attn": "causal", "attn_local": "local"}
-FFN_PORTED = ("mlp", "moe")
+# the attention kind of each attention mixer (a shared block attends causally)
+_ATTN_KIND = {"attn": "causal", "attn_local": "local", "attn_shared": "causal"}
+# each recurrent mixer's (specs, apply, empty cache)
+_RECURRENT = {"mamba2": (rec.mamba2_specs, rec.mamba2_apply, rec.init_mamba2_cache),
+              "mlstm": (rec.mlstm_specs, rec.mlstm_apply, rec.init_mlstm_cache),
+              "slstm": (rec.slstm_specs, rec.slstm_apply, rec.init_slstm_cache)}
+MIXERS_PORTED = (*_ATTN_KIND, *_RECURRENT, "none")
+# each mixer's cache type (the empty tuple for none)
+CACHE_TYPES = {**dict.fromkeys(_ATTN_KIND, AttnCache), "mamba2": rec.Mamba2Cache,
+               "mlstm": rec.MLSTMCache, "slstm": rec.SLSTMCache, "none": tuple}
+FFN_PORTED = ("mlp", "moe", "mlp_shared", "none")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Refuse what this slice of the port does not run."""
+    """Refuse what the port does not run: cross attention and the frontends."""
     for layer in cfg.all_layers():
-        if layer.mixer not in _ATTN_KIND:
+        if layer.mixer not in MIXERS_PORTED:
             raise NotImplementedError(
-                f"{cfg.name}: mixer {layer.mixer!r} is not ported (cross and shared "
-                "attention, mamba2, mLSTM and sLSTM come with a later slice)")
+                f"{cfg.name}: mixer {layer.mixer!r} is not ported (cross attention comes "
+                "with a later slice)")
         if layer.ffn not in FFN_PORTED:
-            raise NotImplementedError(f"{cfg.name}: ffn {layer.ffn!r} is not ported "
-                                      "(shared MLPs come with a later slice)")
+            raise NotImplementedError(f"{cfg.name}: ffn {layer.ffn!r} is not ported")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} frontend is not ported")
     for field in ("compute_dtype", "param_dtype"):
@@ -66,9 +78,26 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def layer_specs(cfg: ArchConfig, spec: LayerSpec, *, d_ff_override: Optional[int] = None
                 ) -> dict:
-    """An attention layer with its MLP (``d_ff_override`` wide) or its MoE."""
-    ffn = moe_specs(cfg) if spec.ffn == "moe" else mlp_specs(cfg, d_ff_override)
-    return {"mixer": attn_specs(cfg), "ffn": ffn}
+    """A layer's own parameters: its mixer's (none for a shared or absent
+    mixer) and its FFN's (the MLP ``d_ff_override`` wide, or the MoE; none
+    for a shared or absent FFN)."""
+    if spec.mixer in ("attn", "attn_local"):
+        mixer = attn_specs(cfg)
+    elif spec.mixer in _RECURRENT:
+        mixer = _RECURRENT[spec.mixer][0](cfg)
+    else:  # attn_shared, none: in the shared group, or nothing
+        mixer = {}
+    if spec.ffn == "mlp":
+        ffn = mlp_specs(cfg, d_ff_override)
+    elif spec.ffn == "moe":
+        ffn = moe_specs(cfg)
+    else:  # mlp_shared, none
+        ffn = {}
+    return {"mixer": mixer, "ffn": ffn}
+
+
+def _uses_shared(cfg: ArchConfig) -> bool:
+    return any(l.mixer == "attn_shared" or l.ffn == "mlp_shared" for l in cfg.all_layers())
 
 
 def model_specs(cfg: ArchConfig) -> dict:
@@ -82,59 +111,100 @@ def model_specs(cfg: ArchConfig) -> dict:
     specs["blocks"] = pspec.stack_specs(superblock, cfg.num_superblocks)
     for i, s in enumerate(cfg.tail_pattern):
         specs[f"tail{i}"] = layer_specs(cfg, s)
+    if _uses_shared(cfg):  # zamba2: one attention and one MLP, reused by every occurrence
+        specs["shared"] = {"mixer": attn_specs(cfg), "ffn": mlp_specs(cfg)}
     specs["final_norm"] = ParamSpec((d,), ("embed",), "zeros", dtype=dt)
     specs["lm_head"] = ParamSpec((d, v), ("embed", "vocab"), "small_normal", dtype=dt)
     return specs
 
 
+def _layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, cache_len: int,
+                 dev: torch.device) -> Any:
+    """A layer's empty cache: an :class:`AttnCache` for an attention mixer
+    (a shared one's too: each occurrence keeps its own keys and values), the
+    recurrent state of a recurrent one, ``()`` for none."""
+    if spec.mixer in _ATTN_KIND:
+        return init_attn_cache(cfg, batch, cache_len, kind=_ATTN_KIND[spec.mixer], device=dev)
+    if spec.mixer in _RECURRENT:
+        return _RECURRENT[spec.mixer][2](cfg, batch, device=dev)
+    return ()
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *, device: Device = None) -> dict:
-    """Empty caches: ``blocks`` holds one :class:`AttnCache` per superblock
-    layer with every leaf stacked over the superblocks (batch on axis 1), the
-    head and tail layers one each (batch on axis 0), ``lengths`` (B,) int32."""
+    """Empty caches: ``blocks`` holds one cache NamedTuple (``AttnCache``,
+    ``Mamba2Cache``, ``MLSTMCache``, ``SLSTMCache``) per superblock layer
+    with every leaf stacked over the superblocks (batch on axis 1), the head
+    and tail layers one each (batch on axis 0), ``lengths`` (B,) int32."""
     check_supported(cfg)
     dev = resolve_device(device)
 
-    def layer_cache(s: LayerSpec) -> AttnCache:
-        return init_attn_cache(cfg, batch, cache_len, kind=_ATTN_KIND[s.mixer], device=dev)
+    def stacked(c: Any) -> Any:
+        return type(c)(*(torch.stack([leaf] * cfg.num_superblocks) for leaf in c))
 
     cache: dict = {
-        "blocks": {f"l{i}": AttnCache(*(torch.stack([leaf] * cfg.num_superblocks)
-                                        for leaf in layer_cache(s)))
+        "blocks": {f"l{i}": stacked(_layer_cache(cfg, s, batch, cache_len, dev))
                    for i, s in enumerate(cfg.block_pattern)},
         "lengths": torch.zeros(batch, dtype=torch.int32, device=dev),
     }
     for i, s in enumerate(cfg.head_pattern):
-        cache[f"pre{i}"] = layer_cache(s)
+        cache[f"pre{i}"] = _layer_cache(cfg, s, batch, cache_len, dev)
     for i, s in enumerate(cfg.tail_pattern):
-        cache[f"tail{i}"] = layer_cache(s)
+        cache[f"tail{i}"] = _layer_cache(cfg, s, batch, cache_len, dev)
     return cache
 
 
 # ---------------------------------------------------------------- layers
 
 
-def _apply_layer(lp: dict, h: torch.Tensor, cfg: ArchConfig, spec: LayerSpec, *, mode: str,
-                 cache: Optional[AttnCache] = None, lengths: Optional[torch.Tensor] = None):
-    """Returns (h, cache, aux): the attention mixer, then the MLP or the MoE
-    (aux its load-balance loss; 0.0 for the MLP, a float: no kernel)."""
-    kind = _ATTN_KIND[spec.mixer]
-    if kind == "causal" and not cfg.causal:
-        kind = "full"
-    h, cache = attn_apply(lp["mixer"], h, cfg, kind=kind, cache=cache, lengths=lengths,
-                          mode=mode)
+def _apply_layer(lp: dict, shared: Optional[dict], h: torch.Tensor, cfg: ArchConfig,
+                 spec: LayerSpec, *, mode: str, cache: Any = None,
+                 lengths: Optional[torch.Tensor] = None):
+    """Returns (h, the layer's cache, aux): the mixer, then the FFN (aux the
+    MoE's load-balance loss; 0.0 otherwise, a float: no kernel).  A shared
+    mixer or MLP runs ``shared``'s weights.  An attention mixer writes its
+    cache in place and returns it; a recurrent one returns a new state
+    (None in training) for the caller to store."""
+    m = spec.mixer
+    cache = cache if cache != () else None
+    if m in _ATTN_KIND:
+        kind = _ATTN_KIND[m]
+        if kind == "causal" and not cfg.causal:
+            kind = "full"
+        p_attn = shared["mixer"] if m == "attn_shared" else lp["mixer"]
+        h, cache = attn_apply(p_attn, h, cfg, kind=kind, cache=cache, lengths=lengths, mode=mode)
+    elif m in _RECURRENT:
+        h, cache = _RECURRENT[m][1](lp["mixer"], h, cfg, mode=mode, cache=cache)
     if spec.ffn == "moe":
         h, aux = moe_apply(lp["ffn"], h, cfg)
         return h, cache, aux
-    return mlp_apply(lp["ffn"], h, cfg), cache, 0.0
+    if spec.ffn in ("mlp", "mlp_shared"):
+        h = mlp_apply(shared["ffn"] if spec.ffn == "mlp_shared" else lp["ffn"], h, cfg)
+    return h, cache, 0.0
 
 
 def _index(tree: Any, i: int) -> Any:
-    """Superblock ``i`` of a stacked tree (views: writes reach the stack)."""
+    """Superblock ``i`` of a stacked tree (views: writes reach the stack).
+    A cache NamedTuple of any kind keeps its type, its leaves indexed."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    if isinstance(tree, AttnCache):
-        return AttnCache(*(leaf[i] for leaf in tree))
+    if isinstance(tree, tuple):  # AttnCache, Mamba2Cache, MLSTMCache, SLSTMCache, ()
+        return type(tree)(*(leaf[i] for leaf in tree))
     return tree[i]
+
+
+def store_rows(old: tuple, rows, index) -> tuple:
+    """``old`` (a cache NamedTuple) with ``rows`` written into each leaf at
+    ``index``, in place.  A leaf takes its rows' type, as the reference's
+    returned cache does: mamba2's bf16 conv buffer comes back f32 from f32
+    compute, so that leaf is first replaced by an f32 copy (its other rows
+    exactly).  Returns the NamedTuple of the leaves written."""
+    leaves = []
+    for leaf, new in zip(old, rows):
+        if leaf.dtype != new.dtype:
+            leaf = leaf.to(new.dtype)
+        leaf[index] = new
+        leaves.append(leaf)
+    return type(old)(*leaves)
 
 
 def _unstack(tree: dict, n: int) -> list:
@@ -149,30 +219,37 @@ def _unstack(tree: dict, n: int) -> list:
 def _layers(params: dict, cfg: ArchConfig, h: torch.Tensor, *, mode: str,
             cache: Optional[dict] = None) -> tuple[torch.Tensor, Any]:
     """Every layer in order: head, the superblocks (a loop in place of the
-    reference's scan), tail.  Caches are written in place.  Returns (h, the
-    summed aux loss: an f32 tensor, or 0.0 without MoE layers), summed in
-    the reference's order: head layers, each superblock's sum, tail layers."""
+    reference's scan), tail.  Caches are written in place (a recurrent
+    layer's state by :func:`store_rows`).  Returns (h, the summed aux
+    loss: an f32 tensor, or 0.0 without MoE layers), summed in the
+    reference's order: head layers, each superblock's sum, tail layers."""
     lengths = cache["lengths"] if cache is not None else None
+    shared = params.get("shared")
 
-    def run(h, lp, spec, caches, key):
-        c = caches[key] if caches is not None else None
-        h, _, aux = _apply_layer(lp[key], h, cfg, spec, mode=mode, cache=c, lengths=lengths)
+    def run(h, lp, spec, key, caches, sb=None):
+        c = None
+        if caches is not None:
+            c = _index(caches[key], sb) if sb is not None else caches[key]
+        h, new, aux = _apply_layer(lp[key], shared, h, cfg, spec, mode=mode, cache=c,
+                                   lengths=lengths)
+        if caches is not None and spec.mixer in _RECURRENT:  # a new state: into the cache
+            caches[key] = store_rows(caches[key], new, sb if sb is not None else slice(None))
         return h, aux
 
     aux_total = 0.0
     for i, spec in enumerate(cfg.head_pattern):
-        h, aux = run(h, params, spec, cache, f"pre{i}")
+        h, aux = run(h, params, spec, f"pre{i}", cache)
         aux_total = aux_total + aux
     blocks = _unstack(params["blocks"], cfg.num_superblocks)
     for sb in range(cfg.num_superblocks):
-        sbc = _index(cache["blocks"], sb) if cache is not None else None
         sb_aux = 0.0
         for i, spec in enumerate(cfg.block_pattern):
-            h, aux = run(h, blocks[sb], spec, sbc, f"l{i}")
+            h, aux = run(h, blocks[sb], spec, f"l{i}",
+                         cache["blocks"] if cache is not None else None, sb)
             sb_aux = sb_aux + aux
         aux_total = aux_total + sb_aux
     for i, spec in enumerate(cfg.tail_pattern):
-        h, aux = run(h, params, spec, cache, f"tail{i}")
+        h, aux = run(h, params, spec, f"tail{i}", cache)
         aux_total = aux_total + aux
     return h, aux_total
 

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.common.util import Device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, store_rows
 
 
 @dataclass
@@ -146,13 +146,17 @@ def merge_slot(cache: dict, fresh: dict, slot: int) -> None:
     axis 1 under ``blocks`` (stacked over the superblocks), axis 0 for the
     head and tail layers.  (The reference guesses it from ``shape[0] ==
     num_superblocks``, which picks the wrong axis of the unstacked layers when
-    ``batch_slots == num_superblocks``.)  ``lengths`` is the caller's."""
+    ``batch_slots == num_superblocks``.)  Any cache NamedTuple merges leaf by
+    leaf: an ``AttnCache``, a recurrent state.  A leaf whose type differs
+    from the fresh one's (mamba2's bf16 conv inputs, which a prefill in f32
+    compute returns f32) first takes the fresh type, as a decode step would
+    give it: the reference's ``.at[].set`` rounds the fresh rows into the
+    bf16 buffer instead, for every admit before its engine's first decode
+    step (ROADMAP Queue 3).  ``lengths`` is the caller's."""
     for key, layer in cache.items():
-        if key == "lengths":
-            continue
-        pairs = ([(layer[name], fresh[key][name], 1) for name in layer] if key == "blocks"
-                 else [(layer, fresh[key], 0)])
-        for old, new, axis in pairs:
-            for o, n in zip(old, new):  # AttnCache leaves
-                o.select(axis, slot).copy_(n.select(axis, slot))
-
+        if key == "blocks":
+            for name, c in layer.items():
+                layer[name] = store_rows(c, [n[:, slot] for n in fresh[key][name]],
+                                         (slice(None), slot))
+        elif key != "lengths":
+            cache[key] = store_rows(layer, [n[slot] for n in fresh[key]], slot)
