@@ -254,7 +254,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      f32 inputs, and on views into NaN-padded rows (no column past D read or
      written); one request in f32 compute card vs CPU at full width and 1
      superblock within ``LM_LOGIT_TOL``, beside the CPU's own move under a
-     one-ulp change of the embedding.
+     one-ulp change of the embedding;
+ 28. ``[lm hubert-xlarge]`` and ``[lm llama-3.2-vision-90b]`` (after 27): the
+     stub frontends.  hubert at full width and depth as registered (f32
+     weights, bf16 compute, encoder-only, seeded f32 frames in): forward and
+     loss at 4 x 500 and 2 x 333 frames, prefill at 4 x 500 and 1 x 500,
+     launches counted from the code (289 ``mm_fused`` and 48 ``flash_fwd``
+     a forward; the batch-1 prefill's head on ``vpe_mm``), forward ms,
+     frames/s, peak GB, the prefills' last logits held to the forward's;
+     the mixed arms at every recorded shape (the gelu epilogue too) and
+     ``flash_fwd`` under the full mask at D 80 against their plain twins;
+     the forward card vs CPU in f32 at 2 of 48 superblocks.  llama-vision
+     at full width, 2 of its 20 superblocks (bf16 weights and compute, 21.3
+     GB): 4 requests of 300 tokens, each with its own 1600 image
+     embeddings, one prefill and 8 decode steps (71 and 67 ``mm_fused``, 10
+     and 2 ``flash_fwd``: cross decode attends the cached image keys through
+     the flash kernel), prefill ms, decode ms a step, tok/s, peak GB; every
+     row equal to its request alone at batch 1 except counted near ties;
+     the bf16-weight arm at every recorded shape (the cross k/v over 6400
+     image rows) and ``flash_fwd`` at the self and cross shapes (Sq 300
+     and 1 against 1600 keys) against their twins, timed beside
+     ``torch.matmul``/SDPA; decode vs forward in f32; one self and the
+     cross layer card vs CPU in f32 at full width.
 
 The second-to-last line is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off everywhere: the reference
@@ -420,6 +441,41 @@ RECURRENT_PROMPTS, RECURRENT_MAX_NEW, RECURRENT_CPU_SUPERBLOCKS = (300, 45, 160,
 # RECURRENT_F32_TIE_GAP (over three times that reading)
 RECURRENT_BATCH1 = {"xlstm-1.3b": "float32", "zamba2-2.7b": "bfloat16"}
 RECURRENT_F32_TIE_GAP = 1e-2
+# hubert-xlarge at full width and depth as registered (f32 weights, bf16
+# compute, 3.78 GB; f32 normal frames in): forward and loss at 4 x 500 frames
+# (10 s of audio at its 50 frames/s) and 2 x 333 (a ragged flash tile),
+# prefill at 4 x 500 and 1 x 500; its prefill held to the forward by the
+# reference's tests/test_consistency.py rule (2e-3 of max|logit|), card vs
+# CPU in f32 compute at HUBERT_CPU_SUPERBLOCKS of its 48 superblocks
+HUBERT_ARCH = "hubert-xlarge"
+HUBERT_BATCHES, HUBERT_PREFILLS = ((4, 500), (2, 333)), ((4, 500), (1, 500))
+HUBERT_PREFILL_TOL, HUBERT_CPU_SUPERBLOCKS = 2e-3, 2
+# llama-3.2-vision-90b at full width, VISION_SUPERBLOCKS of its 20 (8 self and
+# 2 cross layers, 10.66 B parameters, 21.3 GB of bf16: the whole model's 175
+# GB does not fit one card), otherwise as registered; 4 requests of 300-token
+# prompts, each with its own 1600 image embeddings (one length: LM.prefill
+# takes one a batch, and the engine cannot feed images), 8 decode steps at
+# 512 cache rows; decode vs forward in f32 compute after a prefill of
+# VISION_DECODE_CHECK[0] tokens; card vs CPU on one self and the cross layer
+# at full width over VISION_CPU_TOKENS tokens (the whole model's embedding
+# and head alone are 8.4 GB of f32 on the host)
+VISION_ARCH = "llama-3.2-vision-90b"
+VISION_SUPERBLOCKS, VISION_REQUESTS, VISION_PROMPT, VISION_MAX_NEW = 2, 4, 300, 8
+VISION_CACHE, VISION_DECODE_CHECK, VISION_CPU_TOKENS = 512, (297, 3), 160
+# Decode against the forward in f32 compute, as shares of max|logit|.  With
+# an f32 KV cache (the control) the two differ only in the order of f32 sums
+# (the skinny kernel at one row against the tf32x3 tiles, the flash kernel
+# against the plain decode attention, over 10 layers; one layer card vs CPU
+# read 1.1e-06 to 1.9e-06 of its max): under DECODE_F32_TOL.  Served as the
+# reference serves it, decode attends a bf16 KV cache where the forward
+# attends f32 keys and values, so its logits carry the roundings of every
+# cached key and value; they are held to BF16_LOGIT_TOL, the limit for
+# logits that differ by bf16 roundings.  On an H100 80GB HBM3 at 700 W the
+# 2-of-20-superblock llama-vision read 3.771e-03 with the bf16 cache and
+# 3.151e-06 with an f32 one; on the CPU the reduced model reads 6.6e-03 and
+# 1.7e-06 (max|logit| 0.51 there, 8.66 at full width, so the reference's
+# absolute 2e-2 of tests/test_consistency.py does not carry over)
+DECODE_F32_TOL = 1e-4
 # [train qwen3-0.6b]: qwen3-0.6b as registered (f32 weights, bf16 compute,
 # AdamW) trained at full width and depth by Trainer.run for TRAIN_STEPS steps
 # of TRAIN_BATCH x TRAIN_SEQ tokens, saving once at the last step; then card
@@ -1072,19 +1128,24 @@ def lm_prompts(cfg, rng) -> list:
             for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)]
 
 
-# the mixers whose layers run attention (a prefill: one flash_fwd each)
-ATTN_MIXERS = ("attn", "attn_local", "attn_shared")
+# the mixers whose layers run attention (a prefill: one flash_fwd each; a
+# decode step: one for each cross-attention layer, the others attending their
+# KV cache in plain PyTorch)
+ATTN_MIXERS = ("attn", "attn_local", "attn_shared", "attn_cross")
 
 
-def layer_matmuls(cfg, i: int, layer) -> list:
+def layer_matmuls(cfg, i: int, layer, decode: bool = False) -> list:
     """(name, k, n) of the routed matmuls of ``layer``, the ``i``-th of the
     model, counted from the model code: an attention mixer's four
-    projections (a shared one's too), mamba2's in_proj and out_proj, the
-    mLSTM's w_up and w_down, the sLSTM's w_gates and w_down; a dense or
-    shared MLP's three (two when not gated), an MoE's shared experts' three
-    (its experts are plain products), nothing for no FFN."""
+    projections (a shared one's too; a cross one's at a decode step only q
+    and o: its keys and values were cached at prefill), mamba2's in_proj and
+    out_proj, the mLSTM's w_up and w_down, the sLSTM's w_gates and w_down; a
+    dense or shared MLP's three (two when not gated), an MoE's shared
+    experts' three (its experts are plain products), nothing for no FFN."""
     d, m, out = cfg.d_model, layer.mixer, []
-    if m in ATTN_MIXERS:
+    if m == "attn_cross" and decode:
+        out += [("wq", d, cfg.q_dim), ("wo", cfg.q_dim, d)]
+    elif m in ATTN_MIXERS:
         out += [("wq", d, cfg.q_dim), ("wk", d, cfg.kv_dim), ("wv", d, cfg.kv_dim),
                 ("wo", cfg.q_dim, d)]
     elif m == "mamba2":
@@ -1103,10 +1164,12 @@ def layer_matmuls(cfg, i: int, layer) -> list:
     return out
 
 
-def lm_forward_matmuls(cfg) -> list:
-    """(name, k, n) of every routed matmul of one LM forward: each layer's
-    (``layer_matmuls``), then the lm head."""
-    return ([mm for i, layer in enumerate(cfg.all_layers()) for mm in layer_matmuls(cfg, i, layer)]
+def lm_forward_matmuls(cfg, decode: bool = False) -> list:
+    """(name, k, n) of every routed matmul of one LM forward (a prefill, or
+    with ``decode`` a decode step): each layer's (``layer_matmuls``), then
+    the lm head."""
+    return ([mm for i, layer in enumerate(cfg.all_layers())
+             for mm in layer_matmuls(cfg, i, layer, decode)]
             + [("lm_head", cfg.d_model, cfg.padded_vocab)])
 
 
@@ -1372,10 +1435,12 @@ def time_cold_forward(torch, arype, calls, label: str, layers: int) -> dict:
     return dict(ms=t, library_ms=tl, bound_ms=b, bound_by=by)
 
 
-def greedy_single(torch, model, params, prompt, max_new: int, cache_len: int):
-    """The single-request greedy reference: batch 1, prefill then decode.
-    Returns its tokens and, at each, the gap of its top two logits as a
-    share of max|logit|."""
+def greedy_single(torch, model, params, prompt, max_new: int, cache_len: int,
+                  extra: dict | None = None):
+    """The single-request greedy reference: batch 1, prefill then decode
+    (``extra``: more inputs of the prefill's batch, as the request's image
+    embeddings (1, T, d)).  Returns its tokens and, at each, the gap of its
+    top two logits as a share of max|logit|."""
     cache = model.init_cache(1, cache_len)
     v = model.cfg.vocab_size
     toks, gaps = [], []
@@ -1385,8 +1450,8 @@ def greedy_single(torch, model, params, prompt, max_new: int, cache_len: int):
         gaps.append(((top2[0] - top2[1]) / logits.abs().max()).item())
         toks.append(int(logits.argmax()))
 
-    logits, cache = model.prefill(params, {"tokens": torch.as_tensor(prompt[None]).to(CARD)},
-                                  cache)
+    logits, cache = model.prefill(params, {"tokens": torch.as_tensor(prompt[None]).to(CARD),
+                                           **(extra or {})}, cache)
     take(logits[0, -1, :v])
     for _ in range(max_new - 1):
         tok = torch.tensor([[toks[-1]]], device=CARD)
@@ -2815,22 +2880,26 @@ def moe_route_ties(torch, layers, cfg, captured: list) -> None:
         f"log-probability difference {worst:.3e}")
 
 
-def check_recorded_mixed(torch, cfg, shapes, engines, gen, *, time_it: bool = True) -> dict:
-    """Each engine's mixed arm (bf16 x, f32 w) at every matmul shape a serve
-    recorded (``shapes``: kernel -> {(m, k, n): name}; ``engines``: kernel ->
-    (wrapper, plain twin, plan)), through ``check_mixed_matmuls``.  Returns
-    each kernel's record: its largest error from its twin and, with
-    ``time_it``, its times summed over the shapes (one call each)."""
+def check_recorded_mixed(torch, cfg, shapes, engines, gen, *, time_it: bool = True,
+                         w_dtype=None) -> dict:
+    """Each engine's bf16-x arm at every matmul shape a run recorded
+    (``shapes``: kernel -> {(m, k, n): name}; ``engines``: kernel ->
+    (wrapper, plain twin, plan)), through ``check_mixed_matmuls`` on w of
+    ``w_dtype`` (f32 by default: the mixed arm).  Returns each kernel's
+    record: its largest error from its twin and, with ``time_it``, its times
+    summed over the shapes (one call each)."""
     recs = {}
     names = {(k, n): name for name, k, n in lm_forward_matmuls(cfg)}  # the unnamed projections
+    arm = "bf16-weight arm (bf16 x, bf16 w)" if w_dtype == torch.bfloat16 else \
+        "mixed arm (bf16 x, f32 w)"
     for kernel, seen in sorted(shapes.items()):
         engine, plain, plan = engines[kernel]
         todo = [("lm_head" if n == cfg.padded_vocab else names.get((k, n), name), m, k, n)
                 for (m, k, n), name in seen.items()]
-        log(f"  {kernel}'s mixed arm (bf16 x, f32 w) at the {len(todo)} shapes the serve and "
-            "the batch-1 runs launched it at, against its plain version:")
+        log(f"  {kernel}'s {arm} at the {len(todo)} shapes the runs launched it at, against "
+            "its plain version:")
         recs[kernel] = check_mixed_matmuls(torch, engine, plain, todo, gen, plan=plan,
-                                           time_it=time_it)
+                                           time_it=time_it, w_dtype=w_dtype)
         if not time_it:
             log(f"    bit for bit the f32 arm on x.float(); worst error from the twin "
                 f"{recs[kernel]['max_abs_err']:.3e}")
@@ -3216,13 +3285,15 @@ def flash_record(torch, fa, gen, cfg, slots: int, prompts) -> dict:
     return set_bound_by(rec)
 
 
-def check_flash_padding(torch, fa, gen, b: int, h: int, n: int, d: int) -> None:
-    """``flash_fwd`` in bf16 at a head width D short of its tile's DP (causal,
-    B ``b``, ``h`` heads, S ``n``): against SDPA on the inputs upcast to f32
-    (the exact function) within ``FLASH_TOL``; and, launched on q, k, v views
-    into rows of DP columns that hold NaN past D, into an output view of such
-    rows, equal to the dense call bit for bit with the output's NaN columns
-    untouched: no column past D is read or written."""
+def check_flash_padding(torch, fa, gen, b: int, h: int, n: int, d: int,
+                        mask: str = "causal") -> None:
+    """``flash_fwd`` in bf16 at a head width D short of its tile's DP (the
+    ``mask``, causal or full; B ``b``, ``h`` heads, S ``n``): against SDPA on
+    the inputs upcast to f32 (the exact function) within ``FLASH_TOL``; and,
+    launched on q, k, v views into rows of DP columns that hold NaN past D,
+    into an output view of such rows, equal to the dense call bit for bit
+    with the output's NaN columns untouched: no column past D is read or
+    written."""
     import torch.nn.functional as F
 
     plan = fa.flash_plan(d, torch.bfloat16)
@@ -3230,8 +3301,9 @@ def check_flash_padding(torch, fa, gen, b: int, h: int, n: int, d: int) -> None:
     wide = torch.full((3, b, n, h, plan.width), float("nan"), device=CARD, dtype=torch.bfloat16)
     wide[..., :d] = torch.randn(3, b, n, h, d, generator=gen).to(CARD, torch.bfloat16)
     q, k, v = (t[..., :d].transpose(1, 2) for t in wide)
-    dense = fa.flash_attention(*(t.contiguous() for t in (q, k, v)))
-    exact = F.scaled_dot_product_attention(*(t.float() for t in (q, k, v)), is_causal=True)
+    dense = fa.flash_attention(*(t.contiguous() for t in (q, k, v)), mask=mask)
+    exact = F.scaled_dot_product_attention(*(t.float() for t in (q, k, v)),
+                                           is_causal=mask == "causal")
     err = (dense.float() - exact).abs().max().item()
     if not torch.allclose(dense.float(), exact, rtol=rtol, atol=atol):
         raise AssertionError(f"flash_fwd D {d} B {b} S {n}: max err {err} from SDPA in f32")
@@ -3239,14 +3311,14 @@ def check_flash_padding(torch, fa, gen, b: int, h: int, n: int, d: int) -> None:
     out = out_wide[..., :d].transpose(1, 2)
     fa.FLASH_FWD(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, b, h, h,
                  n, n, d, *(st for t in (q, k, v, out) for st in t.stride()[:3]),
-                 fa.MASKS["causal"], 0, n, 1.0 / (d ** 0.5), plan.tile, fa.stream_of(q))
+                 fa.MASKS[mask], 0, n, 1.0 / (d ** 0.5), plan.tile, fa.stream_of(q))
     torch.cuda.synchronize()
     if not torch.equal(out, dense):
         raise AssertionError(f"flash_fwd D {d} B {b} S {n}: the views into padded rows differ "
                              "from the dense call (a column past D was read)")
     if not torch.isnan(out_wide[..., d:].float()).all():
         raise AssertionError(f"flash_fwd D {d} B {b} S {n}: a column past D was written")
-    log(f"  flash_fwd D {d} B {b} S {n}: within FLASH_TOL of SDPA on f32 inputs (max err "
+    log(f"  flash_fwd D {d} B {b} S {n} {mask}: within FLASH_TOL of SDPA on f32 inputs (max err "
         f"{err:.3e}); on views into {plan.width}-wide rows with NaN past D: equal to the dense "
         "call, no column past D written")
 
@@ -3416,6 +3488,352 @@ def recurrent_phase(torch, np, kernels, record_routes, lm_mod, serving, get_conf
                    tol=BF16_LOGIT_TOL, tie=BF16_TIE_GAP, control_cfg=one)
     del params, cut_params, cpu, one_params
     torch.cuda.empty_cache()
+    return recs
+
+
+def counted_run(torch, kernels, record_routes, fn, want: dict, label: str, shapes: dict):
+    """``fn()`` with every launch count at 0 just before and read just
+    after, ended by a device sync and timed on the host clock: the counts
+    must be ``want`` (every other kernel 0) and what the run's recorded
+    matmuls launch (``matmul_launches``; the flash launches aside), and the
+    recorded shapes go to ``shapes`` (``note_shapes``).  Returns (fn's
+    result, the counts, ms)."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with record_routes() as routes:
+        out = fn()
+        sync(torch)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = expect_launches(kernels, want, label)
+    recorded = kernels.matmul_launches(routes)
+    recorded["flash_fwd"] = counts["flash_fwd"]
+    if recorded != counts:
+        raise AssertionError(f"{label}: launches {counts}, recorded routes {recorded}")
+    note_shapes(kernels, routes, label, shapes)
+    return out, counts, ms
+
+
+def share_of(a, b) -> float:
+    """max|a - b| as a share of max|b|."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def hubert_phase(torch, np, kernels, record_routes, lm_mod, get_config, fa, arype, vpe_matmul,
+                 vpe_mm, gen) -> dict:
+    """``[lm hubert-xlarge]``: hubert-xlarge at full width and depth as
+    registered (f32 weights, bf16 compute, encoder-only: seeded f32 frames
+    in, no embedding), seed 0 on the card.  ``LM.forward`` (per-frame logits
+    over the 504 units) and ``LM.loss`` on seeded labels at each of
+    ``HUBERT_BATCHES``; ``LM.prefill`` at each of ``HUBERT_PREFILLS``.  Each
+    run's launches as counted from the code (a forward: 289 ``mm_fused``, 48
+    ``flash_fwd``; the batch-1 prefill's head on ``vpe_mm``); forward ms,
+    frames/s and peak GB; the prefills' last-position logits within
+    ``HUBERT_PREFILL_TOL`` of max|logit| of the forward's.  Then the mixed
+    arms at every recorded shape against their plain twins, timed beside
+    ``torch.matmul(x.float(), w).to(out)``, the gelu epilogue at the
+    ``wi_up`` shapes; ``flash_fwd`` at the full-mask shapes (D 80 in the
+    128-wide tile) against its plain twin and SDPA, and on views into
+    NaN-padded rows; the forward card vs CPU in f32 compute at full width
+    and ``HUBERT_CPU_SUPERBLOCKS`` superblocks within ``LM_LOGIT_TOL``.
+    Returns the kernels' records (``launches``: every run of the phase)."""
+    cfg = get_config(HUBERT_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm_mod.LM(cfg, device=CARD)
+    params = model.init(torch.Generator(device=CARD).manual_seed(0))
+    sync(torch)
+    leaves = list(_leaves(params))
+    log(f"[lm {HUBERT_ARCH}] as registered (compute {cfg.compute_dtype}, params "
+        f"{cfg.param_dtype}), encoder-only, {cfg.frontend} (no embedding), d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, the full mask, gelu MLP "
+        f"{cfg.d_ff}, {cfg.num_layers} layers, {cfg.vocab_size} units; "
+        f"{sum(t.numel() for t in leaves)} parameters "
+        f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} GB, seed 0) in "
+        f"{time.perf_counter() - t0:.2f} s; forward and loss at (B, S) {list(HUBERT_BATCHES)}, "
+        f"prefill at {list(HUBERT_PREFILLS)}")
+    g = torch.Generator(device=CARD).manual_seed(3)
+    frames = {bs: torch.randn(*bs, cfg.d_model, generator=g, device=CARD)
+              for bs in HUBERT_BATCHES}
+    per_forward, attn = len(lm_forward_matmuls(cfg)), attention_layers(cfg)
+    shapes, total, forwards = {}, {}, {}
+    for b, s in HUBERT_BATCHES:
+        x = frames[b, s]
+        labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=CARD)
+        want = {"mm_fused": per_forward, "flash_fwd": attn}
+        (logits, _), counts, _ = counted_run(
+            torch, kernels, record_routes, lambda: model.forward(params, {"frames": x}), want,
+            f"forward B{b} S{s}", shapes)
+        if logits.shape != (b, s, cfg.padded_vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"forward B{b} S{s}: logits {tuple(logits.shape)} not finite")
+        (loss, _), lcounts, _ = counted_run(
+            torch, kernels, record_routes,
+            lambda: model.loss(params, {"frames": x, "labels": labels}), want,
+            f"loss B{b} S{s}", shapes)
+        if not torch.isfinite(loss):
+            raise AssertionError(f"loss B{b} S{s}: {float(loss)}")
+        add_counts(total, counts)
+        add_counts(total, lcounts)
+        forwards[b, s] = logits
+        ms = wall_ms(torch, lambda: model.forward(params, {"frames": x}), reps=3)
+        log(f"  forward B {b} x {s} frames: {ms:.3f} ms, {b * s / ms * 1e3:.1f} frames/s; loss "
+            f"{float(loss):.6f} (ln {cfg.vocab_size} = {np.log(cfg.vocab_size):.6f}); a forward "
+            f"and a loss each launched {counts_text(counts)}")
+    fb, fs = HUBERT_BATCHES[0]
+    for b, s in HUBERT_PREFILLS:
+        if s != fs or b > fb:
+            raise AssertionError(f"prefill B{b} S{s} is not a part of the forward's batch")
+        # the head's few rows: at one row the router places it on the VPE
+        head_vpe = int(b == 1)
+        want = {"mm_fused": per_forward - head_vpe, "vpe_mm": head_vpe, "flash_fwd": attn}
+        (logits, cache), counts, ms = counted_run(
+            torch, kernels, record_routes,
+            lambda: model.prefill(params, {"frames": frames[fb, fs][:b]}, model.init_cache(b, s)),
+            want, f"prefill B{b} S{s}", shapes)
+        add_counts(total, counts)
+        dist = share_of(logits[:, 0, :cfg.vocab_size], forwards[fb, fs][:b, -1, :cfg.vocab_size])
+        log(f"  prefill B {b} x {s} frames: {ms:.3f} ms, launches {counts_text(counts)}; its "
+            f"last-position logits {dist:.3e} of max|logit| from the forward's (limit "
+            f"{HUBERT_PREFILL_TOL})")
+        if dist > HUBERT_PREFILL_TOL or int(cache["lengths"][0]) != s:
+            raise AssertionError(f"prefill B{b}: {dist:.3e} of max|logit| from the forward")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches over "
+        f"the phase's runs {counts_text(total)}")
+
+    engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan),
+               "vpe_mm": (vpe_matmul, vpe_mm, None)}
+    recs = check_recorded_mixed(torch, cfg, shapes, engines, gen)
+    gelu = product_record()
+    for m, k, n in shapes["mm_fused"]:
+        if (k, n) == (cfg.d_model, cfg.d_ff):  # wi_up, the gelu epilogue
+            x = torch.randn(m, k, generator=gen).to(CARD, torch.bfloat16)
+            w = torch.randn(k, n, generator=gen).to(CARD)
+            out = arype.arype_matmul(x, w, activation="gelu")
+            if not torch.equal(out, arype.arype_matmul(x.float(), w, activation="gelu")
+                               .to(torch.bfloat16)):
+                raise AssertionError(f"mm_fused gelu ({m},{k},{n}): differs from the f32 arm")
+            hold_to_plain(torch, f"mm_fused gelu ({m},{k},{n})", out,
+                          arype.mm_fused(x, w, activation="gelu"), gelu)
+    log(f"  mm_fused's gelu epilogue at the wi_up shapes: bit for bit the f32 arm on x.float(), "
+        f"worst error from the twin {gelu['max_abs_err']:.3e}")
+    recs["mm_fused"]["max_abs_err"] = max(recs["mm_fused"]["max_abs_err"], gelu["max_abs_err"])
+    for name in ("mm_fused", "vpe_mm"):
+        recs[name]["launches"] = total[name]
+
+    d, h = cfg.head_dim, cfg.num_heads
+    log(f"  flash_fwd in bf16 at the forward and prefill shapes ({h} heads, D {d} in the "
+        f"{fa.flash_plan(d, torch.bfloat16).width}-wide tile, full mask):")
+    frec = product_record()
+    for b, s in (*HUBERT_BATCHES, *[bs for bs in HUBERT_PREFILLS if bs not in HUBERT_BATCHES]):
+        r = flash_case(torch, fa, gen, (b, h, h, s, s, d, "full", 0, None), "bfloat16",
+                       lm_layout=True)
+        frec["max_abs_err"] = max(frec["max_abs_err"], r["max_abs_err"])
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"):
+            frec[key] += r[key]
+        check_flash_padding(torch, fa, gen, b, h, s, d, mask="full")
+    frec["ops_ms"] = frec["flops"] / BF16_OPS_PER_S * 1e3
+    recs["flash_fwd"] = set_bound_by(frec)
+    recs["flash_fwd"]["launches"] = total["flash_fwd"]
+
+    cut = cfg.replace(num_superblocks=HUBERT_CPU_SUPERBLOCKS, compute_dtype="float32")
+    cut_params = dict(params, blocks=_stack_head(params["blocks"], HUBERT_CPU_SUPERBLOCKS))
+    b, s = HUBERT_BATCHES[-1]
+    x = frames[b, s]
+    card = lm_mod.LM(cut, device=CARD).forward(cut_params, {"frames": x})[0].cpu()
+    cpu_model, cpu_params = lm_mod.LM(cut, device="cpu"), _tree_to(cut_params, "cpu")
+    cpu = cpu_model.forward(cpu_params, {"frames": x.cpu()})[0]
+    moved = share_of(cpu_model.forward(cpu_params, {"frames": x.cpu() * (1 + 2.0**-23)})[0], cpu)
+    dist = share_of(card, cpu)
+    log(f"[lm {HUBERT_ARCH} card vs cpu] full width, {HUBERT_CPU_SUPERBLOCKS} of "
+        f"{cfg.num_superblocks} superblocks, f32 compute, forward B {b} x {s}: logits "
+        f"{dist:.3e} of max|logit| apart (limit {LM_LOGIT_TOL}); a one-ulp change of the "
+        f"frames moves the CPU's own by {moved:.3e}")
+    if dist > LM_LOGIT_TOL:
+        raise AssertionError(f"{HUBERT_ARCH} card vs cpu: {dist:.3e} of max|logit|")
+    del params, cut_params, cpu_params, forwards, frames
+    torch.cuda.empty_cache()
+    return recs
+
+
+def vision_phase(torch, np, kernels, record_routes, lm_mod, get_config, fa, arype, gen) -> dict:
+    """``[lm llama-3.2-vision-90b]``: llama-3.2-vision-90b at full width,
+    ``VISION_SUPERBLOCKS`` of its 20 superblocks (8 self and 2 cross
+    layers), otherwise as registered (bf16 weights and compute, 1600 image
+    tokens), seed 0 on the card, the peak of the init logged.
+    ``VISION_REQUESTS`` requests of ``VISION_PROMPT`` tokens, each with its
+    own bf16 image embeddings: ``LM.prefill`` at B 4 with ``VISION_CACHE``
+    cache rows, then ``VISION_MAX_NEW`` greedy ``decode_step``s; launches as
+    counted from the code (a prefill 71 ``mm_fused`` and 10 ``flash_fwd``, a
+    decode step 67 and 2: a cross layer decodes with q and o only, through
+    the flash kernel); prefill ms, decode ms a step, tok/s and peak GB; each
+    row's tokens equal its request run alone at batch 1 except counted near
+    ties under ``BF16_TIE_GAP``.  Then ``mm_fused``'s bf16-weight arm at
+    every recorded shape (the cross k/v over the image rows included) bit
+    for bit with the f32 arm on upcast operands, within one bf16 step of its
+    plain twin, timed beside ``torch.matmul`` on the same operands and its
+    bound; ``flash_fwd`` at the self and both cross shapes against its plain
+    twin and SDPA; in f32 compute at the same depth, a prefill of
+    ``VISION_DECODE_CHECK[0]`` tokens and teacher-forced decode steps held
+    to the forward's logits: with the bf16 KV cache within
+    ``BF16_LOGIT_TOL``, with an f32 cache (the control: decode's arithmetic
+    without the cache's rounding) within ``DECODE_F32_TOL`` of max|logit|;
+    and card vs CPU in f32
+    compute at full width on one self layer and the cross layer, the added
+    output (out - x) within ``LM_LOGIT_TOL`` of its max.  Returns the
+    kernels' records."""
+    cfg = get_config(VISION_ARCH).replace(num_superblocks=VISION_SUPERBLOCKS)
+    bf16, v = torch.bfloat16, cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm_mod.LM(cfg, device=CARD)
+    params = model.init(torch.Generator(device=CARD).manual_seed(0))
+    sync(torch)
+    leaves = list(_leaves(params))
+    mixers = ", ".join(f"{layer.mixer}/{layer.ffn}" for layer in cfg.block_pattern)
+    log(f"[lm {VISION_ARCH}] full width, {cfg.num_superblocks} of "
+        f"{get_config(VISION_ARCH).num_superblocks} superblocks [{mixers}], otherwise as "
+        f"registered (compute {cfg.compute_dtype}, params {cfg.param_dtype}): d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads}, head_dim {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {v}, {cfg.num_image_tokens} image tokens; "
+        f"{sum(t.numel() for t in leaves)} parameters "
+        f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} GB, seed 0) in "
+        f"{time.perf_counter() - t0:.2f} s, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+        f"allocated while drawing; {VISION_REQUESTS} requests of {VISION_PROMPT} tokens with "
+        f"their own image embeddings, {VISION_MAX_NEW} decode steps, {VISION_CACHE} cache rows")
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(0, v, (VISION_REQUESTS, VISION_PROMPT))
+    g = torch.Generator(device=CARD).manual_seed(4)
+    images = torch.randn(VISION_REQUESTS, cfg.num_image_tokens, cfg.d_model, generator=g,
+                         device=CARD).to(bf16)
+    toks = torch.as_tensor(prompts).to(CARD)
+    cross = sum(layer.mixer == "attn_cross" for layer in cfg.all_layers())
+    shapes, total = {}, {}
+    cache = model.init_cache(VISION_REQUESTS, VISION_CACHE)
+    (logits, cache), counts, prefill_ms = counted_run(
+        torch, kernels, record_routes,
+        lambda: model.prefill(params, {"tokens": toks, "vision": images}, cache),
+        {"mm_fused": len(lm_forward_matmuls(cfg)), "flash_fwd": attention_layers(cfg)},
+        "prefill", shapes)
+    add_counts(total, counts)
+    nxt = logits[:, -1, :v].argmax(-1, keepdim=True)
+    out, decode_ms = [nxt.cpu()], []
+    for step in range(VISION_MAX_NEW):
+        (logits, cache), dcounts, ms = counted_run(
+            torch, kernels, record_routes,
+            lambda: model.decode_step(params, {"tokens": nxt}, cache),
+            {"mm_fused": len(lm_forward_matmuls(cfg, decode=True)), "flash_fwd": cross},
+            f"decode step {step}", shapes)
+        add_counts(total, dcounts)
+        nxt = logits[:, -1, :v].argmax(-1, keepdim=True)
+        out.append(nxt.cpu())
+        decode_ms.append(ms)
+    tokens = torch.cat(out, dim=1).tolist()
+    generated = VISION_REQUESTS * (1 + VISION_MAX_NEW)
+    log(f"  prefill {prefill_ms:.3f} ms (B {VISION_REQUESTS} x {VISION_PROMPT} tokens and "
+        f"{cfg.num_image_tokens} image rows each), decode {statistics.median(decode_ms):.3f} ms "
+        f"a step (median; {min(decode_ms):.3f}-{max(decode_ms):.3f}), "
+        f"{generated / (prefill_ms + sum(decode_ms)) * 1e3:.2f} generated tok/s; launches a "
+        f"prefill {counts_text(counts)}, a decode step {counts_text(dcounts)}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    ties = 0
+    with record_routes() as single_routes:
+        for i in range(VISION_REQUESTS):
+            ref, gaps = greedy_single(torch, lm_mod.LM(cfg, device=CARD), params, prompts[i],
+                                      VISION_MAX_NEW + 1, VISION_CACHE,
+                                      extra={"vision": images[i:i + 1]})
+            if tokens[i] == ref:
+                continue
+            t = next(j for j, (a, b) in enumerate(zip(tokens[i], ref)) if a != b)
+            if gaps[t] >= BF16_TIE_GAP:
+                raise AssertionError(f"request {i}: batch {tokens[i]} != alone {ref} (top-2 gap "
+                                     f"at token {t}: {gaps[t]:.3e} of max|logit|)")
+            log(f"  request {i}: token {t} differs at a near tie of the batch-1 run (top-2 gap "
+                f"{gaps[t]:.3e} of max|logit| < {BF16_TIE_GAP})")
+            ties += 1
+    note_shapes(kernels, single_routes, "batch 1", shapes)
+    log(f"  each row's {VISION_MAX_NEW + 1} tokens equal its request run alone at batch 1 "
+        f"except {ties} near ties")
+
+    recs = check_recorded_mixed(
+        torch, cfg, shapes, {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan)},
+        gen, w_dtype=bf16)
+    if set(recs) != {"mm_fused"}:
+        raise AssertionError(f"{VISION_ARCH} launched {sorted(recs)}: every matmul is past the "
+                             "VPE's cap, so mm_fused alone")
+    recs["mm_fused"]["launches"] = total["mm_fused"]
+
+    d, hq, hkv, t_img = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.num_image_tokens
+    log(f"  flash_fwd in bf16 at the self prefill (causal) and the cross shapes (full mask, "
+        f"{hq} heads over {hkv}, D {d}, Sk {t_img}), B {VISION_REQUESTS} and 1:")
+    frec, sq1 = product_record(), {}
+    for b in (VISION_REQUESTS, 1):
+        for sq, sk, mask in ((VISION_PROMPT, VISION_PROMPT, "causal"),
+                             (VISION_PROMPT, t_img, "full"), (1, t_img, "full")):
+            r = flash_case(torch, fa, gen, (b, hq, hkv, sq, sk, d, mask, 0, None), "bfloat16",
+                           lm_layout=True)
+            frec["max_abs_err"] = max(frec["max_abs_err"], r["max_abs_err"])
+            if b == VISION_REQUESTS:
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"):
+                    frec[key] += r[key]
+            if sq == 1:
+                sq1[b] = r["ms"] / r["library_ms"]
+    frec["ops_ms"] = frec["flops"] / BF16_OPS_PER_S * 1e3
+    recs["flash_fwd"] = set_bound_by(frec)
+    recs["flash_fwd"]["launches"] = total["flash_fwd"]
+    log("  flash_fwd at Sq 1 against the 1600 image keys (63 of a tile's 64 query rows dead): "
+        + ", ".join(f"B {b} {f:.2f}x SDPA" for b, f in sq1.items()))
+
+    f32 = cfg.replace(compute_dtype="float32")
+    m32 = lm_mod.LM(f32, device=CARD)
+    p0, steps = VISION_DECODE_CHECK
+    seq, img = toks[:1, :p0 + steps], images[:1]
+    fwd = m32.forward(params, {"tokens": seq, "vision": img})[0][0, p0:, :v]
+    scale, worst = fwd.abs().max().item(), {}
+    for kv in ("bf16", "f32"):
+        c = m32.init_cache(1, VISION_CACHE)
+        if kv == "f32":  # the control: the self-attention keys and values unrounded
+            c = dict(c, blocks={name: layer._replace(k=layer.k.float(), v=layer.v.float())
+                                for name, layer in c["blocks"].items()})
+        _, c = m32.prefill(params, {"tokens": seq[:, :p0], "vision": img}, c)
+        worst[kv] = 0.0
+        for t in range(p0, p0 + steps):
+            lg, c = m32.decode_step(params, {"tokens": seq[:, t:t + 1]}, c)
+            worst[kv] = max(worst[kv], (lg[0, 0, :v] - fwd[t - p0]).abs().max().item())
+    log(f"[lm {VISION_ARCH} decode vs forward] f32 compute, {cfg.num_superblocks} superblocks, "
+        f"prefill {p0} tokens and {steps} teacher-forced decode steps against the forward's "
+        f"logits (max|logit| {scale:.4f}): with the bf16 KV cache (as served) "
+        f"{worst['bf16'] / scale:.3e} of max|logit| (limit {BF16_LOGIT_TOL}), with an f32 "
+        f"cache {worst['f32'] / scale:.3e} (limit {DECODE_F32_TOL})")
+    del fwd, c
+
+    x = torch.randn(1, VISION_CPU_TOKENS, cfg.d_model, generator=g, device=CARD)
+    img = images[:1].float()
+    log(f"[lm {VISION_ARCH} card vs cpu] full width, f32 compute, B 1 x {VISION_CPU_TOKENS} "
+        f"tokens against {t_img} image rows, one layer each on the same input:")
+    for idx in (0, next(i for i, layer in enumerate(cfg.block_pattern)
+                        if layer.mixer == "attn_cross")):
+        spec = cfg.block_pattern[idx]
+        lp = {part: {name: leaf[0] for name, leaf in tree.items()}
+              for part, tree in params["blocks"][f"l{idx}"].items()}
+        card = (lm_mod._apply_layer(lp, None, x, f32, spec, mode="train", cross_kv=img)[0]
+                - x).cpu()
+        cpu_x = x.cpu()
+        cpu = lm_mod._apply_layer(_tree_to(lp, "cpu"), None, cpu_x, f32, spec, mode="train",
+                                  cross_kv=img.cpu())[0] - cpu_x
+        dist = share_of(card, cpu)
+        log(f"  layer {idx} ({spec.mixer}/{spec.ffn}): the added output (out - x) {dist:.3e} of "
+            f"its max apart (limit {LM_LOGIT_TOL})")
+        if dist > LM_LOGIT_TOL:
+            raise AssertionError(f"{VISION_ARCH} layer {idx} card vs cpu: {dist:.3e}")
+    del params, cache, images, leaves
+    torch.cuda.empty_cache()
+    # held last, so that a run prints every reading first
+    if worst["bf16"] > BF16_LOGIT_TOL * scale or worst["f32"] > DECODE_F32_TOL * scale:
+        raise AssertionError(f"decode vs forward: {worst} (max|logit| {scale:.4f})")
     return recs
 
 
@@ -4328,6 +4746,14 @@ def main() -> int:
         recurrent[arch] = recurrent_phase(torch, np, kernels, record_routes, lm_mod, serving,
                                           get_config, fa, arype, vpe_matmul, vpe_mm, gen, arch)
 
+    # -- 18h, 18i. the stub frontends: hubert-xlarge (audio frames, encoder-only)
+    # and llama-3.2-vision-90b (image embeddings, cross attention)
+    elapsed("18h")
+    hubert = hubert_phase(torch, np, kernels, record_routes, lm_mod, get_config, fa, arype,
+                          vpe_matmul, vpe_mm, gen)
+    elapsed("18i")
+    vision = vision_phase(torch, np, kernels, record_routes, lm_mod, get_config, fa, arype, gen)
+
     elapsed("19-21")
     # -- 19-21. the offline extractor, the per-granularity paths, the scenarios
     trace, trace_state = extractor_phase(torch, kernels, card)
@@ -4378,6 +4804,17 @@ def main() -> int:
     for arch, recs in recurrent.items():
         record += [dict(name=f"{arm[name]}, {arch}", route="cuda", source=source[name],
                         replaces=replaces[name], **r) for name, r in recs.items()]
+    # the stub frontends: hubert's mixed arms and full-mask flash at D 80;
+    # llama-vision's bf16-weight arm (the cross k/v over the image rows too)
+    # and its flash calls, the cross ones at Sq 300 and 1 against 1600 keys
+    arm = {"mm_fused": "mm_fused (bf16 x, f32 w)", "vpe_mm": "vpe_mm (bf16 x, f32 w)",
+           "flash_fwd": "flash_fwd (bf16, D 80, full mask)"}
+    record += [dict(name=f"{arm[name]}, {HUBERT_ARCH}", route="cuda", source=source[name],
+                    replaces=replaces[name], **r) for name, r in hubert.items()]
+    arm = {"mm_fused": ("mm_fused (bf16 x, bf16 w)", source_bf16w["mm_fused"]),
+           "flash_fwd": ("flash_fwd (bf16, self and cross)", source["flash_fwd"])}
+    record += [dict(name=f"{arm[name][0]}, {VISION_ARCH}", route="cuda", source=arm[name][1],
+                    replaces=replaces[name], **r) for name, r in vision.items()]
     elapsed("end")
     log(card)
     print(json.dumps({"kernels": record}))

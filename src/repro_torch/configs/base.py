@@ -12,8 +12,11 @@ The fields that chose an implementation or a distribution in the reference
 ``moe_dp_attention``, ``shard_kv_seq_decode``) are left out: the port has one
 implementation per device and runs on one card.  ``remat`` is left out too:
 the port's eager training loop keeps every activation, and at the full-width
-batches it trains (qwen3-0.6b at 8 x 128 tokens) they fit the card.  So are
-the frontend sizes: they come with the slice that runs them.  The MoE sizes
+batches it trains (qwen3-0.6b at 8 x 128 tokens) they fit the card.  The
+frontend group is here (``is_encoder_only``, ``frontend``,
+``num_image_tokens``; the frontends are the reference's stubs: precomputed
+frame or patch embeddings come in), with ``supports_decode`` and
+``shape_cells``, the cell names the reference assigns each arch.  The MoE sizes
 and the combine type are here (the port serves the MoE layer), the
 recurrent mixers' sizes (mamba2's state, heads, expansion and conv width,
 the chunk of its and the mLSTM's scans, the mLSTM's up-projection), and
@@ -84,8 +87,10 @@ class ArchConfig:
     ssm_chunk: int = 256  # the chunk of the mamba2 and mLSTM scans
     ssm_conv_width: int = 4
     mlstm_proj_factor: int = 2
-    # -- modality frontend (refused by the LM)
+    # -- modality frontend (a stub, as the reference's: embeddings come in)
+    is_encoder_only: bool = False
     frontend: str = "none"  # none|audio_frames|vision_patches
+    num_image_tokens: int = 0
     # -- numerics
     matmul_accum_dtype: str = "float32"
     moe_combine_dtype: str = "float32"  # dtype of the expert outputs' gather and combine
@@ -133,9 +138,32 @@ class ArchConfig:
     def mlstm_d_inner(self) -> int:
         return self.mlstm_proj_factor * self.d_model
 
+    @property
+    def supports_decode(self) -> bool:
+        return not self.is_encoder_only
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the reference's long_500k cell: recurrent or hybrid,
+        or mostly sliding-window, and not encoder-only."""
+        kinds = [l.mixer for l in self.all_layers()]
+        recurrent = sum(k in ("mamba2", "mlstm", "slstm") for k in kinds)
+        local = sum(k == "attn_local" for k in kinds)
+        return (recurrent + local) >= len(kinds) // 2 and not self.is_encoder_only
+
     def all_layers(self) -> tuple[LayerSpec, ...]:
         return (self.head_pattern + self.block_pattern * self.num_superblocks
                 + self.tail_pattern)
+
+    def shape_cells(self) -> list[str]:
+        """Which of the reference's four assigned shape cells apply to this
+        arch (their sizes live in the reference's ``configs/base.py:SHAPES``)."""
+        cells = ["train_4k", "prefill_32k"]
+        if self.supports_decode:
+            cells.append("decode_32k")
+            if self.sub_quadratic:
+                cells.append("long_500k")
+        return cells
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
@@ -153,11 +181,10 @@ def register(name: str):
 
 
 def get_config(name: str) -> ArchConfig:
-    import repro_torch.configs  # noqa: F401  (registers the ported archs)
+    import repro_torch.configs  # noqa: F401  (registers the archs)
 
     if name not in _REGISTRY:
-        raise KeyError(f"arch {name!r} is not ported (the port registers {sorted(_REGISTRY)}; "
-                       "the other architectures come with later slices)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
 
 
@@ -178,6 +205,7 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
         vocab_size=256,
         num_superblocks=min(cfg.num_superblocks, 2),
         window_size=min(cfg.window_size, 16) if cfg.window_size else 0,
+        num_image_tokens=16 if cfg.num_image_tokens else 0,
         param_dtype="float32",
         compute_dtype="float32",
         vocab_round_to=16,

@@ -4,9 +4,13 @@ arch, serving a batch of synthetic requests end to end.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # plain PyTorch versions
 
-Every registered arch serves, the recurrent ones too (``--arch xlstm-1.3b``,
-``--arch zamba2-2.7b``): their fixed-size states ride in the same cache dict
-and merge per slot like the attention caches (``serving.engine.merge_slot``).
+Every registered arch with a token-only decode path serves, the recurrent
+ones too (``--arch xlstm-1.3b``, ``--arch zamba2-2.7b``): their fixed-size
+states ride in the same cache dict and merge per slot like the attention
+caches (``serving.engine.merge_slot``).  An encoder-only arch
+(``--arch hubert-xlarge``) exits as the reference's launcher does: it has no
+decode path.  ``llama-3.2-vision-90b`` raises ``NotImplementedError`` in the
+engine, whose requests cannot carry image embeddings.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ def main(argv=None) -> None:
     from repro_torch.serving import Request, ServeConfig, ServeEngine
 
     cfg = reduced_config(get_config(args.arch))
+    if not cfg.supports_decode:
+        raise SystemExit(f"{args.arch} is encoder-only; no decode path")
     model = LM(cfg, device=args.device)
     params = model.init(torch.Generator().manual_seed(args.seed))
     eng = ServeEngine(cfg, params, ServeConfig(batch_slots=args.slots, cache_len=args.cache_len),

@@ -1,9 +1,9 @@
 """Transformer layers of the port's LM stack (the reference's
 ``models/layers.py``, attention, the dense MLP and the MoE layer): norms,
 RoPE, attention (prefill/train through the flash kernel, cached decode,
-sliding-window ring caches; in training a backward through the reference's
-plain attention), the SwiGLU MLP and the capacity-dispatched mixture of
-experts.
+sliding-window ring caches, cross attention to modality embeddings; in
+training a backward through the reference's plain attention), the SwiGLU
+MLP and the capacity-dispatched mixture of experts.
 
 Every projection goes through the Octopus router (``core/router.matmul``),
 which places it on the VPE or the AryPE engine.  The reference keeps the
@@ -57,7 +57,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------- attention
 
 
-def attn_specs(cfg: ArchConfig) -> dict:
+def attn_specs(cfg: ArchConfig, *, cross: bool = False) -> dict:
+    """An attention layer's parameters; a cross-attention layer's add
+    ``ln_kv``, the norm of the modality embeddings its keys come from."""
     dt = cfg.param_dtype
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     specs = {
@@ -70,6 +72,8 @@ def attn_specs(cfg: ArchConfig) -> dict:
     if cfg.use_qk_norm:
         specs["q_norm"] = ParamSpec((cfg.head_dim,), (None,), "zeros", dtype=dt)
         specs["k_norm"] = ParamSpec((cfg.head_dim,), (None,), "zeros", dtype=dt)
+    if cross:
+        specs["ln_kv"] = ParamSpec((d,), ("embed",), "zeros", dtype=dt)
     return specs
 
 
@@ -271,16 +275,58 @@ def attention_decode(q: torch.Tensor, cache: AttnCache, lengths: torch.Tensor, *
     return out.to(q.dtype).reshape(b, sn, hq, dh)
 
 
+def _cross_attn(p: dict, x: torch.Tensor, q: torch.Tensor, cfg: ArchConfig, mm, *,
+                cross_kv: Optional[torch.Tensor], cache: Optional[AttnCache],
+                mode: str) -> tuple[torch.Tensor, Optional[AttnCache]]:
+    """The cross branch of :func:`attn_apply`, line by line the reference's:
+    training and prefill project k and v from the normed modality embeddings
+    ``cross_kv`` (B, T, D) (no rope), and prefill returns them as the cache,
+    in the type the projections return (the compute type), positions 0..T-1;
+    decode attends the cached k and v and returns the cache unchanged.  Every
+    query attends every key (the full mask), through the flash kernel in all
+    three modes, as the reference's ``attention_core``.  Under
+    ``use_qk_norm`` the keys are normed after the cache is built, and decode
+    does not norm the cached keys: decode then attends un-normed keys where
+    prefill attended normed ones, as the reference does (ROADMAP Queue 3)."""
+    b, s, _ = x.shape
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("attn_apply: a cross decode needs the cache its prefill made")
+        k, v = cache.k, cache.v
+    else:
+        if cross_kv is None:
+            raise ValueError(f"attn_apply: cross attention in mode {mode!r} needs cross_kv "
+                             "(the batch's 'vision' embeddings)")
+        kvsrc = rms_norm(cross_kv, p["ln_kv"])
+        t = kvsrc.shape[1]
+        k = mm(kvsrc, p["wk"]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        v = mm(kvsrc, p["wv"]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        pos = torch.arange(t, dtype=torch.int32, device=x.device).repeat(b, 1)
+        cache = AttnCache(k=k, v=v, pos=pos)
+    if cfg.use_qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        if mode != "decode":
+            k = rms_norm(k, p["k_norm"])
+    attend = attention_train if mode == "train" else attention_core
+    out = attend(q, k, v, kind="full")
+    out = mm(out.reshape(b, s, cfg.q_dim), p["wo"])
+    return x + out, (cache if mode != "train" else None)
+
+
 def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
-               cache: Optional[AttnCache] = None, lengths: Optional[torch.Tensor] = None,
+               cross_kv: Optional[torch.Tensor] = None, cache: Optional[AttnCache] = None,
+               lengths: Optional[torch.Tensor] = None,
                mode: str = "train") -> tuple[torch.Tensor, Optional[AttnCache]]:
     """One attention layer on x (B, S, D) at positions lengths.. (0.. in
-    training); ``kind`` causal|local|full, ``mode`` train|prefill|decode.
-    Returns (x + attention, the cache)."""
+    training); ``kind`` causal|local|full|cross (cross: over the modality
+    embeddings ``cross_kv`` (B, T, D), :func:`_cross_attn`), ``mode``
+    train|prefill|decode.  Returns (x + attention, the cache)."""
     b, s, _ = x.shape
     mm = functools.partial(router.matmul, out_dtype=x.dtype, config=RuntimeConfig.from_arch(cfg))
     h = rms_norm(x, p["ln"])
     q = mm(h, p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    if kind == "cross":
+        return _cross_attn(p, x, q, cfg, mm, cross_kv=cross_kv, cache=cache, mode=mode)
     k = mm(h, p["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = mm(h, p["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     if cfg.use_qk_norm:

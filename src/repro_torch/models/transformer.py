@@ -8,11 +8,14 @@ port runs attention (``attn``, ``attn_local``), the recurrent mixers
 (``mamba2``, ``mlstm``, ``slstm``: ``models/recurrent.py``) and zamba2's
 shared block (``attn_shared`` with ``mlp_shared``: one attention and one MLP
 stored once in ``params["shared"]``, each occurrence with its own KV cache),
-with the dense MLP, the mixture of experts (``moe``) or no FFN (``none``),
-on f32 or bf16 weights in f32 or bf16 compute (the registered configs'
-default: bf16 activations, each routed matmul summed in f32 and rounded
-once).  Cross attention and the modality frontends raise
-``NotImplementedError``.
+cross attention (``attn_cross``: keys and values from the batch's
+``vision`` embeddings, cached at prefill), with the dense MLP, the mixture
+of experts (``moe``) or no FFN (``none``), on f32 or bf16 weights in f32 or
+bf16 compute (the registered configs' default: bf16 activations, each
+routed matmul summed in f32 and rounded once).  The modality frontends are
+the reference's stubs: ``audio_frames`` reads precomputed frame embeddings
+(``batch["frames"]``, no embedding table), ``vision_patches`` adds patch
+embeddings (``batch["vision"]``) that every cross-attention layer attends.
 """
 from __future__ import annotations
 
@@ -42,29 +45,21 @@ from repro_torch.models.spec import ParamSpec
 from repro_torch.runtime import RuntimeConfig
 
 # the attention kind of each attention mixer (a shared block attends causally)
-_ATTN_KIND = {"attn": "causal", "attn_local": "local", "attn_shared": "causal"}
+_ATTN_KIND = {"attn": "causal", "attn_local": "local", "attn_shared": "causal",
+              "attn_cross": "cross"}
 # each recurrent mixer's (specs, apply, empty cache)
 _RECURRENT = {"mamba2": (rec.mamba2_specs, rec.mamba2_apply, rec.init_mamba2_cache),
               "mlstm": (rec.mlstm_specs, rec.mlstm_apply, rec.init_mlstm_cache),
               "slstm": (rec.slstm_specs, rec.slstm_apply, rec.init_slstm_cache)}
-MIXERS_PORTED = (*_ATTN_KIND, *_RECURRENT, "none")
 # each mixer's cache type (the empty tuple for none)
 CACHE_TYPES = {**dict.fromkeys(_ATTN_KIND, AttnCache), "mamba2": rec.Mamba2Cache,
                "mlstm": rec.MLSTMCache, "slstm": rec.SLSTMCache, "none": tuple}
-FFN_PORTED = ("mlp", "moe", "mlp_shared", "none")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Refuse what the port does not run: cross attention and the frontends."""
-    for layer in cfg.all_layers():
-        if layer.mixer not in MIXERS_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: mixer {layer.mixer!r} is not ported (cross attention comes "
-                "with a later slice)")
-        if layer.ffn not in FFN_PORTED:
-            raise NotImplementedError(f"{cfg.name}: ffn {layer.ffn!r} is not ported")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} frontend is not ported")
+    """Refuse what the port does not run: types other than f32 and bf16, and
+    the attention logit softcap.  (Every mixer and FFN kind ``LayerSpec``
+    accepts runs.)"""
     for field in ("compute_dtype", "param_dtype"):
         if getattr(cfg, field) not in ("float32", "bfloat16"):
             raise NotImplementedError(f"{cfg.name}: {field} {getattr(cfg, field)!r} is not "
@@ -81,8 +76,8 @@ def layer_specs(cfg: ArchConfig, spec: LayerSpec, *, d_ff_override: Optional[int
     """A layer's own parameters: its mixer's (none for a shared or absent
     mixer) and its FFN's (the MLP ``d_ff_override`` wide, or the MoE; none
     for a shared or absent FFN)."""
-    if spec.mixer in ("attn", "attn_local"):
-        mixer = attn_specs(cfg)
+    if spec.mixer in ("attn", "attn_local", "attn_cross"):
+        mixer = attn_specs(cfg, cross=spec.mixer == "attn_cross")
     elif spec.mixer in _RECURRENT:
         mixer = _RECURRENT[spec.mixer][0](cfg)
     else:  # attn_shared, none: in the shared group, or nothing
@@ -104,7 +99,9 @@ def model_specs(cfg: ArchConfig) -> dict:
     check_supported(cfg)
     dt = cfg.param_dtype
     d, v = cfg.d_model, cfg.padded_vocab
-    specs: dict = {"embed": ParamSpec((v, d), ("vocab", "embed"), "small_normal", dtype=dt)}
+    specs: dict = {}
+    if cfg.frontend != "audio_frames":  # frames arrive embedded: no table
+        specs["embed"] = ParamSpec((v, d), ("vocab", "embed"), "small_normal", dtype=dt)
     for i, s in enumerate(cfg.head_pattern):
         specs[f"pre{i}"] = layer_specs(cfg, s, d_ff_override=cfg.first_dense_ff or None)
     superblock = {f"l{i}": layer_specs(cfg, s) for i, s in enumerate(cfg.block_pattern)}
@@ -121,8 +118,15 @@ def model_specs(cfg: ArchConfig) -> dict:
 def _layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, cache_len: int,
                  dev: torch.device) -> Any:
     """A layer's empty cache: an :class:`AttnCache` for an attention mixer
-    (a shared one's too: each occurrence keeps its own keys and values), the
-    recurrent state of a recurrent one, ``()`` for none."""
+    (a shared one's too: each occurrence keeps its own keys and values; a
+    cross one's holds ``num_image_tokens`` rows, bf16 zeros at positions 0,
+    as the reference's, until its prefill writes the projected embeddings),
+    the recurrent state of a recurrent one, ``()`` for none."""
+    if spec.mixer == "attn_cross":
+        shape = (batch, max(cfg.num_image_tokens, 1), cfg.num_kv_heads, cfg.head_dim)
+        return AttnCache(k=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                         v=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                         pos=torch.zeros(shape[:2], dtype=torch.int32, device=dev))
     if spec.mixer in _ATTN_KIND:
         return init_attn_cache(cfg, batch, cache_len, kind=_ATTN_KIND[spec.mixer], device=dev)
     if spec.mixer in _RECURRENT:
@@ -158,12 +162,14 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *, device: Device = 
 
 def _apply_layer(lp: dict, shared: Optional[dict], h: torch.Tensor, cfg: ArchConfig,
                  spec: LayerSpec, *, mode: str, cache: Any = None,
-                 lengths: Optional[torch.Tensor] = None):
+                 lengths: Optional[torch.Tensor] = None,
+                 cross_kv: Optional[torch.Tensor] = None):
     """Returns (h, the layer's cache, aux): the mixer, then the FFN (aux the
     MoE's load-balance loss; 0.0 otherwise, a float: no kernel).  A shared
-    mixer or MLP runs ``shared``'s weights.  An attention mixer writes its
-    cache in place and returns it; a recurrent one returns a new state
-    (None in training) for the caller to store."""
+    mixer or MLP runs ``shared``'s weights; a cross-attention mixer attends
+    ``cross_kv``.  A self-attention mixer writes its cache in place and
+    returns it; a recurrent one, and a cross one at prefill, return a new
+    cache (None in training) for the caller to store."""
     m = spec.mixer
     cache = cache if cache != () else None
     if m in _ATTN_KIND:
@@ -171,7 +177,8 @@ def _apply_layer(lp: dict, shared: Optional[dict], h: torch.Tensor, cfg: ArchCon
         if kind == "causal" and not cfg.causal:
             kind = "full"
         p_attn = shared["mixer"] if m == "attn_shared" else lp["mixer"]
-        h, cache = attn_apply(p_attn, h, cfg, kind=kind, cache=cache, lengths=lengths, mode=mode)
+        h, cache = attn_apply(p_attn, h, cfg, kind=kind, cross_kv=cross_kv, cache=cache,
+                              lengths=lengths, mode=mode)
     elif m in _RECURRENT:
         h, cache = _RECURRENT[m][1](lp["mixer"], h, cfg, mode=mode, cache=cache)
     if spec.ffn == "moe":
@@ -217,10 +224,13 @@ def _unstack(tree: dict, n: int) -> list:
 
 
 def _layers(params: dict, cfg: ArchConfig, h: torch.Tensor, *, mode: str,
-            cache: Optional[dict] = None) -> tuple[torch.Tensor, Any]:
+            cache: Optional[dict] = None,
+            cross_kv: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, Any]:
     """Every layer in order: head, the superblocks (a loop in place of the
-    reference's scan), tail.  Caches are written in place (a recurrent
-    layer's state by :func:`store_rows`).  Returns (h, the summed aux
+    reference's scan), tail; every cross-attention layer attends
+    ``cross_kv``.  Caches are written in place (a recurrent layer's state
+    and a cross layer's prefill keys by :func:`store_rows`, each leaf in
+    the type the layer returns).  Returns (h, the summed aux
     loss: an f32 tensor, or 0.0 without MoE layers), summed in the
     reference's order: head layers, each superblock's sum, tail layers."""
     lengths = cache["lengths"] if cache is not None else None
@@ -231,8 +241,9 @@ def _layers(params: dict, cfg: ArchConfig, h: torch.Tensor, *, mode: str,
         if caches is not None:
             c = _index(caches[key], sb) if sb is not None else caches[key]
         h, new, aux = _apply_layer(lp[key], shared, h, cfg, spec, mode=mode, cache=c,
-                                   lengths=lengths)
-        if caches is not None and spec.mixer in _RECURRENT:  # a new state: into the cache
+                                   lengths=lengths, cross_kv=cross_kv)
+        if caches is not None and (spec.mixer in _RECURRENT or (
+                spec.mixer == "attn_cross" and mode == "prefill")):  # a new cache: store it
             caches[key] = store_rows(caches[key], new, sb if sb is not None else slice(None))
         return h, aux
 
@@ -258,10 +269,13 @@ def _layers(params: dict, cfg: ArchConfig, h: torch.Tensor, *, mode: str,
 
 
 def _embed_input(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """The embedding rows in the compute dtype.  The reference scales them by
-    a numpy f32 scalar, which JAX types strongly: a bf16 row times it is
-    f32, so under ``embed_scale`` (gemma3) the stack runs in f32 after one
+    """The embedding rows in the compute dtype, or under ``audio_frames`` the
+    batch's ``frames`` (B, S, d_model) cast to it.  The reference scales the
+    rows by a numpy f32 scalar, which JAX types strongly: a bf16 row times it
+    is f32, so under ``embed_scale`` (gemma3) the stack runs in f32 after one
     bf16 rounding of the embedding, and the port does the same."""
+    if cfg.frontend == "audio_frames":
+        return batch["frames"].to(getattr(torch, cfg.compute_dtype))
     # F.embedding: its backward sums each row's gradients deterministically
     # on the card, where indexing's would scatter-add them
     h = F.embedding(batch["tokens"].long(), params["embed"]).to(getattr(torch, cfg.compute_dtype))
@@ -289,7 +303,8 @@ def forward_train(params: dict, cfg: ArchConfig, batch: dict
     MoE's aux (an f32 tensor) keeps its graph.  Nothing here waits for the
     device."""
     check_supported(cfg)
-    h, aux = _layers(params, cfg, _embed_input(params, cfg, batch), mode="train")
+    h, aux = _layers(params, cfg, _embed_input(params, cfg, batch), mode="train",
+                     cross_kv=batch.get("vision"))
     if not isinstance(aux, torch.Tensor):  # no MoE layer: a zero made on the device, no copy
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _logits(params, cfg, h), aux
@@ -313,20 +328,25 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, d
 def _forward_cached(params: dict, cfg: ArchConfig, batch: dict, cache: dict, mode: str):
     check_supported(cfg)
     h = _embed_input(params, cfg, batch)
-    h, _ = _layers(params, cfg, h, mode=mode, cache=cache)  # the aux dropped, as the reference's
+    h, _ = _layers(params, cfg, h, mode=mode, cache=cache,  # the aux dropped, as the reference's
+                   cross_kv=batch.get("vision"))
     new_cache = dict(cache, lengths=cache["lengths"] + h.shape[1])
     return _logits(params, cfg, h[:, -1:, :]), new_cache  # the last position's logits
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, cache: dict):
-    """Fill the cache from a prompt batch ``{"tokens": (B, P)}``; returns
-    (last-position logits (B, 1, V), the cache).  The cache's tensors are
-    written in place; ``lengths`` grows by P for every row."""
+    """Fill the cache from a prompt batch ``{"tokens": (B, P)}`` (``frames``
+    (B, P, d_model) under ``audio_frames``; with ``vision`` (B, T, d_model)
+    under ``vision_patches``); returns (last-position logits (B, 1, V), the
+    cache).  The cache's tensors are written in place; ``lengths`` grows by
+    P for every row."""
     return _forward_cached(params, cfg, batch, cache, "prefill")
 
 
 def decode_step(params: dict, cfg: ArchConfig, batch: dict, cache: dict):
-    """One decode step: ``batch["tokens"]`` is (B, 1)."""
+    """One decode step: ``batch["tokens"]`` is (B, 1).  A cross-attention
+    layer attends the keys its prefill cached, so ``vision`` may be left
+    out."""
     return _forward_cached(params, cfg, batch, cache, "decode")
 
 

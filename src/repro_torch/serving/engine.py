@@ -56,10 +56,23 @@ class ServeStats:
 
 class ServeEngine:
     """Requests wait in ``queue``; ``step`` admits them into free slots (one
-    prefill each) and then decodes one token for every slot in lockstep."""
+    prefill each) and then decodes one token for every slot in lockstep.
+
+    A request is a token prompt and nothing else, as the reference's, so an
+    encoder-only arch (no decode path) and an arch with a modality frontend
+    (whose frames or image embeddings have no way in) raise
+    ``NotImplementedError`` here.  The reference's engine takes both and
+    fails inside its first prefill (``KeyError: 'frames'``, or ``rms_norm``
+    of the missing image embeddings)."""
 
     def __init__(self, cfg: ArchConfig, params: dict, serve: ServeConfig, *,
                  device: Device = None):
+        if not cfg.supports_decode:
+            raise NotImplementedError(f"{cfg.name} is encoder-only: there is no decode path "
+                                      "to serve")
+        if cfg.frontend != "none":
+            raise NotImplementedError(f"{cfg.name}: a request holds only tokens, so the "
+                                      f"{cfg.frontend!r} frontend's embeddings have no way in")
         if not serve.greedy:
             raise NotImplementedError("only greedy decoding is ported (as the reference runs)")
         self.cfg = cfg

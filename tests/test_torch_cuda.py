@@ -1550,3 +1550,159 @@ def test_recurrent_arch_on_card_matches_cpu(cuda, arch, record_property):
         else:
             assert torch.equal(a, b), key
     record_property("over_move", max(over))
+
+
+# llama-3.2-vision-90b's cross attention: 64 heads over 8 (GQA 8), D 128,
+# every query against the 1600 image keys (the full mask): Sq = 1 (a decode
+# step: one live row of a 64-row query tile) and 300 (a prefill)
+CROSS_HEADS, CROSS_KV_HEADS, CROSS_KEYS = 64, 8, 1600
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq", [(4, 1), (1, 1), (4, 300)])
+def test_flash_at_the_cross_shapes_matches_plain(cuda, dtype, b, sq):
+    """``flash_fwd`` at the cross-attention shapes, q, k, v strided views of
+    (B, S, H, D) as the LM hands them over: one launch, against the plain
+    twin (f32: rtol = atol 2e-5; bf16: one bf16 step, atol 1e-5) and
+    against SDPA on the f32 upcast inputs within the same tolerance."""
+    import torch.nn.functional as F
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(b * 1000 + sq)
+    d = 128
+
+    def rand(h, s):
+        return torch.randn(b, s, h, d, generator=gen).to(cuda, dt).transpose(1, 2)
+
+    q, k, v = rand(CROSS_HEADS, sq), rand(CROSS_KV_HEADS, CROSS_KEYS), rand(CROSS_KV_HEADS,
+                                                                            CROSS_KEYS)
+    before = kernels.launches()["flash_fwd"]
+    out = flash_attention(q, k, v, mask="full")
+    assert kernels.launches()["flash_fwd"] == before + 1
+    plain = flash_attention_plain(q, k, v, mask="full")
+    exact = F.scaled_dot_product_attention(*(t.float() for t in (q, k, v)), enable_gqa=True)
+    rtol, atol = (2e-5, 2e-5) if dtype == "float32" else (2.0**-7, 1e-5)
+    for ref in (plain.float(), exact):
+        torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("b,s", [(2, 333), (4, 500)])
+def test_flash_full_mask_at_head_dim_80_reads_and_writes_no_padding(cuda, b, s):
+    """hubert-xlarge's attention: bf16, 16 heads, D 80 in the 128-wide tile,
+    the full mask (bidirectional), at a ragged S 333 and at S 500.  Within
+    one bf16 step of the plain twin and of SDPA on the f32 upcast inputs; on
+    views into rows of 128 columns that hold NaN past D, into an output view
+    of such rows: the dense call's bits, the NaN columns untouched."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    d, h = 80, 16
+    plan = fa.flash_plan(d, torch.bfloat16)
+    assert plan.width == 128
+    gen = torch.Generator().manual_seed(b * s)
+    wide = torch.full((3, b, s, h, plan.width), float("nan"), dtype=torch.bfloat16, device=cuda)
+    wide[..., :d] = _bf16(gen, 3, b, s, h, d).to(cuda)
+    q, k, v = (t[..., :d].transpose(1, 2) for t in wide)
+    dense = flash_attention(*(t.contiguous() for t in (q, k, v)), mask="full")
+    plain = flash_attention_plain(*(t.contiguous() for t in (q, k, v)), mask="full")
+    exact = F.scaled_dot_product_attention(*(t.float() for t in (q, k, v)))
+    for ref in (plain.float(), exact):
+        torch.testing.assert_close(dense.float(), ref, rtol=2.0**-7, atol=1e-5)
+    out_wide = torch.full((b, s, h, plan.width), float("nan"), dtype=torch.bfloat16, device=cuda)
+    out = out_wide[..., :d].transpose(1, 2)
+    fa.FLASH_FWD(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, b, h, h,
+                 s, s, d, *(st for t in (q, k, v, out) for st in t.stride()[:3]),
+                 fa.MASKS["full"], 0, s, 1.0 / (d ** 0.5), plan.tile, stream_of(q))
+    torch.cuda.synchronize()
+    assert torch.equal(out, dense)
+    assert torch.isnan(out_wide[..., d:].float()).all()
+
+
+def _frontend_batch(cfg, b: int, s: int, gen) -> dict:
+    """A batch of the arch's inputs: ``frames`` or ``tokens``, and ``vision``
+    under ``vision_patches``, f32 normal embeddings."""
+    batch = {}
+    if cfg.frontend == "audio_frames":
+        batch["frames"] = torch.randn(b, s, cfg.d_model, generator=gen)
+    else:
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    if cfg.frontend == "vision_patches":
+        batch["vision"] = torch.randn(b, cfg.num_image_tokens, cfg.d_model, generator=gen)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "hubert-xlarge"])
+def test_frontend_arch_on_card_matches_cpu(cuda, arch, record_property):
+    """Reduced llama-3.2-vision-90b and hubert-xlarge in f32 compute, card
+    against CPU from the same weights and inputs: hubert's forward and
+    prefill of 19 frames; llama's forward, prefill of 16 tokens and 3 decode
+    steps fed the CPU's tokens (the cross layers' keys from the prefill's
+    image rows).  Logits and every f32 cache leaf within max(1e-5,
+    ``CARD_CONDITIONING`` times what a one-ulp change of the input (the
+    embedding table, or the frames) moves the CPU's own), llama's decode
+    steps within 2e-3 at least (they read the bf16 self-attention caches),
+    those caches within one bf16 step, positions exact, leaf types equal;
+    launches as the model code counts them: a prefill 7 ``mm_fused`` a
+    layer (6 for hubert's gelu MLP) and the head, a llama decode step 5 in a
+    cross layer; one ``flash_fwd`` an attention layer a prefill, one a
+    cross layer a decode step."""
+    cfg = reduced_config(get_config(arch)).replace(router_policy="arype_only")
+    params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    batch = _frontend_batch(cfg, 2, 19, torch.Generator().manual_seed(1))
+    decodes = 3 if cfg.supports_decode else 0
+    first = {k: v if k == "vision" else v[:, :19 - decodes] for k, v in batch.items()}
+
+    def run(dev, p, inputs, fed=None):
+        """The forward's logits, the prefill's and each decode step's, and
+        the last cache; the decode steps take the ``fed`` tokens, else their
+        own argmax."""
+        m = LM(cfg, device=dev)
+        on = {k: v.to(dev) for k, v in inputs.items()}
+        outs = [m.forward(p, on)[0]]
+        logits, cache = m.prefill(p, {k: v if k == "vision" else v[:, :19 - decodes]
+                                      for k, v in on.items()}, m.init_cache(2, 32))
+        outs.append(logits)
+        for i in range(decodes):
+            nxt = (outs[-1][:, -1, :cfg.vocab_size].argmax(-1, keepdim=True) if fed is None
+                   else fed[i].to(dev))
+            logits, cache = m.decode_step(p, {"tokens": nxt}, cache)
+            outs.append(logits)
+        return outs, cache
+
+    cpu, cpu_cache = run("cpu", params, batch)
+    fed = [o[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True) for o in cpu[1:1 + decodes]]
+    if "embed" in params:
+        nudged, _ = run("cpu", dict(params, embed=params["embed"] * (1 + 2.0**-23)), batch, fed)
+    else:
+        nudged, _ = run("cpu", params, dict(batch, frames=batch["frames"] * (1 + 2.0**-23)), fed)
+    moved = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(nudged, cpu))
+    tol = max(1e-5, CARD_CONDITIONING * moved)
+    after = max(tol, 2e-3)  # decode reads the bf16 self-attention caches
+    kernels.reset_launches()
+    card, card_cache = run(cuda, _tree_to(params, cuda), batch, fed)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    layers_, cross = cfg.num_layers, sum(l.mixer == "attn_cross" for l in cfg.all_layers())
+    per_layer = 7 if cfg.mlp_gated else 6
+    forward = per_layer * layers_ + 1
+    assert counts["mm_fused"] == 2 * forward + decodes * (forward - 2 * cross)
+    assert counts["flash_fwd"] == 2 * layers_ + decodes * cross
+    assert counts["vpe_mm"] == 0
+    over = []
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        limit = tol if i < 2 else after
+        assert (a.cpu() - b).abs().max().item() <= limit * b.abs().max().item(), i
+        over.append((a.cpu() - b).abs().max().item() / b.abs().max().item() / moved)
+    for (key, a), (_, b) in zip(tree_items(card_cache), tree_items(cpu_cache)):
+        a = a.cpu()
+        assert a.dtype == b.dtype, key
+        if b.dtype == torch.float32:
+            scale = max(b.abs().max().item(), 1e-30)
+            assert (a - b).abs().max().item() <= tol * scale, key
+        elif b.dtype == torch.bfloat16:
+            torch.testing.assert_close(a.float(), b.float(), rtol=2.0**-7,
+                                       atol=1e-5 * b.float().abs().max().item())
+        else:
+            assert torch.equal(a, b), key
+    record_property("over_move", max(over[:2]))

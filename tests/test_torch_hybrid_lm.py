@@ -223,17 +223,18 @@ def test_init_draws_the_mamba_inits():
     assert torch.equal(mixer["d_skip"], torch.ones_like(mixer["d_skip"]))
 
 
-def test_check_supported_refuses_only_cross_attention_and_frontends():
+def test_check_supported_takes_every_mixer_and_frontend_and_refuses_the_softcap():
     base = reduced_config(get_config("qwen3-0.6b"))
     for spec_ in (LayerSpec("mamba2", "none"), LayerSpec("mlstm", "none"),
                   LayerSpec("slstm", "mlp"), LayerSpec("attn_shared", "mlp_shared"),
-                  LayerSpec("none", "mlp"), LayerSpec("attn", "none")):
+                  LayerSpec("none", "mlp"), LayerSpec("attn", "none"),
+                  LayerSpec("attn_cross", "mlp")):
         check_supported(base.replace(block_pattern=(spec_,), ssm_state=8, ssm_head_dim=16))
-    for kw, match in ((dict(block_pattern=(LayerSpec("attn_cross", "mlp"),)), "attn_cross"),
-                      (dict(frontend="vision_patches"), "frontend"),
-                      (dict(frontend="audio_frames"), "frontend")):
-        with pytest.raises(NotImplementedError, match=match):
-            LM(base.replace(**kw), device="cpu")
+    for frontend in ("vision_patches", "audio_frames"):
+        check_supported(base.replace(frontend=frontend))
+        LM(base.replace(frontend=frontend, num_image_tokens=16), device="cpu")
+    with pytest.raises(NotImplementedError, match="softcap"):
+        LM(base.replace(attn_logit_softcap=50.0), device="cpu")
 
 
 # ---------------------------------------------------------------- the model

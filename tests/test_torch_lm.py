@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.configs import list_archs as jlist_archs
 from repro.configs import reduced_config as jreduced_config
 from repro.models import LM as JLM
 from repro.models import layers as jlayers
@@ -33,7 +34,7 @@ from repro.serving import Request as JRequest
 from repro.serving import ServeConfig as JServeConfig
 from repro.serving import ServeEngine as JServeEngine
 from repro_torch import convert
-from repro_torch.configs import LayerSpec, get_config, list_archs, reduced_config
+from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.models import layers, spec
 from repro_torch.models.transformer import LM, model_specs
 from repro_torch.runtime import RuntimeConfig
@@ -82,14 +83,19 @@ def test_configs_equal_the_references(arch):
             assert got == want, f.name
         for prop in ("num_layers", "q_dim", "kv_dim", "padded_vocab", "gqa_groups"):
             assert getattr(port, prop) == getattr(ref, prop), prop
-    assert list_archs() == sorted(ARCHS + ["granite-moe-1b-a400m", "kimi-k2-1t-a32b",
+    assert list_archs() == sorted(ARCHS + ["granite-moe-1b-a400m", "hubert-xlarge",
+                                           "kimi-k2-1t-a32b", "llama-3.2-vision-90b",
                                            "qwen3-4b", "starcoder2-15b", "xlstm-1.3b",
                                            "zamba2-2.7b"])
 
 
-def test_get_config_refuses_unported_archs_and_from_arch_follows_the_reference():
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("llama-3.2-vision-90b")
+def test_list_archs_equals_the_references_and_from_arch_follows_the_reference():
+    assert list_archs() == jlist_archs()
+    for name in ("unknown-arch", "llama-3.2-vision"):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get_config(name)
+        with pytest.raises(KeyError):
+            jget_config(name)
     for arch in ARCHS:
         cfg = get_config(arch).replace(router_policy="arype_only")
         ref = JRuntimeConfig.from_arch(jget_config(arch).replace(router_policy="arype_only"))
@@ -139,12 +145,9 @@ def test_init_params_draws_the_references_inits():
     assert torch.equal(ones["w"], torch.ones(2, 3))
 
 
-def test_lm_refuses_what_this_slice_does_not_run():
+def test_lm_refuses_other_types_and_the_softcap():
     base = reduced_config(get_config("qwen3-0.6b"))
-    for kw, match in ((dict(block_pattern=(LayerSpec("attn_cross", "mlp"),)), "attn_cross"),
-                      (dict(frontend="vision_patches"), "frontend"),
-                      (dict(frontend="audio_frames"), "frontend"),
-                      (dict(param_dtype="float16"), "param_dtype"),
+    for kw, match in ((dict(param_dtype="float16"), "param_dtype"),
                       (dict(attn_logit_softcap=30.0), "softcap")):
         with pytest.raises(NotImplementedError, match=match):
             LM(base.replace(**kw), device="cpu")
