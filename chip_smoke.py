@@ -276,6 +276,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and 1 against 1600 keys) against their twins, timed beside
      ``torch.matmul``/SDPA; decode vs forward in f32; one self and the
      cross layer card vs CPU in f32 at full width.
+ 29. ``[pipeline sharded shard_map]`` (after 13): 4 lanes a device each
+     (every lane on ``cuda:0`` on a one-card machine), the CNN f32 pipeline
+     for 32 steps against the vmap lanes: every output, the state and the
+     rule table bit for bit; 4 ``flow_update`` a step, the engines as their
+     recorded routes count; step us host / exposed device.
+ 30. ``[distributed]`` (after 28): the distribution layer at qwen3-0.6b's
+     full width and depth, each world printing its backend: one NCCL rank
+     on a (1, 1) mesh, the sharded train step bit for bit with the
+     unsharded ``Trainer`` step for 2 steps; two ranks (NCCL on two cards,
+     else gloo on ``cuda:0``) on (data 2, model 1): the gradients within
+     1e-5 of each leaf's max, each rank's bytes its blocks' sum and its
+     peak GB, the world-1 state restored onto the mesh bit for bit, the
+     compressed all-reduce, GPipe over 2 stages bit for bit with the
+     unpipelined forward (:func:`distributed_phase`).
 
 The second-to-last line is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off everywhere: the reference
@@ -283,7 +297,9 @@ computes in full f32.
 """
 from __future__ import annotations
 
+import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -348,6 +364,10 @@ COLD_SIZE = 1 << 20
 SPILL_TRAFFIC = dict(batch_size=1024, active_flows=65536, table_size=8192,
                      collision_free=False, seed=0)
 TWO_LEVEL_STEPS, TWO_LEVEL_CPU_STEPS, CHUNK = 32, 16, 4
+# the host-wait and tracker-part readouts' windows, 4 steps (once 8): the
+# readouts are means a step, and every step of the attack collides, so the
+# shorter window shows the same waits and parts
+PROFILE_STEPS = 4
 # masked buckets: a small request batch, and one past flow_update's chunk
 BUCKETS, MASKED_STEPS = (256, 8192), 6
 # sharded lanes: one lane-batched bank of S lanes of the 8k table, 64 steps
@@ -505,6 +525,17 @@ TRAIN_BF16_L2 = 1.25e-2
 # order (differences near 1e-6); a top-k pick may differ only where the
 # CPU's logits at the swapped positions are closer than this (counted).
 MOE_TIE_GAP = 1e-4
+# [distributed]: qwen3-0.6b's sharded train step for DIST_STEPS steps of
+# TRAIN_BATCH x TRAIN_SEQ tokens over a world of 1 rank, and the first of
+# them over a world of 2 (its collectives staged through the host when both
+# ranks share one card), within DIST_GRAD_SHARE of each gradient leaf's
+# max|grad| (the sums over the two ranks' rows add in another order); GPipe
+# over 2 stages, GPIPE_MICRO microbatches.  The world-1 state after its first
+# step goes under DIST_CKPT (deleted after)
+DIST_STEPS, DIST_GRAD_SHARE, GPIPE_MICRO = 2, 1e-5, 4
+DIST_CKPT = ROOT / "_dist_ckpt"
+# [pipeline sharded shard_map]: lanes and steps against the vmap lanes
+SHARD_MAP_LANES, SHARD_MAP_STEPS = 4, 32
 
 
 # qwen3-0.6b's logits in bf16 compute (28 layers), as shares of max|logit|.
@@ -1839,23 +1870,25 @@ def two_level_phase(torch, kernels, record_routes, cs, prefetch, TrafficConfig,
             f"{cpu.stats.promoted}, cold occupancy {int(cs.cold_occupancy(cpu.state.cold))})")
         del cpu, snapshot
     # the host's waits and the tracker's parts a step, and the cold store's
-    # ordered part under attack
-    attack = make_batches(TrafficConfig, TrafficGenerator, ATTACK, 24, "cpu")
+    # ordered part under attack, each over a window of PROFILE_STEPS steps
+    # after as many eager ones
+    n = PROFILE_STEPS
+    attack = make_batches(TrafficConfig, TrafficGenerator, ATTACK, 3 * n, "cpu")
     for label, cold, source in (("hot-only", 0, batches), ("two-level age", COLD_SIZE, batches),
                                 ("hot-only, collision attack", 0, attack),
                                 ("two-level age, collision attack", COLD_SIZE, attack)):
         pipe = OctopusPipeline(mlp, cnn, PipelineConfig(**PIPE, cold_size=cold))
         pipe.warmup()
-        stats = pipe.run(source[:8], steps=8)
-        log(f"  {label}, eager: steps 1-8 {stats.step_us:.1f} us (host {stats.host_us:.1f} / "
+        stats = pipe.run(source[:n], steps=n)
+        log(f"  {label}, eager: steps 1-{n} {stats.step_us:.1f} us (host {stats.host_us:.1f} / "
             f"exposed device {stats.device_us:.1f}), spilled {stats.spilled}, promoted "
             f"{stats.promoted} [{card}]")
-        w = host_waits(torch, cs, pipe, source[8:16])
-        log(f"    host waits a step (steps 9-16, profiled): {w['reads']:.1f} value reads "
+        w = host_waits(torch, cs, pipe, source[n:2 * n])
+        log(f"    host waits a step (steps {n + 1}-{2 * n}, profiled): {w['reads']:.1f} value reads "
             f"{w['read_us']:.1f} us, {w['nonzero']:.1f} nonzero {w['nonzero_us']:.1f} us; cold "
             f"walks {w['walks']:.2f}, their rounds {w['rounds']:.2f}")
-        parts = track_parts(torch, cs, pipe, source[16:24])
-        log("    tracker parts, us a step (steps 17-24, each synchronised): " + ", ".join(
+        parts = track_parts(torch, cs, pipe, source[2 * n:3 * n])
+        log(f"    tracker parts, us a step (steps {2 * n + 1}-{3 * n}, each synchronised): " + ", ".join(
             f"{name} {us:.1f}" for name, us in parts.items() if cold or name == "merge"))
         del pipe
         torch.cuda.empty_cache()
@@ -2009,6 +2042,9 @@ def sharded_phase(torch, fx, ft, kernels, record_routes, checks, TrafficConfig,
     every per-lane shape those runs' recorded routes name (the flow engine
     at ``max_ready / S`` rows moves layers between engines); returns each
     kernel's largest error there."""
+    # the lanes as one bank, whatever the card count (the default on a host
+    # with S cards is the shard_map lanes, which [pipeline sharded shard_map] runs)
+    lanes_of = functools.partial(ShardedOctopusPipeline, backend="vmap")
     batches = make_batches(TrafficConfig, TrafficGenerator, TRAFFIC, SHARDED_STEPS, "cpu")
     cpu_batches = batches[:SHARDED_CPU_STEPS]
     log(f"[pipeline sharded] CNN f32, {PIPE}, traffic {TRAFFIC}, lanes {SHARDS}: "
@@ -2027,15 +2063,15 @@ def sharded_phase(torch, fx, ft, kernels, record_routes, checks, TrafficConfig,
         single_backlog += int(ft.ready_mask(single.state, top_n=single.cfg.top_n).sum())
     for S in SHARDS:
         label = f"{S} lane{'s' if S > 1 else ''}"
-        pipe = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=S)
+        pipe = lanes_of(mlp, cnn, PipelineConfig(**PIPE), num_shards=S)
         stats = lane_steps(torch, kernels, record_routes, pipe, batches, label, card, shapes)
         if stats.dispatches != SHARDED_STEPS:
             raise AssertionError(f"{label}: {stats.dispatches} dispatches")
         if profile:
             profile_steps(torch, pipe, batches[:8], stats.step_us)
         del pipe
-        gpu = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=S)
-        cpu = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=S,
+        gpu = lanes_of(mlp, cnn, PipelineConfig(**PIPE), num_shards=S)
+        cpu = lanes_of(mlp, cnn, PipelineConfig(**PIPE), num_shards=S,
                                      device="cpu")
         lanes_card_vs_cpu(torch, fx, gpu, cpu, cpu_batches, f"{label} card vs cpu")
         if not cpu.stats.flows:
@@ -2074,40 +2110,40 @@ def sharded_phase(torch, fx, ft, kernels, record_routes, checks, TrafficConfig,
     rounds = PIPE["batch_size"] // ATTACK_LANE_BATCH
     kw = dict(num_shards=4, lane_batch=ATTACK_LANE_BATCH)
     log(f"  collision attack {LANE_ATTACK}, 4 lanes, lane_batch {ATTACK_LANE_BATCH}:")
-    pipe = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), **kw)
+    pipe = lanes_of(mlp, cnn, PipelineConfig(**PIPE), **kw)
     stats = lane_steps(torch, kernels, record_routes, pipe, attack, "attack", card, shapes,
                        rounds=rounds)
     if stats.dispatches != rounds * len(attack) or stats.fallback_steps != len(attack):
         raise AssertionError(f"attack: {stats.dispatches} dispatches, "
                              f"{stats.fallback_steps} fallback steps")
-    lanes_card_vs_cpu(torch, fx, ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), **kw),
-                      ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), device="cpu",
+    lanes_card_vs_cpu(torch, fx, lanes_of(mlp, cnn, PipelineConfig(**PIPE), **kw),
+                      lanes_of(mlp, cnn, PipelineConfig(**PIPE), device="cpu",
                                              **kw), attack[:8], "attack card vs cpu")
     del pipe
     # two-level lanes on the colliding traffic
     spill = make_batches(TrafficConfig, TrafficGenerator, SPILL_TRAFFIC, LANE_SPILL_STEPS, "cpu")
     cfg = PipelineConfig(**PIPE, cold_size=LANE_COLD, cold_policy="age")
     log(f"  two-level, 4 lanes, cold_size {LANE_COLD} a lane (age), traffic {SPILL_TRAFFIC}:")
-    pipe = ShardedOctopusPipeline(mlp, cnn, cfg, num_shards=4)
+    pipe = lanes_of(mlp, cnn, cfg, num_shards=4)
     stats = lane_steps(torch, kernels, record_routes, pipe, spill, "two-level", card, shapes)
     if not (stats.spilled and stats.promoted):
         raise AssertionError(f"two-level: spilled {stats.spilled}, promoted {stats.promoted}")
     del pipe
     torch.cuda.empty_cache()
-    lanes_card_vs_cpu(torch, fx, ShardedOctopusPipeline(mlp, cnn, cfg, num_shards=4),
-                      ShardedOctopusPipeline(mlp, cnn, cfg, num_shards=4, device="cpu"), spill,
+    lanes_card_vs_cpu(torch, fx, lanes_of(mlp, cnn, cfg, num_shards=4),
+                      lanes_of(mlp, cnn, cfg, num_shards=4, device="cpu"), spill,
                       "two-level card vs cpu")
     torch.cuda.empty_cache()
     # int8 at 2 lanes
     log("  int8 (the phase-5 full table), 2 lanes:")
-    pipe = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=2, config=int8)
+    pipe = lanes_of(mlp, cnn, PipelineConfig(**PIPE), num_shards=2, config=int8)
     lane_steps(torch, kernels, record_routes, pipe, batches, "int8", card, shapes)
     if kernels.launches()["vpe_mm"] or kernels.launches()["mm_fused"]:
         raise AssertionError("the int8 lanes launched an f32 engine kernel")
     lanes_card_vs_cpu(
-        torch, fx, ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=2,
+        torch, fx, lanes_of(mlp, cnn, PipelineConfig(**PIPE), num_shards=2,
                                           config=int8),
-        ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=2, config=int8,
+        lanes_of(mlp, cnn, PipelineConfig(**PIPE), num_shards=2, config=int8,
                                device="cpu"), cpu_batches, "int8 card vs cpu")
     return check_recorded(checks, shapes, "the lanes")
 
@@ -2608,7 +2644,10 @@ def scenarios_phase(torch, kernels, record_routes, TrafficConfig, TrafficGenerat
             t0 = time.perf_counter()
             snaps.append(gpu.top_k())
             top_s += time.perf_counter() - t0
-        counts = expect_launches(kernels, {"flow_update": HH_STEPS}, label)
+        # one launch a step on the one-bank lanes, one a lane a step on the
+        # shard_map lanes (the default where the host has a card a lane)
+        per_step = lanes if getattr(gpu.pipe, "backend", "") == "shard_map" else 1
+        counts = expect_launches(kernels, {"flow_update": HH_STEPS * per_step}, label)
         for step, batch in enumerate(hh_batches):
             cpu.step(batch)
             host.step(batch.tuple_hash.tolist(), batch.size.tolist(), batch.ts.tolist())
@@ -3905,6 +3944,23 @@ def tree_l2(torch, got, want) -> tuple[float, float, tuple[float, str]]:
     return (num / max(den, 1e-300)) ** 0.5, per_leaf[len(per_leaf) // 2][0], per_leaf[-1]
 
 
+def hold_product(torch, arype, a, b, od, recs: dict, label: str):
+    """One engine product ``a @ b`` into ``od`` on the card: the kernel
+    (``arype_matmul``) against its plain twin (:func:`hold_to_plain`), then
+    timed (:func:`time_product`), into its (x, w, out) arm's record in
+    ``recs``.  Returns the kernel's output."""
+    m, k, n = a.shape[0], a.shape[1], b.shape[1]
+    direct = arype.arype_matmul(a, b, out_dtype=od)
+    arm = arm_name(torch, (a.dtype, b.dtype, od))
+    rec = recs.setdefault(arm, product_record())
+    err = hold_to_plain(torch, f"{arm} {label} ({m},{k},{n})", direct,
+                        arype.mm_fused(a, b, out_dtype=od), rec)
+    time_product(torch, arype.arype_matmul, arype.mm_fused, a, b, od, rec,
+                 f"{arm} {label} (max err {err:.3e})", arype.card_plan,
+                 plain_calls=2, plain_reps=3)
+    return direct
+
+
 def check_backward_arms(torch, router, arype, cfg, gen, rows: int) -> dict:
     """The backward of every distinct routed matmul of a qwen3 layer and the
     head at ``rows`` tokens, as training runs it (bf16 x on f32 w; the
@@ -3947,18 +4003,11 @@ def check_backward_arms(torch, router, arype, cfg, gen, rows: int) -> dict:
             if act != "none":
                 products.append(("recompute", x.detach(), w.detach(), f32, None))
             for label, a, b, o, got in products:
-                m, kk, nn = a.shape[0], a.shape[1], b.shape[1]
-                direct = arype.arype_matmul(a, b, out_dtype=o)
+                direct = hold_product(torch, arype, a, b, o, recs, f"{name} {label}")
                 if got is not None and not torch.equal(got, direct):
-                    raise AssertionError(f"{name} {label} ({m},{kk},{nn}): the backward differs "
-                                         "from the kernel called directly")
-                arm = arm_name(torch, (a.dtype, b.dtype, o))
-                rec = recs.setdefault(arm, product_record())
-                err = hold_to_plain(torch, f"{arm} {name} {label} ({m},{kk},{nn})", direct,
-                                    arype.mm_fused(a, b, out_dtype=o), rec)
-                time_product(torch, arype.arype_matmul, arype.mm_fused, a, b, o, rec,
-                             f"{arm} {name} {label} (max err {err:.3e})", arype.card_plan,
-                             plain_calls=2, plain_reps=3)
+                    raise AssertionError(f"{name} {label} ({a.shape[0]},{a.shape[1]},"
+                                         f"{b.shape[1]}): the backward differs from the kernel "
+                                         "called directly")
             log(f"  {name}: the transposes' copies w^T ({k}x{n} f32) {t_wt:.5f} ms, x^T "
                 f"({rows}x{k} bf16) {t_xt:.5f} ms")
         del x, w, ct, out
@@ -4253,6 +4302,519 @@ def train_phase(torch, np, kernels, get_config, arype, gen, profile: bool = Fals
     del straight, resumed
     torch.cuda.empty_cache()
     return recs
+
+
+# ---------------------------------------------------------------- [distributed]
+
+
+def dist_loop(TrainLoopConfig, directory):
+    return TrainLoopConfig(total_steps=DIST_STEPS, checkpoint_every=10**9, log_every=10**9,
+                           checkpoint_dir=str(directory))
+
+
+def dist_batches(torch, cfg, device):
+    """The token pipeline's first ``DIST_STEPS`` global batches of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens (the ``[train]`` phase's)."""
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+
+    data = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH)
+    pipe = TokenPipeline(data)
+    return data, [{k: torch.as_tensor(v).to(device) for k, v in pipe.batch(s).items()}
+                  for s in range(DIST_STEPS)]
+
+
+def leaf_share(torch, got, want) -> tuple[float, str]:
+    """The largest max|got - want| / max|want| over the leaves, and its leaf."""
+    from repro_torch.common.tree import tree_items
+
+    worst, where = 0.0, ""
+    for (key, a), (_, b) in zip(tree_items(got), tree_items(want)):
+        scale = float(b.float().abs().max())
+        share = float((a.float() - b.float()).abs().max()) / max(scale, 1e-30)
+        if share > worst:
+            worst, where = share, key
+    return worst, where
+
+
+def held_bytes(torch, trees, whole, shardings, mesh) -> tuple[int, int]:
+    """(the bytes this rank holds in ``trees``, what the blocks of the
+    ``whole`` trees' leaves under ``shardings`` add up to)."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.distributed import sharding as shd
+
+    held = want = 0
+    for tree, full, sh in zip(trees, whole, shardings):
+        for t, f, s in zip(tree_leaves(tree), tree_leaves(full), tree_leaves(sh)):
+            held += t.numel() * t.element_size()
+            n = 1
+            for d in shd.local_shape(tuple(f.shape), s.spec, mesh):
+                n *= d
+            want += n * f.element_size()
+    return held, want
+
+
+class CommSpy:
+    """The bytes this rank receives through the port's collectives inside
+    the block, by kind: ``gather``, the parameters' all-gathers (forward
+    and the backward's re-gathers), each bringing the other ranks' blocks;
+    ``relayout``, the all-gathers that move optimizer leaves between
+    layouts; ``reduce``, the all-reduces, counted as a ring's 2(n-1)/n of
+    the tensor."""
+
+    def __init__(self, comm):
+        self.comm = comm
+        self.bytes = {"gather": 0, "relayout": 0, "reduce": 0}
+        self.kind = "gather"
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        comm = self.comm
+        self.saved = gather, relayout, reduce = comm._gather_one, comm.relayout, comm.all_reduce
+
+        def gather_spy(t, dim, group):
+            n = dist.get_world_size(group)
+            self.bytes[self.kind] += (n - 1) * t.numel() * t.element_size()
+            return gather(t, dim, group)
+
+        def relayout_spy(*args, **kw):
+            self.kind = "relayout"
+            try:
+                return relayout(*args, **kw)
+            finally:
+                self.kind = "gather"
+
+        def reduce_spy(t, axes=None, mesh=None):
+            for group in [None] if axes is None else [mesh.get_group(a) for a in axes]:
+                n = dist.get_world_size(group)
+                self.bytes["reduce"] += 2 * (n - 1) * t.numel() * t.element_size() // n
+            return reduce(t, axes, mesh)
+
+        comm._gather_one, comm.relayout, comm.all_reduce = gather_spy, relayout_spy, reduce_spy
+        return self
+
+    def __exit__(self, *exc):
+        self.comm._gather_one, self.comm.relayout, self.comm.all_reduce = self.saved
+
+
+def dist_rank(rank: int, world: int, args: dict) -> dict:
+    """One rank of ``[distributed]``'s world of 2 (a mesh (data 2, model 1)):
+    the sharded train step against the unsharded gradients (rank 0) and the
+    world-1 run, the bytes each rank holds, the world-1 checkpoint restored
+    onto the mesh, the compressed all-reduce of each rank's own gradients,
+    and GPipe over two stages.  Returns what the parent prints and holds."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import load_pytree
+    from repro_torch.common.tree import tree_items
+    from repro_torch.core import router
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.compression import (
+        compressed_psum_with_feedback,
+        decode_int8,
+        encode_int8,
+        init_error_feedback,
+    )
+    from repro_torch.distributed.pipeline import pipeline_forward, split_stages, stage_of
+    from repro_torch.distributed.sharding import local_slices, mesh_coordinate
+    from repro_torch.models import transformer as lm_mod
+    from repro_torch.train import steps
+    from repro_torch.train.loop import Trainer, TrainLoopConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev_type = args["device_type"]
+    dev = comm.rank_device(rank, dev_type)
+    on_card = dev_type == "cuda"
+    if not on_card:  # ranks sharing the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+
+    def synchronize():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    out = {"backend": dist.get_backend(), "device": str(dev), "world": world}
+    cfg = args["cfg"]
+    mesh = init_device_mesh(dev_type, (world, 1), mesh_dim_names=("data", "model"))
+    data, batches = dist_batches(torch, cfg, dev)
+    batches = batches[:1]
+    trainer = Trainer(cfg, dist_loop(TrainLoopConfig, Path(args["ckpt"]) / f"rank{rank}"),
+                      data, device=dev, mesh=mesh)
+    psh, osh = trainer.shardings["params"], trainer.shardings["opt"]
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    full = trainer.model.init(torch.Generator().manual_seed(0))
+    params = steps.shard_tree(full, psh, mesh)
+    opt_state = steps.shard_tree(trainer.optimizer.init(full), osh, mesh)
+    abstract = trainer.model.abstract_params()
+    whole = (abstract, trainer.optimizer.init(abstract))
+    out["bytes"] = held_bytes(torch, (params, opt_state), whole, (psh, osh), mesh)
+    rows = [steps.shard_batch(b, cfg, mesh) for b in batches]
+
+    # the first step through the Trainer's step, timed: its gradients as the
+    # step takes them (kept by a stand-in for sharded_grads_of, which the step
+    # calls by name), its launches, its engine products by arm and shape, and
+    # the bytes its collectives bring this rank
+    kept, taken = {}, steps.sharded_grads_of
+
+    def keep(*a, **kw):
+        kept["grads"], kept["metrics"] = got = taken(*a, **kw)
+        return got
+
+    synchronize()
+    kernels.reset_launches()
+    steps.sharded_grads_of = keep
+    t0 = time.perf_counter()
+    try:
+        with ArmSpy(router) as spy, CommSpy(comm) as moved:
+            params, opt_state, m = trainer.train_step(params, opt_state, 0, rows[0])
+            synchronize()
+    finally:
+        steps.sharded_grads_of = taken
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["loss"] = float(m["loss"])
+    out["step_launches"] = {k: v for k, v in kernels.launches().items() if v}
+    out["step_arms"], out["step_bytes"] = dict(spy.calls), dict(moved.bytes)
+    out["step_shapes"] = dict(spy.shapes)
+
+    # the step's gradients, gathered, against the unsharded ones
+    mean_grads = steps.gather_tree(kept["grads"], psh, mesh)  # the mean of the ranks' own
+    if rank == 0:
+        want, want_metrics = steps.grads_of(full, cfg, batches[0])
+        out["grad_share"] = leaf_share(torch, mean_grads, want)
+        out["grad_loss"] = (float(kept["metrics"]["loss"]), float(want_metrics["loss"]))
+        del want
+    del kept
+    gathered = steps.gather_tree(params, psh, mesh)
+    if rank == 0:  # against the world-1 run's parameters, saved by the parent
+        ref, _ = load_pytree(args["ckpt_step"], {"params": gathered})
+        out["param_share"] = leaf_share(torch, gathered, ref["params"])
+        del ref
+    del gathered
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else float("nan")
+
+    # the world-1 checkpoint onto this mesh: each rank reads its blocks alone
+    like = {"params": whole[0], "opt": whole[1]}
+    t0 = time.perf_counter()
+    restored, _, step = CheckpointManager(args["ckpt"], async_writes=False).restore(
+        like, shardings={"params": psh, "opt": osh}, device=dev)
+    out["restore_s"] = time.perf_counter() - t0
+    coord, differ, n = mesh_coordinate(mesh), [], 0
+    manifest = json.loads((Path(args["ckpt_step"]) / "manifest.json").read_text())
+    files = {leaf["key"]: leaf["file"] for leaf in manifest["leaves"]}
+    for (key, t), (_, sh), (_, a) in zip(tree_items(restored),
+                                         tree_items({"params": psh, "opt": osh}),
+                                         tree_items(like)):
+        block = local_slices(tuple(a.shape), sh.spec, mesh, coord)
+        arr = np.load(Path(args["ckpt_step"]) / files[key], mmap_mode="r")[block]
+        n += 1
+        if tuple(t.shape) != arr.shape or not torch.equal(t.cpu(), torch.from_numpy(
+                np.array(arr))):
+            differ.append(key)
+    out["restore"] = (step, n, differ, held_bytes(torch, (restored["params"], restored["opt"]),
+                                                  whole, (psh, osh), mesh))
+    del restored, params, opt_state
+
+    # the compressed all-reduce of each rank's own gradients of the step: each
+    # residual bit for bit, the mean off the step's exact mean by at most half
+    # an int8 step of each rank's scale, averaged: sum_r max|g_r| / (254 world)
+    own, _ = steps.grads_of(full, cfg, rows[0])
+    reduced, residual = compressed_psum_with_feedback(own, init_error_feedback(own), "data",
+                                                      mesh)
+    worst, res_differ = 0.0, []
+    for (k, g), (_, red), (_, e), (_, mean) in zip(tree_items(own), tree_items(reduced),
+                                                   tree_items(residual),
+                                                   tree_items(mean_grads)):
+        g = g.float()
+        if not torch.equal(e, g - decode_int8(encode_int8(g))):
+            res_differ.append(k)
+        bound = comm.all_reduce(g.abs().max().reshape(1), ("data",), mesh) / (254 * world)
+        worst = max(worst, float((red - mean.float()).abs().max() / bound))
+    out["psum"] = (worst, res_differ)
+    del own, reduced, residual, mean_grads
+
+    # GPipe: two stages of the superblocks over a "pod" axis, 4 microbatches
+    mesh_pp = init_device_mesh(dev_type, (world,), mesh_dim_names=("pod",))
+    stage = mesh_coordinate(mesh_pp)["pod"]
+    stage_params = stage_of(split_stages(full["blocks"], world), stage)
+    tokens = batches[0]["tokens"].reshape(GPIPE_MICRO, -1, TRAIN_SEQ)
+    with torch.no_grad():
+        xs = torch.stack([lm_mod._embed_input(full, cfg, {"tokens": t}) for t in tokens])
+        fn = lambda sp, x, s: lm_mod.superblocks_forward(sp, cfg, x)[0]
+        pipeline_forward(fn, stage_params, xs[:1], mesh=mesh_pp, axis="pod")  # warm
+        synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with ArmSpy(router) as spy:
+            hs = pipeline_forward(fn, stage_params, xs, mesh=mesh_pp, axis="pod")
+            synchronize()
+        out["gpipe_ms"] = (time.perf_counter() - t0) * 1e3
+        out["gpipe_launches"] = {k: v for k, v in kernels.launches().items() if v}
+        out["gpipe_arms"], out["gpipe_shapes"] = dict(spy.calls), dict(spy.shapes)
+        if rank == 0:
+            same = [torch.equal(lm_mod._logits(full, cfg, h),
+                                lm_mod.forward_train(full, cfg, {"tokens": t})[0])
+                    for h, t in zip(hs, tokens)]
+            out["gpipe_same"] = same
+    return out
+
+
+def distributed_phase(torch, np, kernels, get_config, arype, fa, gen) -> dict:
+    """``[distributed]``: the distribution layer at qwen3-0.6b's full width and
+    depth (as registered: f32 weights, bf16 compute, AdamW), each world
+    printing its backend and size.
+
+    World of 1 (this process, NCCL, a (1, 1) mesh): ``DIST_STEPS`` steps of
+    the sharded train step against the unsharded ``Trainer`` step on the
+    same card, the first batch's gradients, every step's loss and gradient
+    norm and the final parameters and moments bit for bit (one rank: every
+    gather and reduction is the identity), with the sharded gradient's
+    launches as the unsharded step's; its state after the first step saved
+    for the restore.
+
+    World of 2 (:func:`dist_rank`, spawned: NCCL on two cards where two are
+    visible, else gloo with both ranks on ``cuda:0``), a mesh (data 2,
+    model 1): the first batch's gradients within ``DIST_GRAD_SHARE`` of each
+    leaf's max|grad| of the unsharded ones; the first step's loss and its
+    parameters' gap to the world-1 state printed (AdamW's first step is
+    g / (|g| + eps)); each
+    rank holding exactly its blocks' bytes, its peak GB; the world-1
+    checkpoint restored onto the mesh, each rank's blocks bit for bit;
+    ``compressed_psum_with_feedback`` over the data axis on each rank's own
+    gradients (residuals bit for bit, the mean within one int8 step);
+    GPipe: 2 stages of the 28 superblocks, 4 microbatches of
+    ``TRAIN_BATCH // 4`` x ``TRAIN_SEQ`` tokens, each microbatch's logits
+    bit for bit the unpipelined forward's, and the schedule's ms.  Each
+    rank's step launches what the unsharded gradient does; the bytes its
+    collectives bring it are printed (:class:`CommSpy`).  Last, every
+    (x, w, out) arm and shape of ``mm_fused`` the ranks ran (:class:`ArmSpy`:
+    the step's forward, dX, dW and recompute at M ``TRAIN_BATCH // 2`` x
+    ``TRAIN_SEQ``, GPipe's stage products at M ``TRAIN_BATCH // 4`` x
+    ``TRAIN_SEQ``) and ``flash_fwd`` at both batches, each against its
+    plain twin on the card and timed.  Returns their records, launches
+    summed over the ranks."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.common.tree import tree_items
+    from repro_torch.distributed import comm
+    from repro_torch.train import steps
+    from repro_torch.train.loop import Trainer, TrainLoopConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    dev_type = "cpu" if CARD == "cpu" else "cuda"
+    shutil.rmtree(DIST_CKPT, ignore_errors=True)
+    backend = comm.backend_for(1, dev_type)
+    log(f"[distributed] world 1: backend {backend}, rank 0 on {CARD}, mesh (data 1, model 1); "
+        f"{TRAIN_ARCH} as registered (params {cfg.param_dtype}, compute {cfg.compute_dtype}, "
+        f"{cfg.optimizer}), {DIST_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: the "
+        "sharded step against the unsharded Trainer step")
+    comm.init_rank(0, 1, comm.free_port(), dev_type)
+    try:
+        mesh = init_device_mesh(dev_type, (1, 1), mesh_dim_names=("data", "model"))
+        data, batches = dist_batches(torch, cfg, CARD)
+        plain = Trainer(cfg, dist_loop(TrainLoopConfig, DIST_CKPT / "plain"), data, device=CARD)
+        sharded = Trainer(cfg, dist_loop(TrainLoopConfig, DIST_CKPT / "sharded"), data,
+                          device=CARD, mesh=mesh)
+        p1, o1, _ = plain.init_state(0)
+        p2, o2, _ = sharded.init_state(0)
+        kernels.reset_launches()
+        g1, m1 = steps.grads_of(p1, cfg, batches[0])
+        want = kernels.launches()
+        kernels.reset_launches()
+        g2, m2 = steps.sharded_grads_of(p2, cfg, batches[0], mesh, sharded.shardings["params"])
+        got = kernels.launches()
+        if got != want or (dev_type == "cuda" and not got["mm_fused"]):
+            raise AssertionError(f"sharded gradient launches {got}, the unsharded {want}")
+        differ = [k for (k, a), (_, b) in zip(tree_items(g1), tree_items(g2))
+                  if not torch.equal(a, b)]
+        if differ or not torch.equal(m1["loss"], m2["loss"]):
+            raise AssertionError(f"world 1: gradients {differ} or the loss differ")
+        del g1, g2
+        ms, world1_losses = {"unsharded": [], "sharded": []}, []
+        state = CheckpointManager(str(DIST_CKPT / "state"), async_writes=False)
+        for step, batch in enumerate(batches):
+            outs = []
+            for label, tr, p, o in (("unsharded", plain, p1, o1), ("sharded", sharded, p2, o2)):
+                sync(torch)
+                t0 = time.perf_counter()
+                outs.append(tr.train_step(p, o, step, batch))
+                sync(torch)
+                ms[label].append((time.perf_counter() - t0) * 1e3)
+            (p1, o1, a), (p2, o2, b) = outs
+            world1_losses.append(float(b["loss"]))
+            for key in ("loss", "grad_norm"):
+                if not torch.equal(a[key], b[key]):
+                    raise AssertionError(f"world 1 step {step}: {key} {a[key]} != {b[key]}")
+            if step == 0:  # the state the world of 2 restores and is held to
+                t0 = time.perf_counter()
+                state.save({"params": p2, "opt": o2}, 1, extra={"next_step": 1})
+                save_s = time.perf_counter() - t0
+        differ = [k for (k, a), (_, b) in zip(tree_items({"p": p1, "o": o1}),
+                                               tree_items({"p": p2, "o": o2}))
+                  if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"world 1: parameters or moments differ: {differ[:4]}")
+        log(f"  world 1: gradients, {DIST_STEPS} steps' losses and gradient norms, the final "
+            f"parameters and moments bit for bit with the unsharded step; launches a gradient "
+            f"{counts_text(got)} (the unsharded step's); step ms unsharded "
+            f"{[round(x, 1) for x in ms['unsharded']]}, sharded "
+            f"{[round(x, 1) for x in ms['sharded']]}; losses {world1_losses}")
+        log(f"  world 1: the state after step 1 saved for the restore in {save_s:.1f} s")
+        del p1, o1, p2, o2, plain, sharded
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    world = 2
+    backend = comm.backend_for(world, dev_type)
+    where = ("the CPU" if dev_type == "cpu" else "cuda:0, cuda:1"
+             if torch.cuda.device_count() >= world
+             else "cuda:0 (both ranks; host-staged collectives)")
+    log(f"[distributed] world {world}: backend {backend}, ranks on {where}, mesh (data 2, "
+        "model 1); the first step, the restore, the compressed all-reduce, GPipe")
+    ckpt = DIST_CKPT / "state"
+    t0 = time.perf_counter()
+    ranks = comm.run_world(dist_rank, world, {"ckpt": str(ckpt), "cfg": cfg,
+                                              "ckpt_step": str(ckpt / "step_00000001"),
+                                              "device_type": dev_type},
+                           device_type=dev_type, all_ranks=True, out_dir=str(DIST_CKPT))
+    log(f"  world {world} ran in {time.perf_counter() - t0:.1f} s (spawn, init and checks)")
+    r0 = ranks[0]
+    share, leaf = r0["grad_share"]
+    if share > DIST_GRAD_SHARE:
+        raise AssertionError(f"world {world}: gradient leaf {leaf} off by {share:.3e} of its "
+                             f"max|grad| (limit {DIST_GRAD_SHARE})")
+    log(f"  gradients of the first batch within {share:.3e} of each leaf's max|grad| of the "
+        f"unsharded step (worst {leaf}; limit {DIST_GRAD_SHARE}); loss sharded "
+        f"{r0['grad_loss'][0]:.7f}, unsharded {r0['grad_loss'][1]:.7f}")
+    pshare, pleaf = r0["param_share"]
+    log(f"  after the step: loss {r0['loss']} (world 1 {world1_losses[0]}); parameters within "
+        f"{pshare:.3e} of each leaf's max|value| of the world-1 run's (worst {pleaf}; AdamW's "
+        "first step is g / (|g| + 1e-8), so a gradient's last bits can move a parameter by a "
+        "whole step)")
+    for r, out in enumerate(ranks):
+        held, blocks = out["bytes"]
+        step, n, differ, (rheld, rblocks) = out["restore"]
+        if held != blocks or rheld != rblocks:
+            raise AssertionError(f"rank {r}: holds {held} / {rheld} bytes, its blocks add up to "
+                                 f"{blocks} / {rblocks}")
+        if differ or step != 1:
+            raise AssertionError(f"rank {r}: restored leaves {differ[:4]} differ (step {step})")
+        psum_ratio, res_differ = out["psum"]
+        if res_differ or psum_ratio > 1.001:
+            raise AssertionError(f"rank {r}: compressed all-reduce residuals {res_differ[:4]}, "
+                                 f"mean off by {psum_ratio:.4f} of its bound")
+        if dev_type == "cuda" and (out["step_launches"] != {k: v for k, v in got.items() if v}
+                                   or sum(out["step_arms"].values()) != got["mm_fused"]):
+            raise AssertionError(f"rank {r}: step launches {out['step_launches']} (engine calls "
+                                 f"{sum(out['step_arms'].values())}), the unsharded gradient's "
+                                 f"{got}")
+        moved = out["step_bytes"]
+        log(f"  rank {r} ({out['backend']}, {out['device']}): holds {held / 1e9:.3f} GB of "
+            f"parameters and moments, its blocks' sum; peak {out['peak_gb']:.2f} GB; step "
+            f"{out['step_ms']:.1f} ms, launches {counts_text(out['step_launches'])} (the "
+            f"unsharded gradient's); its collectives brought it {moved['gather'] / 1e9:.3f} GB "
+            f"of gathered parameters, {moved['relayout'] / 1e9:.3f} GB of relayouted optimizer "
+            f"leaves, {moved['reduce'] / 1e9:.3f} GB of all-reduces (a ring's 2(n-1)/n); "
+            f"restore of the world-1 state: {n} "
+            f"leaves bit for bit, {rheld / 1e9:.3f} GB read in {out['restore_s']:.1f} s; "
+            f"compressed all-reduce: residuals bit for bit, mean off the exact one by at most "
+            f"{psum_ratio:.4f} of half an int8 step; GPipe {out['gpipe_ms']:.1f} ms, launches "
+            f"{out['gpipe_launches']}")
+    stage_mm = GPIPE_MICRO * cfg.num_superblocks // world * 7  # 7 products a qwen3 layer
+    for r, out in enumerate(ranks):
+        got = out["gpipe_launches"]
+        if dev_type == "cuda" and (got.get("mm_fused") != stage_mm
+                                   or got.get("flash_fwd") != stage_mm // 7):
+            raise AssertionError(f"rank {r}: GPipe launches {got}, expected {stage_mm} mm_fused "
+                                 f"and {stage_mm // 7} flash_fwd")
+    if not all(r0["gpipe_same"]) or len(r0["gpipe_same"]) != GPIPE_MICRO:
+        raise AssertionError(f"GPipe logits differ from the forward: {r0['gpipe_same']}")
+    log(f"  GPipe: {world} stages x {cfg.num_superblocks // world} superblocks, {GPIPE_MICRO} "
+        f"microbatches of {TRAIN_BATCH // GPIPE_MICRO} x {TRAIN_SEQ}: every microbatch's "
+        f"logits bit for bit the unpipelined forward's; schedule {r0['gpipe_ms']:.1f} ms")
+    shutil.rmtree(DIST_CKPT, ignore_errors=True)
+
+    # -- the kernels at the shapes the ranks ran them, against their plain twins
+    shapes = set(r0["step_shapes"]) | set(r0["gpipe_shapes"])
+    for r, out in enumerate(ranks):
+        if set(out["step_shapes"]) | set(out["gpipe_shapes"]) != shapes:
+            raise AssertionError(f"rank {r} ran other engine shapes than rank 0")
+    log(f"  mm_fused at the {len(shapes)} (arm, shape) pairs the ranks ran (the step at M "
+        f"{TRAIN_BATCH // world * TRAIN_SEQ} a rank, GPipe's stages at M "
+        f"{TRAIN_BATCH // GPIPE_MICRO * TRAIN_SEQ}), each against its plain twin:")
+    recs: dict = {}
+    for arm, (m, k, n) in sorted(shapes, key=str):
+        a = torch.randn(m, k, generator=gen).to(CARD, arm[0])
+        b = (torch.randn(k, n, generator=gen) * k ** -0.5).to(CARD, arm[1])
+        hold_product(torch, arype, a, b, arm[2], recs, f"world {world}")
+        del a, b
+    for name, rec in recs.items():
+        rec["launches"] = sum(n for out in ranks for key in ("step_arms", "gpipe_arms")
+                              for arm, n in out[key].items() if arm_name(torch, arm) == name)
+        set_bound_by(rec)
+    log(f"  flash_fwd in bf16 at the ranks' shapes (B {TRAIN_BATCH // world} and "
+        f"{TRAIN_BATCH // GPIPE_MICRO}, S {TRAIN_SEQ}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads}, D {cfg.head_dim}, causal):")
+    flash = product_record()
+    for b in (TRAIN_BATCH // world, TRAIN_BATCH // GPIPE_MICRO):
+        r = flash_case(torch, fa, gen, (b, cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
+                                        cfg.head_dim, "causal", 0, None), "bfloat16",
+                       lm_layout=True)
+        flash["max_abs_err"] = max(flash["max_abs_err"], r["max_abs_err"])
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"):
+            flash[key] += r[key]
+    flash["ops_ms"] = flash["flops"] / BF16_OPS_PER_S * 1e3
+    flash["launches"] = sum(out[key].get("flash_fwd", 0) for out in ranks
+                            for key in ("step_launches", "gpipe_launches"))
+    return {"mm_fused": recs, "flash_fwd": set_bound_by(flash)}
+
+
+def shard_map_phase(torch, kernels, record_routes, checks, TrafficConfig, TrafficGenerator,
+                    ShardedOctopusPipeline, PipelineConfig, mlp, cnn, card) -> dict:
+    """``[pipeline sharded shard_map]``: the CNN f32 pipeline at the smoke
+    config on ``SHARD_MAP_LANES`` lanes, one card a lane where that many are
+    visible, else every lane on ``cuda:0``, against the vmap lanes for
+    ``SHARD_MAP_STEPS`` steps: launches as counted from the recorded routes
+    (``SHARD_MAP_LANES`` ``flow_update`` a step against vmap's 1), then every
+    step's outputs (verdicts, drained rows, flow decisions and scores,
+    counters), the state and the rule table bit for bit.  Returns each
+    engine kernel's largest error at the per-lane shapes."""
+    S = SHARD_MAP_LANES
+    devices = ([f"cuda:{i}" for i in range(S)] if torch.cuda.device_count() >= S
+               else ["cuda:0"] * S)
+    log(f"[pipeline sharded shard_map] CNN f32, {PIPE}, traffic {TRAFFIC}, {S} lanes on "
+        f"{devices}, {SHARD_MAP_STEPS} steps against the vmap lanes")
+    batches = make_batches(TrafficConfig, TrafficGenerator, TRAFFIC, SHARD_MAP_STEPS, "cpu")
+    shapes = {}
+    vm = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=S, backend="vmap")
+    lane_steps(torch, kernels, record_routes, vm, batches, "vmap", card, shapes)
+    sm = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**PIPE), num_shards=S,
+                                backend="shard_map", devices=devices)
+    lane_steps(torch, kernels, record_routes, sm, batches, "shard_map", card, shapes, rounds=S)
+    vm.reset()
+    sm.reset()
+    for step, batch in enumerate(batches):
+        a, b = vm.step(batch), sm.step(batch)
+        same_tree(torch, f"shard_map step {step}", a, b)
+    same_tree(torch, "shard_map state", vm.state, sm.state)
+    if vm.rules.rules != sm.rules.rules or not sm.stats.flows:
+        raise AssertionError("shard_map: rule tables differ, or no flow drained")
+    log(f"  shard_map: every step's outputs, the state and the rule table bit for bit with the "
+        f"vmap lanes over {SHARD_MAP_STEPS} steps (flows {sm.stats.flows}, evicted "
+        f"{sm.stats.evicted}); each lane's bank on {[str(d) for d in sm.mesh.devices]}")
+    del vm, sm
+    torch.cuda.empty_cache()
+    return check_recorded(checks, shapes, "the shard_map lanes")
 
 
 def _leaves(tree):
@@ -4623,6 +5185,12 @@ def main() -> int:
         torch, fx, ft, kernels, record_routes, checks, TrafficConfig, TrafficGenerator,
         OctopusPipeline, ShardedOctopusPipeline, PipelineConfig, mlp, cnn, int8, card, profile))
 
+    elapsed("13b")
+    # -- 13b. sharded lanes, one card a lane (every lane on cuda:0 on one card)
+    phase_errs.append(shard_map_phase(
+        torch, kernels, record_routes, checks, TrafficConfig, TrafficGenerator,
+        ShardedOctopusPipeline, PipelineConfig, mlp, cnn, card))
+
     elapsed("14")
     # -- 14. the async serving frontend
     phase_errs.append(service_phase(
@@ -4754,6 +5322,10 @@ def main() -> int:
     elapsed("18i")
     vision = vision_phase(torch, np, kernels, record_routes, lm_mod, get_config, fa, arype, gen)
 
+    elapsed("18j")
+    # -- 18j. the distribution layer: worlds of 1 and 2 ranks
+    dist_recs = distributed_phase(torch, np, kernels, get_config, arype, fa, gen)
+
     elapsed("19-21")
     # -- 19-21. the offline extractor, the per-granularity paths, the scenarios
     trace, trace_state = extractor_phase(torch, kernels, card)
@@ -4815,6 +5387,14 @@ def main() -> int:
            "flash_fwd": ("flash_fwd (bf16, self and cross)", source["flash_fwd"])}
     record += [dict(name=f"{arm[name][0]}, {VISION_ARCH}", route="cuda", source=arm[name][1],
                     replaces=replaces[name], **r) for name, r in vision.items()]
+    # the distribution layer: every mm_fused arm and shape of the world-2
+    # step's ranks and GPipe's stages, and flash_fwd at their batches
+    record += [dict(name=f"{name}, world-2 step and GPipe stages", route="cuda",
+                    source=source["mm_fused"], replaces=replaces["mm_fused"], **r)
+               for name, r in dist_recs["mm_fused"].items()]
+    record.append(dict(name="flash_fwd (bf16), world-2 step and GPipe stages", route="cuda",
+                       source=source["flash_fwd"], replaces=replaces["flash_fwd"],
+                       **dist_recs["flash_fwd"]))
     elapsed("end")
     log(card)
     print(json.dumps({"kernels": record}))

@@ -14,7 +14,14 @@ checkpoints:
   * :class:`CheckpointManager` copies the tree to the host at ``save`` (the
     train step then updates the parameters in place) and writes it on a
     thread; ``wait`` joins it and raises what it raised.  It keeps the
-    newest ``keep`` checkpoints.
+    newest ``keep`` checkpoints;
+  * on a mesh (``shardings``, a tree of
+    :class:`~repro_torch.distributed.sharding.Sharding` on a live
+    ``DeviceMesh``) a save is collective and synchronous: each rank writes
+    its blocks into the leaves' files (:func:`save_pytree_sharded`); a
+    restore reads each leaf through a memory map and materialises only this
+    rank's block, whatever mesh (or single device) wrote it.  No rank holds
+    more than its blocks either way.
 """
 from __future__ import annotations
 
@@ -91,27 +98,96 @@ def save_pytree(tree: Any, directory: str, *, step: int, extra: Optional[dict] =
     return final
 
 
-def load_pytree(path: str, like: Any) -> tuple[Any, dict]:
+def save_pytree_sharded(tree: Any, shardings: Any, directory: str, *, step: int,
+                        extra: Optional[dict] = None) -> str:
+    """:func:`save_pytree` from a mesh, called by every rank with its blocks
+    (``shardings`` a tree like ``tree``): rank 0 lays out each leaf's file
+    whole, unwritten, and the manifest; each block is written into its file
+    by one of the ranks holding it (coordinate 0 on every mesh axis its spec
+    does not name); rank 0 renames the directory into place.  Every rank
+    returns once the checkpoint is complete.  Returns the final path."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.comm import axis_size
+    from repro_torch.distributed.sharding import local_slices, mesh_coordinate
+
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    leaves = []
+    for (key, block), (_, sh) in zip(tree_items(tree), tree_items(shardings)):
+        spec = tuple(sh.spec) + (None,) * (block.dim() - len(sh.spec))
+        shape = tuple(n * axis_size(sh.mesh, entry) for n, entry in zip(block.shape, spec))
+        arr, dtype_name = _encode(_to_host(block))
+        leaves.append((key, _safe_name(key) + ".npy", shape, dtype_name, arr, sh))
+    if dist.get_rank() == 0:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        manifest = {"step": step, "leaves": [], "extra": extra or {}, "hosts": 1}
+        for key, fname, shape, dtype_name, arr, _ in leaves:
+            np.lib.format.open_memmap(os.path.join(tmp, fname), mode="w+", dtype=arr.dtype,
+                                      shape=shape + arr.shape[len(shape):])
+            manifest["leaves"].append({"key": key, "file": fname, "shape": list(shape),
+                                       "dtype": dtype_name})
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+    dist.barrier()
+    for key, fname, shape, _, arr, sh in leaves:
+        coord = mesh_coordinate(sh.mesh)
+        named = {a for entry in sh.spec if entry is not None
+                 for a in ((entry,) if isinstance(entry, str) else entry)}
+        if any(c for a, c in coord.items() if a not in named):
+            continue  # another rank holds this block too and writes it
+        out = np.load(os.path.join(tmp, fname), mmap_mode="r+")
+        out[local_slices(shape, sh.spec, sh.mesh, coord)] = arr
+        out.flush()
+        del out
+    dist.barrier()
+    if dist.get_rank() == 0:
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    dist.barrier()
+    return final
+
+
+def load_pytree(path: str, like: Any, *, shardings: Optional[Any] = None,
+                device=None) -> tuple[Any, dict]:
     """Restore into the structure of ``like``: each leaf in the type of
     ``like``'s leaf (converted if the checkpoint holds another) on its
-    device.  A leaf the checkpoint lacks raises ``KeyError``, one of another
-    shape ``ValueError``.  Returns (tree, extra)."""
+    device (``device`` for a ``meta`` leaf).  With ``shardings`` (a tree like
+    ``like``), each leaf comes back as this rank's block under its spec,
+    read from a memory map: the mesh may differ from the one that saved.  A
+    leaf the checkpoint lacks raises ``KeyError``, one of another shape
+    ``ValueError``.  Returns (tree, extra)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
+    sh_leaves = None if shardings is None else [sh for _, sh in tree_items(shardings)]
     out = []
-    for key, leaf in tree_items(like):
+    for i, (key, leaf) in enumerate(tree_items(like)):
         meta = by_key.get(key)
         if meta is None:
             raise KeyError(f"checkpoint at {path} is missing leaf {key}")
-        t = _decode(np.load(os.path.join(path, meta["file"])), meta["dtype"],
-                    tuple(meta["shape"]))
+        shape = tuple(meta["shape"])
         want = tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(np.shape(leaf))
-        if tuple(t.shape) != want:
+        if shape != want:
             raise ValueError(f"checkpoint at {path} holds leaf {key} of shape "
-                             f"{tuple(t.shape)}, expected {want}")
+                             f"{shape}, expected {want}")
+        arr = np.load(os.path.join(path, meta["file"]),
+                      mmap_mode=None if sh_leaves is None else "r")
+        if sh_leaves is not None:  # this rank's block (a raw-bytes axis stays whole)
+            from repro_torch.distributed.sharding import local_slices, mesh_coordinate
+
+            sh = sh_leaves[i]
+            block = local_slices(shape, sh.spec, sh.mesh, mesh_coordinate(sh.mesh))
+            arr = arr[block]
+            shape = tuple(s.stop - s.start for s in block)
+        t = _decode(arr, meta["dtype"], shape)
         if isinstance(leaf, torch.Tensor):
-            t = t.to(device=leaf.device, dtype=leaf.dtype)
+            dev = device if leaf.device.type == "meta" and device is not None else leaf.device
+            t = t.to(device=dev, dtype=leaf.dtype)
         out.append(t)
     values = iter(out)
     return tree_map(lambda _: next(values), like), manifest["extra"]
@@ -143,8 +219,20 @@ class CheckpointManager:
         return os.path.join(self.directory, f"step_{step:08d}")
 
     # -- save
-    def save(self, tree: Any, step: int, extra: Optional[dict] = None):
+    def save(self, tree: Any, step: int, extra: Optional[dict] = None, *,
+             shardings: Optional[Any] = None):
+        """Save ``tree`` as step ``step``: taken to the host now and written on
+        a thread (``async_writes``).  With ``shardings`` (on a mesh: every
+        rank calls it with its blocks) the save is collective and
+        synchronous, :func:`save_pytree_sharded`, and rank 0 prunes."""
         self.wait()
+        if shardings is not None:
+            import torch.distributed as dist
+
+            save_pytree_sharded(tree, shardings, self.directory, step=step, extra=extra)
+            if dist.get_rank() == 0:
+                self._gc()
+            return
         host_tree = tree_map(lambda t: _to_host(t, copy=True), tree)  # taken now
 
         def work():
@@ -178,10 +266,11 @@ class CheckpointManager:
             shutil.rmtree(self.path_for(s), ignore_errors=True)
 
     # -- restore
-    def restore(self, like: Any, *, step: Optional[int] = None) -> tuple[Any, dict, int]:
+    def restore(self, like: Any, *, step: Optional[int] = None, shardings: Optional[Any] = None,
+                device=None) -> tuple[Any, dict, int]:
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        tree, extra = load_pytree(self.path_for(step), like)
+        tree, extra = load_pytree(self.path_for(step), like, shardings=shardings, device=device)
         return tree, extra, step

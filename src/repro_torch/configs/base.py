@@ -6,11 +6,13 @@ superblock ``block_pattern`` -> tail layers -> final norm -> logits head.
 The reference scans over the superblocks; the port loops over them, and keeps
 their parameters and caches stacked on a leading axis as the reference does.
 
-The fields that chose an implementation or a distribution in the reference
-(``use_pallas``, ``attn_impl``, ``inner_unroll``, ``attn_av_dtype``,
-``scan_layers``, ``remat``, ``fsdp``, ``sequence_parallel``,
-``moe_dp_attention``, ``shard_kv_seq_decode``) are left out: the port has one
-implementation per device and runs on one card.  ``remat`` is left out too:
+The fields that chose an implementation in the reference (``use_pallas``,
+``attn_impl``, ``inner_unroll``, ``attn_av_dtype``, ``scan_layers``) are
+left out: the port has one implementation per device.  The distribution
+fields (``fsdp``, ``shard_kv_seq_decode``, ``sequence_parallel``,
+``moe_dp_attention``) are here, with the reference's defaults: the sharding
+rules (:mod:`repro_torch.distributed.sharding`) and the activation
+constraints read them.  ``remat`` is left out too:
 the port's eager training loop keeps every activation, and at the full-width
 batches it trains (qwen3-0.6b at 8 x 128 tokens) they fit the card.  The
 frontend group is here (``is_encoder_only``, ``frontend``,
@@ -98,6 +100,11 @@ class ArchConfig:
     compute_dtype: str = "bfloat16"
     optimizer: str = "adamw"  # adamw|adafactor|sgd
     vocab_round_to: int = 128
+    # -- distribution (read by the sharding rules and the activation constraints)
+    fsdp: bool = True  # shard the embed dim of every parameter over (pod, data)
+    shard_kv_seq_decode: bool = False  # decode caches' sequence over the model axis
+    sequence_parallel: bool = False  # the residual stream's sequence over the model axis
+    moe_dp_attention: bool = False  # the Switch/GShard layout: batch over every axis, no TP
     # -- technique (Octopus)
     router_policy: str = "collaborative"  # collaborative|arype_only|vpe_only
 
@@ -209,6 +216,7 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
         param_dtype="float32",
         compute_dtype="float32",
         vocab_round_to=16,
+        fsdp=False,
     )
     if cfg.num_experts:
         # a capacity factor high enough that the reduced configs drop no token

@@ -1,3 +1,5 @@
-"""Distribution helpers of the port.  Only the int8 gradient compression that
-the train step uses is ported (``compression``); the mesh, the sharding
-rules and the collectives come with ROADMAP Queue 1 item 12."""
+"""The port's distribution layer on ``torch.distributed``: the sharding
+rules (``sharding``), the activation constraints (``act``), process groups
+and collectives (``comm``), the sharded train step's gathered parameters
+(``gather``), GPipe (``pipeline``) and the int8 gradient compression with its
+collective (``compression``)."""

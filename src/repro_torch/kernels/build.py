@@ -5,7 +5,9 @@ compiler process per source, all started together) and linked into one
 shared library with a plain C interface, loaded with :mod:`ctypes`.  The build
 runs at the first launch of any kernel, never at import, and lands in
 ``src/repro_torch/_build/`` under a name keyed by the hash of the sources and
-flags, so an edited source is rebuilt on its next use.
+flags, so an edited source is rebuilt on its next use.  The build holds a
+file lock in that directory, so processes started together (the ranks of a
+distributed run) compile once and load what the first one built.
 
 Each C entry point takes raw device pointers, sizes and the CUDA stream, and
 returns ``cudaGetLastError()`` after its launch; :class:`CudaKernel` raises on
@@ -14,6 +16,7 @@ a non-zero value and counts the launches that succeeded.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -91,9 +94,13 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             target = BUILD_DIR / f"libocto_kernels_{_digest()}.so"
             if not target.exists():
-                t0 = time.perf_counter()
-                _compile(target)
-                build_seconds = time.perf_counter() - t0
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                with open(BUILD_DIR / ".build.lock", "w") as lock:
+                    fcntl.flock(lock, fcntl.LOCK_EX)  # one compiler run across processes
+                    if not target.exists():
+                        t0 = time.perf_counter()
+                        _compile(target)
+                        build_seconds = time.perf_counter() - t0
             lib = ctypes.CDLL(str(target))
             lib.octo_error_string.argtypes = [ctypes.c_int]
             lib.octo_error_string.restype = ctypes.c_char_p

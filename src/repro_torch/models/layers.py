@@ -25,6 +25,7 @@ import torch
 from repro_torch.common.util import Device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import router
+from repro_torch.distributed.act import shard_act
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.spec import ParamSpec
 from repro_torch.runtime import RuntimeConfig
@@ -139,9 +140,12 @@ def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, k
     kc, vc = k.reshape(b, nk, ck, hkv, dh), v.reshape(b, nk, ck, hkv, dh)
     dev = q.device
     qpos = torch.arange(nq, device=dev)[:, None] * cq + torch.arange(cq, device=dev)[None, :]
-    m = torch.full((b, nq, hkv, g, cq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, nq, hkv, g, cq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, nq, hkv, g, cq, dh), dtype=torch.float32, device=dev)
+    m = shard_act(torch.full((b, nq, hkv, g, cq), NEG_INF, dtype=torch.float32, device=dev),
+                  "batch", None, "heads", None, None)
+    l = shard_act(torch.zeros((b, nq, hkv, g, cq), dtype=torch.float32, device=dev),
+                  "batch", None, "heads", None, None)
+    acc = shard_act(torch.zeros((b, nq, hkv, g, cq, dh), dtype=torch.float32, device=dev),
+                    "batch", None, "heads", None, None, None)
     for j in range(nk):
         scores = torch.einsum("bnqhgd,bkhd->bnhgqk", qc, kc[:, j].float())
         kpos = j * ck + torch.arange(ck, device=dev)
@@ -174,6 +178,8 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, ki
     g = hq // k.shape[2]
     if g > 1:
         k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    k = shard_act(k, "batch", None, "heads", None)
+    v = shard_act(v, "batch", None, "heads", None)
     qg = q.reshape(b, s, hq, 1, dh)
     attend = _naive_attention if s * k.shape[1] <= NAIVE_MAX_SCORES else _blockwise_attention
     return attend(qg, k, v, kind=kind, window=window).reshape(b, s, hq, dh)
@@ -325,6 +331,7 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
     mm = functools.partial(router.matmul, out_dtype=x.dtype, config=RuntimeConfig.from_arch(cfg))
     h = rms_norm(x, p["ln"])
     q = mm(h, p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q = shard_act(q, "batch", None, "heads", None)
     if kind == "cross":
         return _cross_attn(p, x, q, cfg, mm, cross_kv=cross_kv, cache=cache, mode=mode)
     k = mm(h, p["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
@@ -372,10 +379,10 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     mm = functools.partial(router.matmul, out_dtype=x.dtype, config=RuntimeConfig.from_arch(cfg))
     h = rms_norm(x, p["ln"])
     if cfg.mlp_gated:
-        gate = mm(h, p["wi_gate"], activation="silu")
-        up = mm(h, p["wi_up"])
+        gate = shard_act(mm(h, p["wi_gate"], activation="silu"), "batch", None, "mlp")
+        up = shard_act(mm(h, p["wi_up"]), "batch", None, "mlp")
         return x + mm(gate * up, p["wo"])
-    up = mm(h, p["wi_up"], activation="gelu")
+    up = shard_act(mm(h, p["wi_up"], activation="gelu"), "batch", None, "mlp")
     return x + mm(up, p["wo"])
 
 
@@ -488,17 +495,22 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
     src = hg[:, tok] * keep[..., None].to(hg.dtype)  # (G, TK, D)
     buf = torch.zeros(g, e * cap + 1, d, dtype=hg.dtype, device=x.device)
     buf.scatter_(1, slot[..., None].expand(-1, -1, d), src)  # the drop row takes the rest
-    disp = buf[:, :e * cap].reshape(g, e, cap, d).float()
+    # the EP dispatch boundary: groups on the pure-DP axes, experts on model
+    disp = shard_act(buf[:, :e * cap].reshape(g, e, cap, d), "batch_dp", "expert", None,
+                     None).float()
 
     def expert_mm(spec: str, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.einsum(spec, a, w.float()).to(torch.promote_types(hg.dtype, w.dtype))
 
-    gate = expert_mm("gecd,edf->gecf", disp, p["w_gate"])
+    gate = shard_act(expert_mm("gecd,edf->gecf", disp, p["w_gate"]),
+                     "batch_dp", "expert", None, None)
     # silu as jax.nn.sigmoid lowers it, each op rounded to gate's type: on
     # bf16 experts the one-rounding torch.sigmoid differs on ~30% of values
     gate = gate * (1 / (1 + torch.exp(-gate)))
-    up = expert_mm("gecd,edf->gecf", disp, p["w_up"])
+    up = shard_act(expert_mm("gecd,edf->gecf", disp, p["w_up"]),
+                   "batch_dp", "expert", None, None)
     out_e = expert_mm("gecf,efd->gecd", (gate * up).to(hg.dtype).float(), p["w_down"])
+    out_e = shard_act(out_e, "batch_dp", "expert", None, None)
 
     cdt = getattr(torch, cfg.moe_combine_dtype)
     weights = (gate_vals.reshape(g, t * k_top) * keep.float()).to(cdt)
@@ -509,7 +521,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
     y = gathered[:, :, 0]
     for j in range(1, k_top):
         y = y + gathered[:, :, j]
-    y = y.to(x.dtype)
+    y = shard_act(y, "batch", None, None).to(x.dtype)
 
     if cfg.num_shared_experts:
         mm = functools.partial(router.matmul, out_dtype=x.dtype,

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.common.util import ceil_div
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import router
+from repro_torch.distributed.act import shard_act
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.spec import ParamSpec
 from repro_torch.runtime import RuntimeConfig
@@ -184,12 +185,14 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, mode: str = "trai
     conv_out, new_conv = _causal_conv(torch.cat([xs, b_in, c_in], dim=-1), p["conv_w"],
                                       p["conv_b"], cache.conv if cache is not None else None)
     xs, b_in, c_in = torch.split(conv_out, [din, n, n], dim=-1)
+    xs = shard_act(xs, "batch", None, "inner")
 
     a = -torch.exp(p["a_log"])  # (H,)
     dtp = softplus(dt.float() + p["dt_bias"])  # (B, S, H)
-    xh = xs.reshape(bsz, s, h, pdim)
+    xh = shard_act(xs.reshape(bsz, s, h, pdim), "batch", None, "heads", None)
     state0 = cache.ssm if cache is not None else torch.zeros(
         (bsz, h, n, pdim), dtype=torch.float32, device=x.device)
+    state0 = shard_act(state0, "batch", "heads", None, None)
     if mode == "decode" and s == 1:
         da = torch.exp(dtp[:, 0, :] * a)  # (B, H)
         dbx = torch.einsum("bh,bn,bhp->bhnp", dtp[:, 0], b_in[:, 0].float(), xh[:, 0].float())
@@ -272,6 +275,8 @@ def _mlstm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ig: tor
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))[None, :, :, None]
 
     c_in, n_in, m_in = cache
+    c_in = shard_act(c_in, "batch", None, "inner", None)
+    n_in = shard_act(n_in, "batch", None, "inner")
     hs = []
     for j in range(nc):  # the reference's scan over the chunks
         qj, kj, vj, bj, uj, ujmax, btj = (t[:, j] for t in (qc, kc, vc, bcum, u, ucmax, btot))
@@ -312,6 +317,7 @@ def mlstm_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, mode: str = "train
     mm = _routed(cfg, x)
     up = mm(rms_norm(x, p["ln"]), p["w_up"])
     xs, z = torch.chunk(up, 2, dim=-1)  # the cell path, the gate path
+    xs = shard_act(xs, "batch", None, "inner")
     xh = xs.reshape(bsz, s, h, dk)
     q = _einsum("bshd,hde->bshe", xh, p["wq"]).to(x.dtype)
     k = _einsum("bshd,hde->bshe", xh, p["wk"]).to(x.dtype)

@@ -19,15 +19,17 @@ embeddings (``batch["vision"]``) that every cross-attention layer attends.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.tree import tree_leaves
 from repro_torch.common.util import Device, resolve_device
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core import router
+from repro_torch.distributed.act import shard_act
 from repro_torch.models import recurrent as rec
 from repro_torch.models import spec as pspec
 from repro_torch.models.layers import (
@@ -251,18 +253,47 @@ def _layers(params: dict, cfg: ArchConfig, h: torch.Tensor, *, mode: str,
     for i, spec in enumerate(cfg.head_pattern):
         h, aux = run(h, params, spec, f"pre{i}", cache)
         aux_total = aux_total + aux
-    blocks = _unstack(params["blocks"], cfg.num_superblocks)
-    for sb in range(cfg.num_superblocks):
-        sb_aux = 0.0
-        for i, spec in enumerate(cfg.block_pattern):
-            h, aux = run(h, blocks[sb], spec, f"l{i}",
-                         cache["blocks"] if cache is not None else None, sb)
-            sb_aux = sb_aux + aux
-        aux_total = aux_total + sb_aux
+    # a sharded step's parameters gather each superblock's leaves at their use
+    blocks = (params.superblocks(cfg.num_superblocks) if hasattr(params, "superblocks")
+              else _unstack(params["blocks"], cfg.num_superblocks))
+    block_caches = cache["blocks"] if cache is not None else None
+    h, aux_total = _superblocks(
+        blocks, cfg, h, lambda h, bp, spec, key, sb: run(h, bp, spec, key, block_caches, sb),
+        mode=mode, aux_total=aux_total)
     for i, spec in enumerate(cfg.tail_pattern):
         h, aux = run(h, params, spec, f"tail{i}", cache)
         aux_total = aux_total + aux
     return h, aux_total
+
+
+def _superblocks(blocks: list, cfg: ArchConfig, h: torch.Tensor, run: Callable, *, mode: str,
+                 aux_total: Any = 0.0) -> tuple[torch.Tensor, Any]:
+    """The superblocks in order, each layer through ``run(h, superblock's
+    params, spec, key, superblock index) -> (h, aux)``; each superblock's
+    aux summed, then added to ``aux_total``.  Sequence-parallel training
+    shards the carry's seq dim."""
+    seq_axis = "seq_sp" if (cfg.sequence_parallel and mode == "train") else None
+    for sb, bp in enumerate(blocks):
+        h = shard_act(h, "batch", seq_axis, None)
+        sb_aux = 0.0
+        for i, spec in enumerate(cfg.block_pattern):
+            h, aux = run(h, bp, spec, f"l{i}", sb)
+            sb_aux = sb_aux + aux
+        aux_total = aux_total + sb_aux
+    return h, aux_total
+
+
+def superblocks_forward(blocks: dict, cfg: ArchConfig, h: torch.Tensor
+                        ) -> tuple[torch.Tensor, Any]:
+    """The training-mode superblocks of a stacked tree of any count (a
+    pipeline stage's slice of ``params["blocks"]``), as :func:`_layers` runs
+    them.  Returns (h, the summed aux: 0.0 without MoE layers)."""
+    def run(h, bp, spec, key, sb):
+        h, _, aux = _apply_layer(bp[key], None, h, cfg, spec, mode="train")
+        return h, aux
+
+    n = tree_leaves(blocks)[0].shape[0]
+    return _superblocks(_unstack(blocks, n), cfg, h, run, mode="train")
 
 
 # ---------------------------------------------------------------- forward passes
@@ -275,19 +306,21 @@ def _embed_input(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     is f32, so under ``embed_scale`` (gemma3) the stack runs in f32 after one
     bf16 rounding of the embedding, and the port does the same."""
     if cfg.frontend == "audio_frames":
-        return batch["frames"].to(getattr(torch, cfg.compute_dtype))
+        return shard_act(batch["frames"].to(getattr(torch, cfg.compute_dtype)), "batch", None,
+                         None)
     # F.embedding: its backward sums each row's gradients deterministically
     # on the card, where indexing's would scatter-add them
     h = F.embedding(batch["tokens"].long(), params["embed"]).to(getattr(torch, cfg.compute_dtype))
     if cfg.embed_scale:
         h = h.float() * float(np.float32(np.sqrt(cfg.d_model)))
-    return h
+    return shard_act(h, "batch", None, None)
 
 
 def _logits(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"])
     logits = router.matmul(h, params["lm_head"], out_dtype=torch.float32,
                            config=RuntimeConfig.from_arch(cfg), name="lm_head")
+    logits = shard_act(logits, "batch", None, "vocab")
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)

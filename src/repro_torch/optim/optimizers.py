@@ -13,11 +13,17 @@ computed from the step (``lr_t``, ``b1 ** step`` as Python doubles would
 differ in the last bit).  ``update`` writes the parameters and the state in
 place under ``torch.no_grad()`` and returns them; parameters keep their
 dtype.
+
+``update`` takes an optional tree of reducers like ``params``: Adafactor
+takes every mean through its leaf's reducer, so a sharded step
+(:func:`repro_torch.train.steps.make_sharded_train_step`) sums over the
+ranks that hold the other blocks of a leaf; without one a mean is the
+leaf's own (:data:`PLAIN`).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -28,8 +34,22 @@ Schedule = Callable[[int], torch.Tensor]
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any, int], tuple[Any, Any]]
-    # update(grads, state, params, step) -> (params, state)
+    update: Callable[..., tuple[Any, Any]]
+    # update(grads, state, params, step, reducers=None) -> (params, state)
+
+
+class Reducer:
+    """The means of one leaf's statistics.  ``pdim`` names the parameter
+    dim a mean runs over (a sharded step sums it over that dim's ranks)."""
+
+    def mean(self, t: torch.Tensor, dim: int, pdim: int, keepdim: bool = False) -> torch.Tensor:
+        return t.mean(dim=dim, keepdim=keepdim)
+
+    def mean_all(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.mean(t)
+
+
+PLAIN = Reducer()
 
 
 def _f32(v) -> torch.Tensor:
@@ -62,12 +82,17 @@ def _scalar(t: torch.Tensor) -> float:
     return float(t.float())
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
+def clip_by_global_norm(grads: Any, max_norm: float, *,
+                        sq_sum: Optional[Callable[[Any], torch.Tensor]] = None
+                        ) -> tuple[Any, torch.Tensor]:
     """Every gradient scaled by ``min(1, max_norm / max(norm, 1e-9))``, the
     norm over all leaves in f32 (each leaf's sum of squares, added in leaf
-    order).  Returns (grads, norm: a 0-d f32 tensor on the grads' device).
-    Nothing waits for the device."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+    order; ``sq_sum(grads)`` in its place, where the leaves are blocks of
+    sharded ones).  Returns (grads, norm: a 0-d f32 tensor on the grads'
+    device).  Nothing waits for the device."""
+    total = (sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads))
+             if sq_sum is None else sq_sum(grads))
+    gnorm = torch.sqrt(total)
     scale = torch.clamp_max(max_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
 
@@ -92,7 +117,7 @@ def adamw(lr: Union[Schedule, float], b1: float = 0.9, b2: float = 0.95, eps: fl
         return AdamState(mu=tree_map(_zeros, params), nu=tree_map(_zeros, params))
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, reducers=None):
         stepf = _f32(step) + 1.0
         lr_t = _scalar(lr_fn(step))
         c1 = _scalar(1.0 - torch.pow(_f32(b1), stepf))
@@ -136,29 +161,32 @@ def adafactor(lr: Union[Schedule, float], eps: float = 1e-30, clip_threshold: fl
         return FactoredState(vr=tree_map(vr, params), vc=tree_map(vc, params))
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, reducers=None):
         stepf = _f32(step) + 1.0
         beta2_t = 1.0 - torch.pow(stepf, _f32(-decay))
         beta2, one_minus = _scalar(beta2_t), _scalar(1.0 - beta2_t)
         lr_t = _scalar(lr_fn(step))
 
-        def upd(g, vr, vc, p):
+        def upd(g, vr, vc, p, red):
             g = g.float()
             g2 = g * g + eps
             if p.dim() >= 2:
-                vr.copy_(beta2 * vr + one_minus * g2.mean(dim=-1))
-                vc.copy_(beta2 * vc + one_minus * g2.mean(dim=-2))
-                rfac = torch.rsqrt(vr / torch.clamp_min(vr.mean(dim=-1, keepdim=True), eps))
+                vr.copy_(beta2 * vr + one_minus * red.mean(g2, -1, -1))
+                vc.copy_(beta2 * vc + one_minus * red.mean(g2, -2, -2))
+                # vr's last dim is the parameter's dim -2
+                rfac = torch.rsqrt(vr / torch.clamp_min(red.mean(vr, -1, -2, keepdim=True), eps))
                 u = g * rfac[..., None] * torch.rsqrt(vc)[..., None, :]
             else:
                 vr.copy_(beta2 * vr + one_minus * g2)
                 u = g * torch.rsqrt(vr)
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            rms = torch.sqrt(red.mean_all(torch.square(u)) + 1e-30)
             u = u / torch.clamp_min(rms / clip_threshold, 1.0)
             delta = u + weight_decay * p.float()
             p.copy_(p.float() - lr_t * delta)
 
-        tree_map(upd, grads, state.vr, state.vc, params)
+        if reducers is None:
+            reducers = tree_map(lambda _: PLAIN, params)
+        tree_map(upd, grads, state.vr, state.vc, params, reducers)
         return params, state
 
     return Optimizer(init=init, update=update)
@@ -174,7 +202,7 @@ def sgd(lr: Union[Schedule, float], momentum: float = 0.9) -> Optimizer:
         return tree_map(_zeros, params)
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, reducers=None):
         lr_t = _scalar(lr_fn(step))
 
         def upd(g, m, p):

@@ -7,10 +7,11 @@ the CPU, as everywhere in the port).
 
 Unlike the reference's probes, these never degrade to CPU answers: probing a
 CUDA device on a host without a card raises, as ``resolve_device`` refuses
-to fall back.  The reference's ``interpret_default``, ``pallas_available``
-and ``lanes_backend`` have no counterpart: they choose Pallas's interpret
-mode and JAX's ``shard_map``/``vmap`` lanes, while in the port the tensor's
-device picks the kernel and the lanes are one lane-batched bank.
+to fall back.  The reference's ``interpret_default`` and
+``pallas_available`` have no counterpart: they choose Pallas's interpret
+mode, while in the port the tensor's device picks the kernel.
+:func:`lanes_backend` picks the sharded pipeline's lanes as the reference's
+does, from the cards of ``device``'s backend.
 """
 from __future__ import annotations
 
@@ -47,6 +48,22 @@ def device_kind(device: Device = None) -> str:
 def device_count(device: Device = None) -> int:
     """Number of devices of ``device``'s backend on this host (1 for the CPU)."""
     return torch.cuda.device_count() if _device(device).type == "cuda" else 1
+
+
+def devices(device: Device = None) -> list[torch.device]:
+    """The devices of ``device``'s backend: every card, or the host counted
+    :func:`device_count` times (the lanes a mesh may span)."""
+    dev = _device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(device_count(dev))]
+    return [dev] * device_count(dev)
+
+
+def lanes_backend(num_lanes: int, device: Device = None) -> str:
+    """How the sharded pipeline runs its lanes: ``"shard_map"`` (a device a
+    lane, each lane's bank on its own card) when ``1 < num_lanes <=``
+    :func:`device_count`, else ``"vmap"`` (one lane-batched bank)."""
+    return "shard_map" if 1 < num_lanes <= device_count(device) else "vmap"
 
 
 def is_accelerator(device: Device = None) -> bool:

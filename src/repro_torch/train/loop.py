@@ -10,7 +10,13 @@ count.
 
 A run resumes only from a ``checkpoint_dir`` that the caller names; without
 one it writes into a fresh directory under the temp dir.  The loop runs on
-one device, the card unless the caller names another; the reference's mesh and shardings wait for ROADMAP Queue 1 item 12.
+one device, the card unless the caller names another.  Given a live
+``DeviceMesh`` (``mesh``, and optionally the reference's ``shardings``:
+``{"params": ..., "opt": ...}``, by the rules when left out), the state is
+placed on it, each rank holding its blocks, and the loop runs the sharded
+step on its rows of each batch, as the reference's jitted step follows where
+its inputs are placed; a checkpoint is written by every rank, each its own
+blocks, and a restore reads each rank's blocks alone.
 """
 from __future__ import annotations
 
@@ -28,7 +34,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
 from repro_torch.models.transformer import LM
 from repro_torch.optim import cosine_schedule, make_optimizer
-from repro_torch.train.steps import make_train_step
+from repro_torch.train.steps import (
+    make_sharded_train_step,
+    make_train_step,
+    shard_batch,
+    shard_tree,
+    train_shardings,
+)
 
 
 @dataclass
@@ -49,7 +61,7 @@ class TrainLoopConfig:
 
 class Trainer:
     def __init__(self, cfg: ArchConfig, loop: TrainLoopConfig, data: TokenPipelineConfig, *,
-                 device: Device = None):
+                 device: Device = None, shardings: Optional[dict] = None, mesh=None):
         self.cfg = cfg
         self.loop = loop
         self.model = LM(cfg, device=device)
@@ -60,8 +72,21 @@ class Trainer:
         ckpt_dir = loop.checkpoint_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
         self.ckpt = CheckpointManager(ckpt_dir, keep=loop.keep_checkpoints,
                                       async_writes=loop.async_checkpoints)
-        self.train_step = make_train_step(cfg, self.optimizer, grad_clip=loop.grad_clip,
-                                          accum_steps=loop.accum_steps)
+        self.mesh = mesh
+        self.shardings = shardings
+        if mesh is None:
+            self.train_step = make_train_step(cfg, self.optimizer, grad_clip=loop.grad_clip,
+                                              accum_steps=loop.accum_steps)
+        else:
+            if loop.accum_steps != 1:
+                raise ValueError("the sharded step takes accum_steps=1 (each rank's rows are "
+                                 "its microbatch)")
+            if shardings is None:
+                param_sh, opt_sh = train_shardings(cfg, mesh, self.optimizer)
+                self.shardings = {"params": param_sh, "opt": opt_sh}
+            self.train_step = make_sharded_train_step(
+                cfg, self.optimizer, mesh, self.shardings["params"], self.shardings["opt"],
+                grad_clip=loop.grad_clip)
         self.step_times: list[float] = []
         self.straggler_steps = 0
 
@@ -69,18 +94,37 @@ class Trainer:
     def init_state(self, seed: int = 0):
         """(params, optimizer state, 0): the parameters drawn from a CPU
         ``torch.Generator`` seeded with ``seed``, so every device starts from
-        the same values."""
+        the same values (on a mesh, this rank's blocks of them)."""
         params = self.model.init(torch.Generator().manual_seed(seed))
-        return params, self.optimizer.init(params), 0
+        opt_state = self.optimizer.init(params)
+        if self.mesh is not None:
+            params = shard_tree(params, self.shardings["params"], self.mesh)
+            opt_state = shard_tree(opt_state, self.shardings["opt"], self.mesh)
+        return params, opt_state, 0
 
     def restore_or_init(self, seed: int = 0):
         """The latest checkpoint's (params, optimizer state, next step), or a
         fresh :meth:`init_state`."""
         if self.ckpt.latest_step() is not None:
-            params, opt_state, _ = self.init_state(seed)
-            restored, extra, _ = self.ckpt.restore({"params": params, "opt": opt_state})
+            if self.mesh is None:
+                params, opt_state, _ = self.init_state(seed)
+                restored, extra, _ = self.ckpt.restore({"params": params, "opt": opt_state})
+            else:  # each rank reads its blocks alone
+                abstract = self.model.abstract_params()
+                like = {"params": abstract, "opt": self.optimizer.init(abstract)}
+                restored, extra, _ = self.ckpt.restore(
+                    like, shardings={"params": self.shardings["params"],
+                                     "opt": self.shardings["opt"]},
+                    device=self.device)
             return restored["params"], restored["opt"], int(extra["next_step"])
         return self.init_state(seed)
+
+    def _save(self, params, opt_state, step: int) -> None:
+        tree = {"params": params, "opt": opt_state}
+        extra = {"next_step": step, "data_state": self.pipeline.state(step)}
+        shardings = None if self.mesh is None else {"params": self.shardings["params"],
+                                                    "opt": self.shardings["opt"]}
+        self.ckpt.save(tree, step, extra=extra, shardings=shardings)
 
     # -- run
     def run(self, *, seed: int = 0) -> dict:
@@ -93,6 +137,8 @@ class Trainer:
                 raise RuntimeError(f"injected failure at step {step}")
             batch = {k: torch.as_tensor(v).to(self.device)
                      for k, v in self.pipeline.batch(step).items()}
+            if self.mesh is not None:
+                batch = shard_batch(batch, self.cfg, self.mesh)
             t0 = time.perf_counter()
             params, opt_state, metrics = self.train_step(params, opt_state, step, batch)
             loss = float(metrics["loss"])
@@ -105,9 +151,7 @@ class Trainer:
             history.append(loss)
             if ((step + 1) % self.loop.checkpoint_every == 0
                     or step + 1 == self.loop.total_steps):
-                self.ckpt.save({"params": params, "opt": opt_state}, step + 1,
-                               extra={"next_step": step + 1,
-                                      "data_state": self.pipeline.state(step + 1)})
+                self._save(params, opt_state, step + 1)
             if (step + 1) % self.loop.log_every == 0:
                 print(f"step {step + 1:5d} loss {loss:.4f} "
                       f"({dt * 1e3:.1f} ms, stragglers {self.straggler_steps})")

@@ -18,7 +18,7 @@ from repro_torch.core import flow_tracker as ft
 from repro_torch.core.collaborative import collaborative_forward, plan_stack, usecase2_layers
 from repro_torch.core.feature_extractor import packet_meta_features
 from repro_torch.data.traffic import TrafficConfig, TrafficGenerator
-from repro_torch.common.tree import tree_items, tree_map
+from repro_torch.common.tree import tree_items, tree_leaves, tree_map
 from repro_torch.common.util import DTYPES
 from repro_torch.kernels.arype_matmul.ops import (
     MM_FUSED,
@@ -1706,3 +1706,91 @@ def test_frontend_arch_on_card_matches_cpu(cuda, arch, record_property):
         else:
             assert torch.equal(a, b), key
     record_property("over_move", max(over[:2]))
+
+
+# ---------------------------------------------------------------- the distribution layer
+
+
+def test_sharded_step_world_of_one_is_the_unsharded_step(cuda):
+    """One NCCL rank over a (1, 1) mesh: the sharded train step of reduced
+    qwen3-0.6b (bf16 compute, ``arype_only``: every product on
+    ``mm_fused``) is the unsharded step bit for bit: gradients, two steps'
+    losses, the parameters and moments, and the launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import comm
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import steps
+
+    cfg = reduced_config(get_config("qwen3-0.6b")).replace(
+        compute_dtype="bfloat16", router_policy="arype_only", fsdp=True)
+    opt = make_optimizer("adamw", 1e-2)
+    comm.init_rank(0, 1, comm.free_port(), "cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        param_sh, opt_sh = steps.train_shardings(cfg, mesh, opt)
+        params = LM(cfg, device=cuda).init(torch.Generator().manual_seed(0))
+        local = steps.shard_tree(params, param_sh, mesh)
+        opt_a, opt_b = opt.init(params), steps.shard_tree(opt.init(params), opt_sh, mesh)
+        g = torch.Generator().manual_seed(1)
+        batch = {k: torch.randint(0, cfg.vocab_size, (8, 32), generator=g).to(cuda)
+                 for k in ("tokens", "labels")}
+        kernels.reset_launches()
+        want, wm = steps.grads_of(params, cfg, batch)
+        want_counts = kernels.launches()
+        kernels.reset_launches()
+        got, gm = steps.sharded_grads_of(local, cfg, batch, mesh, param_sh)
+        assert kernels.launches() == want_counts and want_counts["mm_fused"] > 0
+        assert torch.equal(gm["loss"], wm["loss"])
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+        plain = steps.make_train_step(cfg, opt)
+        sharded = steps.make_sharded_train_step(cfg, opt, mesh, param_sh, opt_sh)
+        for step in range(2):
+            params, opt_a, ma = plain(params, opt_a, step, batch)
+            local, opt_b, mb = sharded(local, opt_b, step, batch)
+            assert torch.equal(ma["loss"], mb["loss"]) and torch.equal(ma["grad_norm"],
+                                                                       mb["grad_norm"])
+        for a, b in zip(tree_leaves((params, opt_a)), tree_leaves((local, opt_b))):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("cold", [0, 4096])
+def test_shard_map_lanes_match_vmap_lanes_on_card(cuda, cold):
+    """Four shard_map lanes, all on cuda:0, against the vmap lanes: every
+    step's outputs and the state bit for bit, 4 ``flow_update`` a step
+    against 1, the engines' launches as their recorded routes count."""
+    from repro_torch.serving import ShardedOctopusPipeline
+
+    mlp = init_paper_model("mlp", torch.Generator().manual_seed(0), device=cuda)
+    cnn = init_paper_model("cnn", torch.Generator().manual_seed(1), device=cuda)
+    cfg = PipelineConfig(table_size=1024, batch_size=256, max_ready=64, cold_size=cold)
+    traffic = dict(batch_size=256, active_flows=1024 if cold else 512, table_size=1024, seed=3,
+                   collision_free=not cold)
+    gen = TrafficGenerator(TrafficConfig(**traffic), device="cpu")
+    batches = [gen.next_batch() for _ in range(40)]
+    vm = ShardedOctopusPipeline(mlp, cnn, cfg, num_shards=4, backend="vmap", device=cuda)
+    sm = ShardedOctopusPipeline(mlp, cnn, cfg, num_shards=4, backend="shard_map",
+                                devices=[cuda] * 4)
+    for pipe, lanes in ((vm, 1), (sm, 4)):
+        pipe.warmup()
+        with record_routes() as routes:
+            pipe.step(batches[0])
+        pipe.reset()
+        kernels.reset_launches()
+        pipe.step(batches[1])
+        want = kernels.matmul_launches(routes)
+        want["flow_update"] += lanes
+        assert kernels.launches() == want
+        pipe.reset()
+    for batch in batches:
+        a, b = vm.step(batch), sm.step(batch)
+        assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(vm.state),
+                                                 tree_leaves(sm.state)))
+    assert vm.rules.rules == sm.rules.rules and sm.stats.flows > 0
+    if cold:
+        assert sm.stats.spilled > 0

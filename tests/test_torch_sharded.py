@@ -6,7 +6,11 @@ state (and the (S, C, ...) cold lanes with their (S,) clocks), the rule
 table and the stats counters bit for bit; flow scores within rtol 1e-5;
 ``explain()`` text and the constructor's errors.  Then the port's lanes
 against its own single lane where the reference's exactness preconditions
-hold (collision-free traffic, no lane backlog).
+hold (collision-free traffic, no lane backlog).  The shard_map lanes (one
+device a lane, ``devices=["cpu"] * S``) run one case against the
+reference's vmap backend (its own tests hold its vmap equal to its
+shard_map), and every other case's config against the port's vmap lanes
+on the same stream.
 
 The JAX pipelines run without ``use_pallas``; traffic comes from each
 package's own generator (the port's draws the reference's packets).  The
@@ -69,6 +73,8 @@ CASES = {
     "s4_cold_lru_rounds": (4, dict(cold_size=32, cold_policy="lru"), dict(lane_batch=8),
                            SPILL, "step"),
     "s4_attack": (4, {}, dict(lane_batch=6), ATTACK, "step"),
+    # the shard_map lanes: a device a lane, each lane's step unbatched
+    "s2_shard_map": (2, {}, dict(backend="shard_map"), TRAFFIC, "step"),
 }
 
 
@@ -133,10 +139,12 @@ def drive(models, name: str):
     S, over, sh_kw, traffic, mode = CASES[name]
     cfg = dict(SHAPE, **over)
     (jmlp, mlp), (jtf, tf) = models["mlp"], models["transformer"]
+    ref_kw = {k: v for k, v in sh_kw.items() if k != "backend"}  # the reference's vmap
+    port_kw = dict(sh_kw, devices=["cpu"] * S) if sh_kw.get("backend") == "shard_map" else sh_kw
     ref = JShardedOctopusPipeline(jmlp, jtf, JPipelineConfig(**cfg), num_shards=S,
-                                  config=JRuntimeConfig(use_pallas=False), **sh_kw)
+                                  config=JRuntimeConfig(use_pallas=False), **ref_kw)
     port = ShardedOctopusPipeline(mlp, tf, PipelineConfig(**cfg), num_shards=S, device="cpu",
-                                  **sh_kw)
+                                  **port_kw)
     jgen = JTrafficGenerator(JTrafficConfig(**traffic))
     gen = TrafficGenerator(TrafficConfig(**traffic), device="cpu")
     outs = []
@@ -280,23 +288,24 @@ def test_sharded_matches_reference(runs, name):
     counters and ``explain()``."""
     ref, port, _ = runs(name)
     S = CASES[name][0]
-    jleaves, leaves = to_np(jax.tree_util.tree_leaves(ref.state)), to_np(port.state)
+    state = port.state  # under shard_map the lanes' states, stacked
+    jleaves, leaves = to_np(jax.tree_util.tree_leaves(ref.state)), to_np(state)
     assert len(jleaves) == len(leaves)
     for a, b in zip(jleaves, leaves):
         np.testing.assert_array_equal(a, b)
     if port.cfg.cold_size:
-        assert port.state.hot.count.shape == (S, 64) and port.state.cold.tick.shape == (S,)
+        assert state.hot.count.shape == (S, 64) and state.cold.tick.shape == (S,)
         conv = convert.two_level_state_from_numpy(
             [np.asarray(x) for x in ref.state.hot], [np.asarray(x) for x in ref.state.cold],
             device="cpu")
     else:
-        assert port.state.count.shape == (S, 64)
+        assert state.count.shape == (S, 64)
         conv = convert.tracker_state_from_numpy([np.asarray(x) for x in ref.state], device="cpu")
-    assert all(torch.equal(a, b) for a, b in zip(to_tensors(conv), to_tensors(port.state)))
+    assert all(torch.equal(a, b) for a, b in zip(to_tensors(conv), to_tensors(state)))
     assert ref.rules.rules == port.rules.rules
     for count in COUNTS:
         assert getattr(port.stats, count) == getattr(ref.stats, count), count
-    assert port.explain() == ref.explain()
+    assert port.explain().replace(f"backend={port.backend}", "backend=vmap") == ref.explain()
     assert ref.stats.flows > 0 or port.cfg.cold_size
 
 
@@ -358,9 +367,124 @@ def test_constructor_errors_match_reference(models):
         with pytest.raises(ValueError) as got:
             ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**pcfg), device="cpu", **kw)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    # the shard_map lanes need a device a lane, as the reference's (this host
+    # gives the reference one device; the port is given one by name)
+    with pytest.raises(ValueError) as want:
+        JShardedOctopusPipeline(jmlp, jcnn, JPipelineConfig(**cfg), num_shards=2,
+                                backend="shard_map")
+    with pytest.raises(ValueError) as got:
         ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**cfg), num_shards=2,
-                               backend="shard_map", device="cpu")
+                               backend="shard_map", devices=["cpu"])
+    assert str(got.value) == str(want.value) == "need 2 devices for a lanes mesh, have 1"
+    built = ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**cfg), num_shards=2,
+                                   backend="shard_map", devices=["cpu"] * 3)
+    assert built.backend == "shard_map" and built.mesh.devices == (torch.device("cpu"),) * 2
+    assert built.state.count.shape == (2, 64) and len(built.lanes) == 2
+    with pytest.raises(ValueError, match="devices name the lanes"):
+        ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**cfg), num_shards=2, backend="vmap",
+                               device="cpu", devices=["cpu"] * 2)
+    # no backend named: the platform's choice, one lane-batched bank on one device
+    assert ShardedOctopusPipeline(mlp, cnn, PipelineConfig(**cfg), num_shards=2,
+                                  device="cpu").backend == "vmap"
+
+
+@pytest.fixture(scope="module")
+def port_models():
+    """Seeded port weights, drawn by the port (no reference here: the
+    port-only tests below hold two port pipelines to each other)."""
+    from repro_torch.models import paper_models
+
+    return {kind: paper_models.init_paper_model(kind, torch.Generator().manual_seed(seed),
+                                                device="cpu")
+            for kind, seed in (("mlp", 0), ("transformer", 2))}
+
+
+# s2 (the segmented tracker at 2 lanes) is ``s2_shard_map`` above, held to
+# the reference, which the vmap lanes equal on the same case
+@pytest.mark.parametrize("name", ["s2_scan", "s4_cold_lru_rounds"])
+def test_shard_map_lanes_match_vmap_lanes(port_models, name):
+    """The shard_map lanes against the port's vmap lanes, each case's
+    config on its stream (the scan tracker at 2 lanes; 4 lanes in rounds
+    with cold lanes): every step's outputs, the stacked state, the rule
+    table and the counters bit for bit; each lane's state its own."""
+    S, over, sh_kw, traffic, _ = CASES[name]
+    cfg = PipelineConfig(**SHAPE, **over)
+    mlp, tf = port_models["mlp"], port_models["transformer"]
+    vm = ShardedOctopusPipeline(mlp, tf, cfg, num_shards=S, device="cpu", **sh_kw)
+    sm = ShardedOctopusPipeline(mlp, tf, cfg, num_shards=S, backend="shard_map",
+                                devices=["cpu"] * S, **sh_kw)
+    assert sm.backend == "shard_map" and vm.backend == "vmap"
+    gen = TrafficGenerator(TrafficConfig(**traffic), device="cpu")
+    for _ in range(STEPS):
+        batch = gen.next_batch()
+        a, b = vm.step(batch), sm.step(batch)
+        assert all(torch.equal(x, y) for x, y in zip(to_tensors(a), to_tensors(b)))
+    assert all(torch.equal(x, y) for x, y in zip(to_tensors(sm.state), to_tensors(vm.state)))
+    assert sm.mesh.devices == (torch.device("cpu"),) * S
+    assert sm.rules.rules == vm.rules.rules
+    for count in COUNTS + ("fallback_steps",):
+        assert getattr(sm.stats, count) == getattr(vm.stats, count), count
+
+
+def test_shard_map_state_is_the_stacked_state(port_models):
+    """Under shard_map ``state`` reads as the vmap backend's stacked type
+    and an assigned stacked state reaches every lane: a pipeline restarted
+    from another's state steps on as that one does, and reading the state
+    gives a copy that later steps leave alone."""
+    cfg = PipelineConfig(**SHAPE, cold_size=32)
+    mlp, tf = port_models["mlp"], port_models["transformer"]
+    gen = TrafficGenerator(TrafficConfig(**SPILL), device="cpu")
+    batches = [gen.next_batch() for _ in range(4)]
+    vm = ShardedOctopusPipeline(mlp, tf, cfg, num_shards=2, device="cpu")
+    for batch in batches[:2]:
+        vm.step(batch)
+    sm = ShardedOctopusPipeline(mlp, tf, cfg, num_shards=2, backend="shard_map",
+                                devices=["cpu"] * 2)
+    sm.state = vm.state
+    before = sm.state
+    assert type(before) is type(vm.state) and before.cold.tick.shape == (2,)
+    assert all(torch.equal(x, y) for x, y in zip(to_tensors(before), to_tensors(vm.state)))
+    for batch in batches[2:]:
+        a, b = vm.step(batch), sm.step(batch)
+        assert all(torch.equal(x, y) for x, y in zip(to_tensors(a), to_tensors(b)))
+    assert all(torch.equal(x, y) for x, y in zip(to_tensors(sm.state), to_tensors(vm.state)))
+    assert not all(torch.equal(x, y) for x, y in zip(to_tensors(before), to_tensors(sm.state)))
+
+
+def test_default_backend_on_many_devices_runs_the_scenario(monkeypatch, port_models):
+    """With as many devices as lanes and no backend named, the pipeline
+    takes the shard_map lanes (as the reference's does), a lane a device of
+    its backend; a scenario that reads the stacked state runs on them as on
+    the vmap lanes."""
+    from repro_torch.runtime import platform
+    from repro_torch.scenarios.heavy_hitter import HeavyHitterScenario
+
+    kw = dict(k=4, num_shards=2, pkt_params=port_models["mlp"],
+              flow_params=port_models["transformer"], device="cpu", **SHAPE)
+    gen = TrafficGenerator(TrafficConfig(**TRAFFIC), device="cpu")
+    batches = [gen.next_batch() for _ in range(4)]
+    vm = HeavyHitterScenario(**kw)
+    assert vm.pipe.backend == "vmap"
+    monkeypatch.setattr(platform, "device_count", lambda device=None: 2)
+    sm = HeavyHitterScenario(**kw)
+    assert sm.pipe.backend == "shard_map"
+    assert sm.pipe.mesh.devices == (torch.device("cpu"),) * 2
+    for batch in batches:
+        vm.step(batch)
+        sm.step(batch)
+        assert sm.top_k() == vm.top_k() and sm.top_k()
+    assert sm.counters() == vm.counters()
+
+
+@pytest.mark.parametrize("devices", range(1, 9))
+def test_lanes_backend_matches_reference(monkeypatch, devices):
+    from repro.runtime import platform as jplatform
+    from repro_torch.runtime import platform
+
+    monkeypatch.setattr(jplatform, "device_count", lambda: devices)
+    monkeypatch.setattr(platform, "device_count", lambda device=None: devices)
+    for lanes in range(1, 10):
+        assert platform.lanes_backend(lanes) == jplatform.lanes_backend(lanes), lanes
 
 
 def test_plan_scopes_lanes_like_reference(models):
