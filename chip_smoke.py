@@ -627,7 +627,7 @@ def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple[floa
 def check_matmuls(torch, engine, plain, shapes, gen, plan=None) -> dict:
     """Kernel vs plain on the card at each shape (all four activations at the
     first), and per-step times summed over the shapes.  With ``plan``
-    (``card_plan``) each shape's plan is logged, and a shape on the 3xTF32
+    (``operand_plan``) each shape's plan is logged, and a shape on the 3xTF32
     variant is bounded by its 3 x 2MKN tf32 products over the tensor cores'
     rate (or its bytes), with the f32 FMA bound beside it (``fma_bound_ms``)."""
     err, ms, plain_ms, lib_ms, bound_ms, ops, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0
@@ -651,7 +651,7 @@ def check_matmuls(torch, engine, plain, shapes, gen, plan=None) -> dict:
         b_fma, _ = bound(work_bytes, work_ops)
         how = ""
         if plan is not None:
-            p = plan(x.device, m, k, n)
+            p = plan(x, w)
             how = f" [{p.variant} {p.bm}x{p.bn} C={p.split}]"
             if p.variant == "tf32x3":
                 work_ops, rate = 3 * work_ops, TF32_OPS_PER_S
@@ -1255,10 +1255,12 @@ def time_product(torch, engine, plain, a, b, od, rec: dict, label: str, plan=Non
     ``a.float()`` where the types differ) ``.to(od)``, added to ``rec`` with
     the bound: the operands' and the output's bytes over 3.35 TB/s, or the
     operations: a bf16 x bf16 product 2MKN over the dense bf16 rate (989
-    TFLOP/s), whatever instruction the kernel issues; on the tf32x3 variant
-    (``plan``) one tf32 ``mma.sync`` a step plus one for each f32 operand
-    (a bf16 operand has no lo part), k x 2MKN over 495 TFLOP/s; else 2MKN
-    f32 FMAs."""
+    TFLOP/s), whatever instruction the kernel issues (on the wgmma variant,
+    bf16 ``wgmma``); on the tf32x3 variant (``plan``: ``operand_plan``) one
+    tf32 ``mma.sync`` a step plus one for each f32 operand (a bf16 operand
+    has no lo part), k x 2MKN over 495 TFLOP/s; else 2MKN f32 FMAs.  With
+    ``plan`` the times go to the record of the plan's variant in
+    ``rec["variants"]`` too."""
     bf16, f32 = torch.bfloat16, torch.float32
     m, k, n = a.shape[0], a.shape[1], b.shape[1]
     t = time_ms(lambda: engine(a, b, out_dtype=od))
@@ -1268,20 +1270,54 @@ def time_product(torch, engine, plain, a, b, od, rec: dict, label: str, plan=Non
     out_size = torch.empty((), dtype=od).element_size()
     nbytes = a.element_size() * m * k + b.element_size() * k * n + out_size * m * n
     ops, rate, how = 2 * m * k * n, F32_OPS_PER_S, ""
+    recs = [rec]
     if plan is not None:
-        p = plan(a.device, m, k, n)
+        p = plan(a, b)
         how = f" [{p.variant} {p.bm}x{p.bn} C={p.split}]"
         if p.variant == "tf32x3":
             ops, rate = (1 + (a.dtype == f32) + (b.dtype == f32)) * ops, TF32_OPS_PER_S
+        recs.append(rec.setdefault("variants", {}).setdefault(p.variant, product_record()))
     if a.dtype == b.dtype == bf16:
         ops, rate = 2 * m * k * n, BF16_OPS_PER_S
     bnd, by = bound(nbytes, ops, rate)
     lib = "torch.matmul" if a.dtype == b.dtype else "torch.matmul(x.float(), w).to()"
     log(f"  {label} ({m},{k},{n}) -> {str(od)[6:]}{how}: kernel {t:.5f} ms, plain {tp:.5f} ms, "
-        f"{lib} {tl:.5f} ms, bound {bnd:.6f} ms ({by})")
-    for key, v in (("ms", t), ("plain_ms", tp), ("library_ms", tl), ("bound_ms", bnd),
-                   ("ops_ms", ops / rate * 1e3), ("bytes", nbytes), ("flops", ops)):
-        rec[key] += v
+        f"{lib} {tl:.5f} ms ({t / tl:.2f}x), bound {bnd:.6f} ms ({by})")
+    for r in recs:
+        for key, v in (("ms", t), ("plain_ms", tp), ("library_ms", tl), ("bound_ms", bnd),
+                       ("ops_ms", ops / rate * 1e3), ("bytes", nbytes), ("flops", ops)):
+            r[key] += v
+
+
+def hold_to_f64(torch, engine, label: str, out, x, w, act: str) -> float:
+    """The wgmma variant (bf16 x, bf16 w) against the f64 product of the same
+    operands on the card, the activation applied in f64.  It sums K in
+    another order than the f32 arm, so it is held to bounds, not bits: f32
+    out at most twice the largest error of the tf32x3 arm on the upcast
+    operands (the f32 arm on ``x.float()``, ``w.float()``); bf16 out its own
+    f32 output rounded once, bit for bit, and within one bf16 step of the
+    f64 product plus 1e-5 of its max (near zero a difference of f32 sums
+    cancels to far less than its terms, under any order).  Returns the
+    largest error from the f64 product."""
+    from repro_torch.common.util import apply_activation
+
+    exact = apply_activation(x.double() @ w.double(), act)
+    err = (out.double() - exact).abs()
+    if out.dtype == torch.float32:
+        upcast = engine(x.float(), w.float(), activation=act)
+        lim = 2 * (upcast.double() - exact).abs().max().item()
+        if err.max().item() > lim:
+            raise AssertionError(f"{label}: max err {err.max().item():.3e} from the f64 product, "
+                                 f"over twice the tf32x3 arm's ({lim:.3e})")
+    else:
+        f32 = engine(x, w, activation=act, out_dtype=torch.float32)
+        if not torch.equal(out, f32.to(out.dtype)):
+            raise AssertionError(f"{label}: not its f32 output rounded once")
+        lim = bf16_step(torch, exact) + MATMUL_RTOL * exact.abs().max()
+        if not (err <= lim).all():
+            raise AssertionError(f"{label}: max err {err.max().item():.3e} from the f64 product, "
+                                 "past one bf16 step")
+    return err.max().item()
 
 
 def check_mixed_matmuls(torch, engine, plain, shapes, gen, plan=None, *, w_dtype=None,
@@ -1290,30 +1326,44 @@ def check_mixed_matmuls(torch, engine, plain, shapes, gen, plan=None, *, w_dtype
     ``w_dtype`` (f32 by default: the mixed arm; bf16: the bf16-weight arm),
     bf16 out, f32 for the ``lm_head`` (all four activations at the first
     shape), operands drawn from ``gen`` on its device.  The kernel must
-    equal itself on ``x.float()``, ``w.float()`` rounded once, bit for bit,
-    lie within one bf16 step (f32 out: rtol 1e-5) of the plain twin
-    (:func:`hold_to_plain`), and, with ``same_as`` (``arype_matmul`` for the
-    VPE), equal that engine at M <= 8, where both run the skinny split-K.
-    With ``time_it``: :func:`time_product` at each shape, summed."""
+    equal itself on ``x.float()``, ``w.float()`` rounded once, bit for bit
+    (on the wgmma variant, which ``plan`` names, :func:`hold_to_f64`'s
+    bounds instead), lie within one bf16 step (f32 out: rtol 1e-5) of the
+    plain twin (:func:`hold_to_plain`), and, with ``same_as``
+    (``arype_matmul`` for the VPE), equal that engine at M <= 8, where both
+    run the skinny split-K.  With ``time_it``: :func:`time_product` at each
+    shape, summed, and by variant in ``variants``.  ``f64_err`` is the
+    wgmma variant's largest error from the f64 product."""
     w_dtype = w_dtype or torch.float32
     bf16 = torch.bfloat16
     rec = product_record()
+    rec["f64_err"] = 0.0
     label = f"{engine.__name__} bf16 x{', bf16 w' if w_dtype == bf16 else ''}"
     for i, (name, m, k, n) in enumerate(shapes):
         x = torch.randn(m, k, generator=gen, device=gen.device).to(CARD, bf16)
         w = torch.randn(k, n, generator=gen, device=gen.device).to(CARD, w_dtype)
         od = torch.float32 if name == "lm_head" else bf16
+        variant = plan(x, w).variant if plan is not None else None
+        sub = rec.setdefault("variants", {}).setdefault(variant, product_record()) \
+            if variant else {}
         for act in (ACTS if i == 0 else ("none",)):
             out = engine(x, w, activation=act, out_dtype=od)
-            if not torch.equal(out, engine(x.float(), w.float(), activation=act).to(od)):
+            if variant == "wgmma":
+                err = hold_to_f64(torch, engine, f"{label} {name} ({m},{k},{n}) {act}", out, x,
+                                  w, act)
+                rec["f64_err"] = sub["f64_err"] = max(rec["f64_err"], sub.get("f64_err", 0.0),
+                                                      err)
+            elif not torch.equal(out, engine(x.float(), w.float(), activation=act).to(od)):
                 raise AssertionError(f"{label} {name} ({m},{k},{n}) {act}: differs from the f32 "
                                      f"arm on x.float(), w.float()")
             if same_as is not None and m <= 8 and not torch.equal(
                     out, same_as(x, w, activation=act, out_dtype=od)):
                 raise AssertionError(f"{label} {name} ({m},{k},{n}) {act}: differs from "
                                      f"{same_as.__name__}")
-            hold_to_plain(torch, f"{label} {name} ({m},{k},{n}) {act}", out,
-                          plain(x, w, activation=act, out_dtype=od), rec)
+            err = hold_to_plain(torch, f"{label} {name} ({m},{k},{n}) {act}", out,
+                                plain(x, w, activation=act, out_dtype=od), rec)
+            if variant:
+                sub["max_abs_err"] = max(sub["max_abs_err"], err)
         if time_it:
             time_product(torch, engine, plain, x, w, od, rec, f"{label} {name}", plan)
     return set_bound_by(rec)
@@ -1334,7 +1384,7 @@ def check_lm_matmuls(torch, arype, gen, cfg, longest: int) -> dict:
         log(f"[kernels] mm_fused at the {LM_ARCH} {label} shapes (L2-hot: 20 calls a shape "
             f"on one weight)")
         a, b = (check_matmuls(torch, arype.arype_matmul, arype.mm_fused, shapes, gen,
-                              plan=arype.card_plan)
+                              plan=arype.operand_plan)
                 for shapes in (layer, [head]))
         per = {key: cfg.num_layers * a[key] + b[key]
                for key in ("ms", "library_ms", "bound_ms", "fma_bound_ms")}
@@ -1346,7 +1396,7 @@ def check_lm_matmuls(torch, arype, gen, cfg, longest: int) -> dict:
         log(f"[kernels] mm_fused's mixed arm (bf16 x, f32 w) at the {LM_ARCH} {label} shapes, "
             f"each bit for bit with the f32 arm on x.float()")
         a, b = (check_mixed_matmuls(torch, arype.arype_matmul, arype.mm_fused, shapes, gen,
-                                    plan=arype.card_plan)
+                                    plan=arype.operand_plan)
                 for shapes in (layer, [head]))
         per = {key: cfg.num_layers * a[key] + b[key]
                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops",
@@ -2993,7 +3043,7 @@ def granite_phase(torch, np, kernels, record_routes, lm_mod, layers, serving, ge
     serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompts,
              serve=GRANITE_SERVE, max_new=GRANITE_MAX_NEW, near_tie=BF16_TIE_GAP, alone=True,
              shapes=shapes)
-    engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan),
+    engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.operand_plan),
                "vpe_mm": (vpe_matmul, vpe_mm, None)}
     errs = {k: r["max_abs_err"] for k, r in
             check_recorded_mixed(torch, cfg, shapes, engines, gen).items()}
@@ -3070,6 +3120,58 @@ def _stack_head(tree, depth: int):
     return tree[:depth]
 
 
+def time_prefill_designs(torch, arype, prefill, label: str) -> dict:
+    """``prefill()`` (one ``LM.prefill``) on the host clock, synchronised,
+    the median of 3 after a warm-up: as planned (bf16 x bf16 on the wgmma
+    variant), then with each wgmma plan replaced by the tf32x3 plan of its
+    shape (the design before), in the same process.  Returns both ms."""
+    planned = arype.operand_plan
+
+    def tf32x3_plan(x, w):
+        p = planned(x, w)
+        if p.variant != "wgmma":
+            return p
+        (m, k), n = x.shape, w.shape[1]
+        return arype.MmFusedPlan("tf32x3", *arype.gemm_tile(m, k, n, arype.sm_count(x.device)), 1)
+
+    ms = {}
+    for design, plan in (("wgmma", planned), ("tf32x3", tf32x3_plan)):
+        arype.operand_plan = plan
+        try:
+            prefill()
+            sync(torch)
+            samples = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                prefill()
+                sync(torch)
+                samples.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            arype.operand_plan = planned
+        ms[design] = statistics.median(samples)
+    log(f"  {label}: {ms['wgmma']:.3f} ms with bf16 x bf16 on wgmma, {ms['tf32x3']:.3f} ms on "
+        f"the tf32x3 variant (the design before; {ms['tf32x3'] / ms['wgmma']:.2f}x)")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill()
+        sync(torch)
+    wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    if busy_us == 0:
+        log("  [profile] the trace holds no device time: where the prefill's time goes is not "
+            "measured")
+        return ms
+    log(f"  [profile] one prefill on wgmma, traced: device busy {busy_us / 1e3:.3f} ms of "
+        f"{wall_us / 1e3:.3f} ms wall (idle share {1 - busy_us / wall_us:.4f}); by kernel:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} calls  {e.key[:100]}")
+    return ms
+
+
 def starcoder_phase(torch, np, kernels, record_routes, lm_mod, serving, get_config,
                     reduced_config, fa, arype, vpe_matmul, vpe_mm, vpe_matmul_q, vpe_mm_q,
                     gen) -> dict:
@@ -3108,9 +3210,17 @@ def starcoder_phase(torch, np, kernels, record_routes, lm_mod, serving, get_conf
         f"ServeConfig({STAR_SERVE}), prompts {list(STAR_PROMPTS)}, max_new {STAR_MAX_NEW}; near "
         f"ties under {BF16_TIE_GAP} counted")
     shapes: dict = {}
-    counts, _, _, _ = serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params,
-                               prompts, serve=STAR_SERVE, max_new=STAR_MAX_NEW,
-                               near_tie=BF16_TIE_GAP, alone=True, shapes=shapes)
+    _, st, _, _ = serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompts,
+                           serve=STAR_SERVE, max_new=STAR_MAX_NEW, near_tie=BF16_TIE_GAP,
+                           alone=True, shapes=shapes)
+    variants = kernels.mm_fused_variants()
+    # every prefill matmul but the head (the slots' last rows) on wgmma
+    per_prefill = len(lm_forward_matmuls(cfg)) - 1
+    if variants["wgmma"] != per_prefill * st.prefills or variants["tf32x3"]:
+        raise AssertionError(f"the serve launched mm_fused's variants {variants}: predicted "
+                             f"{per_prefill} wgmma a prefill x {st.prefills}, the rest skinny")
+    log(f"  mm_fused by variant in the serve: {variants} (predicted: {per_prefill} wgmma a "
+        f"prefill x {st.prefills}, the heads and decode steps skinny)")
     if set(shapes) != {"mm_fused"}:
         raise AssertionError(f"starcoder2 launched {sorted(shapes)}: every matmul is past the "
                              "VPE's cap, so mm_fused alone")
@@ -3118,31 +3228,50 @@ def starcoder_phase(torch, np, kernels, record_routes, lm_mod, serving, get_conf
     todo = [("lm_head" if n == cfg.padded_vocab else name, m, k, n)
             for (m, k, n), name in shapes["mm_fused"].items()]
     log(f"  mm_fused's bf16-weight arm (bf16 x, bf16 w) at the {len(todo)} shapes the serve and "
-        "the batch-1 runs launched it at: bit for bit the f32 arm on x.float(), w.float(), "
-        "within one bf16 step of the plain twin")
-    bf16w = dict(w_dtype=bf16, plan=arype.card_plan)
-    errs = {"mm_fused": check_mixed_matmuls(torch, arype.arype_matmul, arype.mm_fused, todo, g,
-                                            time_it=False, **bf16w)["max_abs_err"]}
+        "the batch-1 runs launched it at, within one bf16 step of the plain twin; on the skinny "
+        "variant bit for bit the f32 arm on x.float(), w.float(), on wgmma within the bounds "
+        "of the f64 product (hold_to_f64)")
+    bf16w = dict(w_dtype=bf16, plan=arype.operand_plan)
+    held = check_mixed_matmuls(torch, arype.arype_matmul, arype.mm_fused, todo, g, time_it=False,
+                               **bf16w)
+    log(f"    worst error from the twin {held['max_abs_err']:.3e}; wgmma's from the f64 product "
+        f"{held['f64_err']:.3e}")
+    errs = {"mm_fused": held["max_abs_err"]}
     slots, longest = STAR_SERVE["batch_slots"], max(STAR_PROMPTS)
-    rec = dict(max_abs_err=errs["mm_fused"], ms=0.0, plain_ms=0.0, library_ms=0.0,
-               bound_ms=0.0, bytes=0, flops=0, ops_ms=0.0)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops", "ops_ms")
+    rec, wg = product_record(), product_record()  # the skinny variant's share, wgmma's
+    rec["max_abs_err"] = held["variants"]["skinny"]["max_abs_err"]
+    wg["max_abs_err"] = held["variants"]["wgmma"]["max_abs_err"]
     for label, rows in (("decode", slots), (f"prefill of {longest} tokens", slots * longest)):
         *layer, head = lm_matmul_shapes(cfg, rows)
         log(f"[kernels] mm_fused bf16 x, bf16 w at the {STAR_ARCH} {label} shapes (L2-hot)")
         a, b = (check_mixed_matmuls(torch, arype.arype_matmul, arype.mm_fused, sh, g, **bf16w)
                 for sh in (layer, [head]))
-        per = {key: cfg.num_layers * a[key] + b[key]
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops",
-                           "ops_ms")}
+        per = {key: cfg.num_layers * a[key] + b[key] for key in keys}
         log(f"  per {label} forward ({cfg.num_layers} layers + lm head, L2-hot): kernel "
             f"{per['ms']:.4f} ms, torch.matmul {per['library_ms']:.4f} ms "
             f"({per['ms'] / per['library_ms']:.2f}x), plain {per['plain_ms']:.4f} ms, bound "
             f"{per['bound_ms']:.4f} ms")
-        for key, v in per.items():
-            rec[key] += v
-    rec["bound_by"] = "bytes" if rec["bytes"] / HBM_BYTES_PER_S * 1e3 >= rec.pop("ops_ms") \
-        else "operations"
-    rec["launches"] = counts["mm_fused"]
+        for key in keys:
+            rec[key] += cfg.num_layers * a["variants"].get("skinny", {}).get(key, 0) + b[key]
+            wg[key] += cfg.num_layers * a["variants"].get("wgmma", {}).get(key, 0)
+        for r in (rec, wg):
+            r["max_abs_err"] = max([r["max_abs_err"]] + [
+                v["max_abs_err"] for c in (a, b) for name, v in c["variants"].items()
+                if (name == "wgmma") == (r is wg)])
+    log(f"  the prefill's {cfg.num_layers} layers on wgmma: kernel {wg['ms']:.4f} ms, "
+        f"torch.matmul {wg['library_ms']:.4f} ms ({wg['ms'] / wg['library_ms']:.2f}x), bound "
+        f"{wg['bound_ms']:.4f} ms ({wg['bound_ms'] / wg['ms']:.3f} of it)")
+    set_bound_by(rec).pop("ops_ms")
+    set_bound_by(wg).pop("ops_ms")
+    rec["launches"], wg["launches"] = variants["skinny"], variants["wgmma"]
+    model = lm_mod.LM(cfg, device=CARD)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (slots, longest))).to(CARD)
+    cache = model.init_cache(slots, STAR_SERVE["cache_len"])
+    time_prefill_designs(torch, arype, lambda: model.prefill(params, {"tokens": toks}, cache),
+                         f"a {slots} x {longest}-token prefill (LM.prefill, an admit of the "
+                         "longest prompt)")
+    del cache
     # the decode forward cold, on the served weights themselves (no second copy)
     *layer, head = lm_matmul_shapes(cfg, slots)
     xs = {k: torch.randn(slots, k, generator=g, device=CARD).to(bf16)
@@ -3244,7 +3373,7 @@ def starcoder_phase(torch, np, kernels, record_routes, lm_mod, serving, get_conf
     check_quant_bf16(torch, arype.arype_matmul_q, arype.mm_fused_q,
                      ARYPE_SHAPES + TF_ARYPE_SHAPES, g)
     torch.cuda.empty_cache()
-    return {"mm_fused": rec, "vpe_mm": vrec, "errs": errs}
+    return {"mm_fused": rec, "mm_fused wgmma": wg, "vpe_mm": vrec, "errs": errs}
 
 
 def qwen4b_phase(torch, np, kernels, record_routes, lm_mod, serving, get_config, fa, arype,
@@ -3276,7 +3405,7 @@ def qwen4b_phase(torch, np, kernels, record_routes, lm_mod, serving, get_config,
     shapes: dict = {}
     serve_lm(torch, kernels, record_routes, lm_mod, serving, cfg, params, prompts,
              max_new=QWEN4_MAX_NEW, near_tie=BF16_TIE_GAP, alone=True, shapes=shapes)
-    engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan),
+    engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.operand_plan),
                "vpe_mm": (vpe_matmul, vpe_mm, None)}
     errs = {k: r["max_abs_err"] for k, r in
             check_recorded_mixed(torch, cfg, shapes, engines, gen, time_it=False).items()}
@@ -3477,7 +3606,7 @@ def recurrent_phase(torch, np, kernels, record_routes, lm_mod, serving, get_conf
                  serve=RECURRENT_SERVE, max_new=RECURRENT_MAX_NEW,
                  near_tie=RECURRENT_F32_TIE_GAP, shapes=held_shapes)
         hold_recorded_f32(torch, arype, held_shapes, gen)
-    engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan),
+    engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.operand_plan),
                "vpe_mm": (vpe_matmul, vpe_mm, None)}
     recs = check_recorded_mixed(torch, cfg, shapes, engines, gen)
     recs["mm_fused"]["launches"] = counts["mm_fused"]
@@ -3643,7 +3772,7 @@ def hubert_phase(torch, np, kernels, record_routes, lm_mod, get_config, fa, aryp
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches over "
         f"the phase's runs {counts_text(total)}")
 
-    engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan),
+    engines = {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.operand_plan),
                "vpe_mm": (vpe_matmul, vpe_mm, None)}
     recs = check_recorded_mixed(torch, cfg, shapes, engines, gen)
     gelu = product_record()
@@ -3750,7 +3879,7 @@ def vision_phase(torch, np, kernels, record_routes, lm_mod, get_config, fa, aryp
                          device=CARD).to(bf16)
     toks = torch.as_tensor(prompts).to(CARD)
     cross = sum(layer.mixer == "attn_cross" for layer in cfg.all_layers())
-    shapes, total = {}, {}
+    shapes, total, by_variant = {}, {}, {}
     cache = model.init_cache(VISION_REQUESTS, VISION_CACHE)
     (logits, cache), counts, prefill_ms = counted_run(
         torch, kernels, record_routes,
@@ -3758,6 +3887,11 @@ def vision_phase(torch, np, kernels, record_routes, lm_mod, get_config, fa, aryp
         {"mm_fused": len(lm_forward_matmuls(cfg)), "flash_fwd": attention_layers(cfg)},
         "prefill", shapes)
     add_counts(total, counts)
+    variants = kernels.mm_fused_variants()
+    add_counts(by_variant, variants)
+    # every prefill matmul but the head (the last rows of the 4 requests) on wgmma
+    if variants != {"skinny": 1, "tf32x3": 0, "wgmma": len(lm_forward_matmuls(cfg)) - 1}:
+        raise AssertionError(f"the prefill launched mm_fused's variants {variants}")
     nxt = logits[:, -1, :v].argmax(-1, keepdim=True)
     out, decode_ms = [nxt.cpu()], []
     for step in range(VISION_MAX_NEW):
@@ -3767,6 +3901,7 @@ def vision_phase(torch, np, kernels, record_routes, lm_mod, get_config, fa, aryp
             {"mm_fused": len(lm_forward_matmuls(cfg, decode=True)), "flash_fwd": cross},
             f"decode step {step}", shapes)
         add_counts(total, dcounts)
+        add_counts(by_variant, kernels.mm_fused_variants())
         nxt = logits[:, -1, :v].argmax(-1, keepdim=True)
         out.append(nxt.cpu())
         decode_ms.append(ms)
@@ -3776,8 +3911,15 @@ def vision_phase(torch, np, kernels, record_routes, lm_mod, get_config, fa, aryp
         f"{cfg.num_image_tokens} image rows each), decode {statistics.median(decode_ms):.3f} ms "
         f"a step (median; {min(decode_ms):.3f}-{max(decode_ms):.3f}), "
         f"{generated / (prefill_ms + sum(decode_ms)) * 1e3:.2f} generated tok/s; launches a "
-        f"prefill {counts_text(counts)}, a decode step {counts_text(dcounts)}; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        f"prefill {counts_text(counts)}, a decode step {counts_text(dcounts)}; mm_fused by "
+        f"variant over the prefill and the steps {by_variant}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    again = model.init_cache(VISION_REQUESTS, VISION_CACHE)
+    time_prefill_designs(torch, arype, lambda: model.prefill(
+        params, {"tokens": toks, "vision": images}, again),
+        f"the {VISION_REQUESTS} x {VISION_PROMPT}-token prefill with {cfg.num_image_tokens} "
+        "image rows each (LM.prefill)")
+    del again
     ties = 0
     with record_routes() as single_routes:
         for i in range(VISION_REQUESTS):
@@ -3798,12 +3940,21 @@ def vision_phase(torch, np, kernels, record_routes, lm_mod, get_config, fa, aryp
         f"except {ties} near ties")
 
     recs = check_recorded_mixed(
-        torch, cfg, shapes, {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.card_plan)},
+        torch, cfg, shapes, {"mm_fused": (arype.arype_matmul, arype.mm_fused, arype.operand_plan)},
         gen, w_dtype=bf16)
     if set(recs) != {"mm_fused"}:
         raise AssertionError(f"{VISION_ARCH} launched {sorted(recs)}: every matmul is past the "
                              "VPE's cap, so mm_fused alone")
-    recs["mm_fused"]["launches"] = total["mm_fused"]
+    # the decode steps' and heads' share on the skinny variant, the prefill's on wgmma
+    split = recs.pop("mm_fused")["variants"]
+    for name, variant in (("mm_fused", "skinny"), ("mm_fused wgmma", "wgmma")):
+        recs[name] = set_bound_by(split[variant])
+        recs[name].pop("ops_ms")
+        recs[name]["launches"] = by_variant[variant]
+    wg = recs["mm_fused wgmma"]
+    log(f"  the wgmma shapes: kernel {wg['ms']:.4f} ms, torch.matmul {wg['library_ms']:.4f} ms "
+        f"({wg['ms'] / wg['library_ms']:.2f}x), bound {wg['bound_ms']:.4f} ms; largest error "
+        f"from the f64 product {wg['f64_err']:.3e}")
 
     d, hq, hkv, t_img = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.num_image_tokens
     log(f"  flash_fwd in bf16 at the self prefill (causal) and the cross shapes (full mask, "
@@ -3956,7 +4107,7 @@ def hold_product(torch, arype, a, b, od, recs: dict, label: str):
     err = hold_to_plain(torch, f"{arm} {label} ({m},{k},{n})", direct,
                         arype.mm_fused(a, b, out_dtype=od), rec)
     time_product(torch, arype.arype_matmul, arype.mm_fused, a, b, od, rec,
-                 f"{arm} {label} (max err {err:.3e})", arype.card_plan,
+                 f"{arm} {label} (max err {err:.3e})", arype.operand_plan,
                  plain_calls=2, plain_reps=3)
     return direct
 
@@ -4904,7 +5055,7 @@ def main() -> int:
     checks = {
         "vpe_mm": lambda shapes: check_matmuls(torch, vpe_matmul, vpe_mm, shapes, gen),
         "mm_fused": lambda shapes: check_matmuls(torch, arype.arype_matmul, arype.mm_fused,
-                                                 shapes, gen, plan=arype.card_plan),
+                                                 shapes, gen, plan=arype.operand_plan),
         "vpe_mm_q": lambda shapes: check_quant_matmuls(torch, vpe_matmul_q, vpe_mm_q, shapes,
                                                        gen, plan=vpe_q_plan),
         "mm_fused_q": lambda shapes: check_quant_matmuls(
@@ -4933,7 +5084,7 @@ def main() -> int:
     log("[kernels] mm_fused and mm_fused_q at the transformer flow engine's shapes")
     for name, engine, plain, check, kw in (
             ("mm_fused", arype.arype_matmul, arype.mm_fused, check_matmuls,
-             dict(plan=arype.card_plan)),
+             dict(plan=arype.operand_plan)),
             ("mm_fused_q", arype.arype_matmul_q, arype.mm_fused_q, check_quant_matmuls,
              dict(plan=fused_q_plan))):
         r = check(torch, engine, plain, TF_ARYPE_SHAPES, gen, **kw)
@@ -5356,11 +5507,15 @@ def main() -> int:
     record += [dict(name=f"{name} (bf16 x, f32 w)", route="cuda", source=source[name],
                     replaces=replaces[name], **r) for name, r in mixed.items()]
     # the bf16-weight arms (bf16 x, bf16 w) of mm_fused (starcoder2-15b's
-    # serve) and vpe_mm (reduced starcoder2's batch-1 runs)
-    source_bf16w = {"mm_fused": "src/repro_torch/csrc/mm_fused_bf16w.cu",
-                    "vpe_mm": source["vpe_mm"]}
-    record += [dict(name=f"{name} (bf16 x, bf16 w)", route="cuda", source=source_bf16w[name],
-                    replaces=replaces[name], **r) for name, r in star.items()]
+    # serve: the skinny variant's decode and heads, the wgmma variant's
+    # prefill layers) and vpe_mm (reduced starcoder2's batch-1 runs)
+    bf16w = {"mm_fused": ("mm_fused (bf16 x, bf16 w)", "src/repro_torch/csrc/mm_fused_bf16w.cu"),
+             "mm_fused wgmma": ("mm_fused (bf16 x, bf16 w, wgmma)",
+                                "src/repro_torch/csrc/mm_fused_wgmma.cu"),
+             "vpe_mm": ("vpe_mm (bf16 x, bf16 w)", source["vpe_mm"])}
+    record += [dict(name=bf16w[name][0] + (f", {STAR_ARCH} prefill" if "wgmma" in name else ""),
+                    route="cuda", source=bf16w[name][1], replaces=replaces[name.split()[0]],
+                    **r) for name, r in star.items()]
     # the arms the training backward reaches: dX (f32 cotangent on f32 w
     # into bf16) and dW and the silu recompute (bf16 x on an f32 cotangent
     # or w into f32), launches counted over [train]'s full-width run
@@ -5383,10 +5538,10 @@ def main() -> int:
            "flash_fwd": "flash_fwd (bf16, D 80, full mask)"}
     record += [dict(name=f"{arm[name]}, {HUBERT_ARCH}", route="cuda", source=source[name],
                     replaces=replaces[name], **r) for name, r in hubert.items()]
-    arm = {"mm_fused": ("mm_fused (bf16 x, bf16 w)", source_bf16w["mm_fused"]),
+    arm = {"mm_fused": bf16w["mm_fused"], "mm_fused wgmma": bf16w["mm_fused wgmma"],
            "flash_fwd": ("flash_fwd (bf16, self and cross)", source["flash_fwd"])}
     record += [dict(name=f"{arm[name][0]}, {VISION_ARCH}", route="cuda", source=arm[name][1],
-                    replaces=replaces[name], **r) for name, r in vision.items()]
+                    replaces=replaces[name.split()[0]], **r) for name, r in vision.items()]
     # the distribution layer: every mm_fused arm and shape of the world-2
     # step's ranks and GPipe's stages, and flash_fwd at their batches
     record += [dict(name=f"{name}, world-2 step and GPipe stages", route="cuda",
@@ -5397,6 +5552,8 @@ def main() -> int:
                        **dist_recs["flash_fwd"]))
     elapsed("end")
     log(card)
+    # the records' own numbers (their by-variant parts were logged)
+    record = [{key: v for key, v in r.items() if not isinstance(v, dict)} for r in record]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,9 @@
 // issued.  The others run in the same order, on the same values, as the f32
 // arm on the operands' f32 values: every pair of types gives the f32 arm's
 // bits on x.float(), w.float().  Three mma.sync a step for f32 x f32, two
-// where one operand is bf16, one for bf16 x bf16.  The tensor cores' own
+// where one operand is bf16, one for bf16 x bf16 (which runs here only where
+// TMA cannot load its operands; elsewhere mm_fused_wgmma.cu, in another K
+// order).  The tensor cores' own
 // f32 accumulation truncates, so each 32-deep K tile sums from 0 (12 mma steps)
 // and is then promoted into the caller's f32 sum with one round-to-nearest
 // add.  mm_fused runs it over all of K; the partials kernel over its block.

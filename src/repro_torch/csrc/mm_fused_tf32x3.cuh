@@ -1,4 +1,4 @@
-// mm_fused's two variants (see mm_fused.cu) on x of f32 or bf16 and w of one
+// mm_fused's variants A and B (see mm_fused.cu) on x of f32 or bf16 and w of one
 // type TW: launch_on_w<TW>, the skinny split-K (skinny.cuh) or variant B, the
 // 3xTF32 tensor-core GEMM.  mm_fused.cu instantiates it for f32 w and
 // mm_fused_bf16w.cu for bf16 w, as mm_fused_bf16w: two sources, which the

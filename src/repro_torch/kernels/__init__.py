@@ -1,12 +1,14 @@
 """The port's hand-written CUDA kernels, one module each, with their plain
 PyTorch twins.  A wrapper runs the plain version for a CPU tensor and the
-kernel for a CUDA tensor; :data:`KERNELS` holds each kernel's launch count,
-and :func:`matmul_launches` says what a run of recorded matmuls launches."""
+kernel for a CUDA tensor; :data:`KERNELS` holds each kernel's launch count
+(:func:`mm_fused_variants` splits ``mm_fused``'s by variant), and
+:func:`matmul_launches` says what a run of recorded matmuls launches."""
 from repro_torch.kernels.arype_matmul.ops import (
     MM_FUSED,
     MM_FUSED_Q,
     MM_PARTIALS_SUM,
     MM_UNFUSED_PARTIALS,
+    VARIANT_LAUNCHES,
 )
 from repro_torch.kernels.flash_attention.ops import FLASH_FWD
 from repro_torch.kernels.flow_features.ops import FLOW_UPDATE
@@ -22,10 +24,17 @@ KERNELS = {"flow_update": FLOW_UPDATE, "vpe_mm": VPE_MM, "mm_fused": MM_FUSED,
 def reset_launches() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0
+    for variant in VARIANT_LAUNCHES:
+        VARIANT_LAUNCHES[variant] = 0
 
 
 def launches() -> dict[str, int]:
     return {name: kernel.launches for name, kernel in KERNELS.items()}
+
+
+def mm_fused_variants() -> dict[str, int]:
+    """``arype_matmul``'s launches of ``mm_fused`` by the plan's variant."""
+    return dict(VARIANT_LAUNCHES)
 
 
 # the kernel of each engine (path) in f32 and in int8 (quantized)

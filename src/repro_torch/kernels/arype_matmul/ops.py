@@ -5,7 +5,8 @@
 (M, K) @ (K, N) with the accumulator carried across K blocks and the
 activation applied once, in the epilogue (the paper's fused collaborative
 aggregation): in f32 (x and w each f32 or bf16, the output rounded once to
-``out_dtype``), or on int8 codes with an int32 accumulator and a
+``out_dtype``; bf16 x on bf16 w past 8 rows on Hopper's bf16 tensor cores,
+``csrc/mm_fused_wgmma.cu``), or on int8 codes with an int32 accumulator and a
 per-channel dequant (the paper's fixed-point AryPE), from the same operand
 and output types.  The unfused form is the paper's "wo/ collaborating"
 ablation, f32 only: every K block's f32 partial product is written to memory
@@ -49,10 +50,14 @@ def mm_fused(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
 # the tiles of csrc/mm_fused.cu, (variant, rows, columns) a CTA, in the order
 # of the index its entry point takes: the skinny variant's column slabs over 8
 # rows, then the tf32x3 variant's tiles, largest first (32 rows each, so a
-# ragged M wastes at most 31)
+# ragged M wastes at most 31), then the wgmma variant's (bf16 x bf16 on
+# TMA-loadable operands: 64 rows a consumer warpgroup)
 MM_FUSED_TILES = (("skinny", 8, 64), ("skinny", 8, 128),
-                  ("tf32x3", 32, 128), ("tf32x3", 32, 64), ("tf32x3", 32, 32))
+                  ("tf32x3", 32, 128), ("tf32x3", 32, 64), ("tf32x3", 32, 32),
+                  ("wgmma", 128, 128), ("wgmma", 128, 64), ("wgmma", 64, 128), ("wgmma", 64, 64))
 TF32X3_TILES = tuple((bm, bn) for variant, bm, bn in MM_FUSED_TILES if variant == "tf32x3")
+WGMMA_TILES = tuple((bm, bn) for variant, bm, bn in MM_FUSED_TILES if variant == "wgmma")
+TMA_ALIGN = 16  # bytes of alignment TMA needs of the bases and the row strides
 SKINNY_MAX_M = 8  # rows of the skinny variant's accumulators
 MAX_CLUSTER = 8  # the portable cluster size, the skinny variant's most K ranks
 # CTAs the skinny variant aims at: two 256-thread CTAs fit an SM, but a
@@ -81,15 +86,23 @@ class MmFusedPlan(NamedTuple):
         return MM_FUSED_TILES.index((self.variant, self.bm, self.bn))
 
     def grid(self, m: int, n: int) -> tuple[int, int]:
-        """(x, y) of the launch grid: column tiles, then row tiles or K ranks."""
+        """(x, y) of the launch grid: column tiles, then row tiles or K
+        ranks; on the wgmma variant row tiles, then column tiles (M walks
+        fastest, so the CTAs in flight share their weight columns in L2)."""
         if self.variant == "skinny":
             return ceil_div(n, self.bn), self.split
+        if self.variant == "wgmma":
+            return ceil_div(m, self.bm), ceil_div(n, self.bn)
         return ceil_div(n, self.bn), ceil_div(m, self.bm)
 
 
-def mm_fused_plan(m: int, k: int, n: int, sms: int = H100_SMS) -> MmFusedPlan:
-    """The one place that picks how ``mm_fused`` runs a shape, from the shape
-    alone (and the card's ``sms``, which the wrapper reads from the device).
+def mm_fused_plan(m: int, k: int, n: int, sms: int = H100_SMS,
+                  x_dtype: torch.dtype = torch.float32, w_dtype: torch.dtype = torch.float32,
+                  aligned: bool = True) -> MmFusedPlan:
+    """The one place that picks how ``mm_fused`` runs a shape, from the shape,
+    the operands' types and whether their bases are 16-byte aligned
+    (``aligned``; the wrapper reads it from the tensors), and the card's
+    ``sms`` (the wrapper reads it from the device).
 
     M <= 8 (:data:`SKINNY_MAX_M`) takes the skinny variant: cluster split-K,
     streaming the weights.  Its slab width and K ranks come from (K, N)
@@ -98,24 +111,38 @@ def mm_fused_plan(m: int, k: int, n: int, sms: int = H100_SMS) -> MmFusedPlan:
     columns a slab only where the slabs alone reach it), and never from M:
     row r of an M = 4 call equals an M = 1 call on that row, bit for bit.
 
-    Every M > 8 takes the 3xTF32 tensor-core variant with a tile of
-    :data:`TF32X3_TILES`: the one whose busiest SM computes the least output
-    (the larger on a tie), or, for a K of at most :data:`THIN_K`, where a
-    CTA's few K tiles leave it bound by latency, the smallest, for the most
-    CTAs in flight.  K is never split there and its order does not depend on
-    the tile, so rows do not depend on M either.
+    bf16 x on bf16 w at M > 8 takes the wgmma variant where TMA can load
+    both operands: bases 16-byte aligned and row strides (K and N bf16
+    values) multiples of 16 bytes.  Its tile has 64 rows for M <= 64 and 128
+    past that, and of :data:`WGMMA_TILES` with those rows the columns whose
+    busiest SM computes the least output (the larger on a tie).  Its K order
+    is the kernel's constant (64-deep tiles of four k16 steps), so rows do
+    not depend on M or the tile.
+
+    Every other M > 8 (f32 or mixed operands; bf16 x bf16 with odd K, N not
+    a multiple of 8 or an unaligned base) takes the 3xTF32 tensor-core
+    variant with a tile of :data:`TF32X3_TILES`: the one whose busiest SM
+    computes the least output (the larger on a tie), or, for a K of at most
+    :data:`THIN_K`, where a CTA's few K tiles leave it bound by latency, the
+    smallest, for the most CTAs in flight.  K is never split there and its
+    order does not depend on the tile, so rows do not depend on M either.
 
     Why 8: the LM decodes one row a slot (``batch_slots``, or 1 for a single
     request) and its head reads as many rows in both phases, while every
     prefill has 4 x S or S rows for prompts of S >= 16 tokens (``chip_smoke``
     draws 16-300, the reduced serve test 20 or more).  So decode and the head
-    stay on the skinny variant and every prefill on the tf32x3 one, and a
+    stay on the skinny variant and every prefill on a tensor-core one, and a
     served request decodes with the same bits as its single-request run."""
     if m <= SKINNY_MAX_M:
         bn = 128 if ceil_div(n, 128) >= SKINNY_CTAS else 64
         split = max(1, min(MAX_CLUSTER, SKINNY_CTAS // ceil_div(n, bn),
                            ceil_div(k, SKINNY_STEP_ROWS[bn])))
         return MmFusedPlan("skinny", SKINNY_MAX_M, bn, split)
+    if x_dtype == w_dtype == torch.bfloat16 and aligned and k > 0 and (2 * k) % TMA_ALIGN == 0 \
+            and (2 * n) % TMA_ALIGN == 0:
+        bm = 64 if m <= 64 else 128
+        tiles = [tile for tile in WGMMA_TILES if tile[0] == bm]
+        return MmFusedPlan("wgmma", *min(tiles, key=lambda t: _busiest_sm(m, n, *t, sms)), 1)
     return MmFusedPlan("tf32x3", *gemm_tile(m, k, n, sms), 1)
 
 
@@ -172,13 +199,21 @@ def mm_unfused_plan(m: int, k: int, n: int, bk: int, sms: int = H100_SMS) -> Til
     return TilePlan(*gemm_tile(m, min(bk, k), n, sms, blocks), blocks)
 
 
-def card_plan(device: torch.device, m: int, k: int, n: int) -> MmFusedPlan:
-    """:func:`mm_fused_plan` for the card that holds ``device``."""
-    return mm_fused_plan(m, k, n, sms=sm_count(device))
+def operand_plan(x: torch.Tensor, w: torch.Tensor) -> MmFusedPlan:
+    """The plan :func:`arype_matmul` launches for ``x @ w``: :func:`mm_fused_plan`
+    of their shape, types and bases, for the card that holds them (an H100's
+    SMs for CPU tensors, which run the plain twin)."""
+    (m, k), n = x.shape, w.shape[1]
+    aligned = x.data_ptr() % TMA_ALIGN == 0 and w.data_ptr() % TMA_ALIGN == 0
+    sms = sm_count(x.device) if x.device.type == "cuda" else H100_SMS
+    return mm_fused_plan(m, k, n, sms, x.dtype, w.dtype, aligned)
 
 
 MM_FUSED = CudaKernel("mm_fused_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                       + [ctypes.c_void_p])
+# MM_FUSED's launches by the plan's variant (``kernels.reset_launches`` zeroes
+# them with the counts)
+VARIANT_LAUNCHES = dict.fromkeys(("skinny", "tf32x3", "wgmma"), 0)
 
 
 def arype_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
@@ -186,9 +221,13 @@ def arype_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
     """(M, K) @ (K, N) -> (M, N) on the AryPE engine: x and w each f32 or
     bf16, the sum and the activation in f32, the output ``out_dtype`` (x's
     by default).  On CPU tensors this is the plain :func:`mm_fused`; on CUDA
-    tensors one launch of the kernel variant :func:`mm_fused_plan` picks, on
+    tensors one launch of the kernel variant :func:`operand_plan` picks, on
     the tensors as they are (no cast around it), which masks ragged M/N/K
-    edges itself (no padding)."""
+    edges itself (no padding), counted by variant in
+    :data:`VARIANT_LAUNCHES`.  The skinny and tf32x3 variants give every pair
+    of types the f32 arm's bits on ``x.float()``, ``w.float()``; the wgmma
+    variant (bf16 x, bf16 w) sums K in another order, so it agrees with them
+    within the bounds ``chip_smoke.py:hold_to_f64`` holds it to."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {tuple(ACTIVATIONS)}, got {activation!r}")
     out_dtype = engine_out_dtype("arype_matmul", x, w, out_dtype)
@@ -198,14 +237,15 @@ def arype_matmul(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
         raise ValueError(f"arype_matmul: no kernel for {x.device}")
     check_matmul_shapes("arype_matmul", x, w)
     (m, k), n = x.shape, w.shape[1]
-    plan = card_plan(x.device, m, k, n)
+    plan = operand_plan(x, w)
     if plan.grid(m, n)[1] > GRID_Y_MAX:
-        raise ValueError(f"arype_matmul: M={m} exceeds the kernel's grid")
+        raise ValueError(f"arype_matmul: (M, N) = ({m}, {n}) exceeds the kernel's grid")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m * n:
         MM_FUSED(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
                  ACTIVATIONS[activation], plan.tile, plan.split, DTYPES[x.dtype],
                  DTYPES[w.dtype], DTYPES[out_dtype], stream_of(x))
+        VARIANT_LAUNCHES[plan.variant] += 1
     return out
 
 

@@ -26,8 +26,8 @@ from repro_torch.kernels.arype_matmul.ops import (
     arype_matmul,
     arype_matmul_q,
     arype_matmul_unfused,
-    card_plan,
     mm_fused,
+    operand_plan,
     mm_fused_q,
     mm_fused_q_plan,
     mm_unfused,
@@ -250,7 +250,7 @@ def test_engines_refuse_bf16_weights_on_the_card(cuda):
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             engine(x, w.half())
     out = torch.empty(4, 3, dtype=torch.bfloat16, device=cuda)
-    plan = card_plan(x.device, 4, 8, 3)
+    plan = operand_plan(x, w)
     vplan = vpe_plan(4, 8, 3)
     f32, unknown = DTYPES[torch.float32], 2
     before = kernels.launches()
@@ -289,6 +289,26 @@ def _step(ref: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
 
 
+def _holds_wgmma_bounds(got, x, w, act, ot):
+    """mm_fused's wgmma variant (bf16 x, bf16 w) against the f64 product of
+    the same operands, the activation in f64: it sums K in another order
+    than the f32 arm, so bounds, not bits.  f32 out at most twice the
+    largest error of the f32 arm on x.float(), w.float() (the tf32x3
+    variant); bf16 out its own f32 output rounded once, bit for bit, and
+    within one bf16 step of the f64 product (plus 1e-5 of its max: near 0 a
+    difference of f32 sums cancels below any relative step)."""
+    from repro_torch.common.util import apply_activation
+
+    exact = apply_activation(x.double() @ w.double(), act)
+    err = (got.double() - exact).abs()
+    if ot == torch.float32:
+        upcast = arype_matmul(x.float(), w.float(), activation=act)
+        return err.max() <= 2 * (upcast.double() - exact).abs().max()
+    f32 = arype_matmul(x, w, activation=act, out_dtype=torch.float32)
+    return bool(torch.equal(got, f32.to(ot))
+                and (err <= _step(exact) + 1e-5 * exact.abs().max()).all())
+
+
 @pytest.mark.parametrize("m,k,n", BF16W_SHAPES)
 @pytest.mark.parametrize("xt,wt,ot", DTYPE_TRIPLES, ids=TRIPLE_IDS)
 def test_every_dtype_pair_equals_the_f32_kernel_on_upcast_operands(cuda, m, k, n, xt, wt, ot):
@@ -296,10 +316,14 @@ def test_every_dtype_pair_equals_the_f32_kernel_on_upcast_operands(cuda, m, k, n
     kernel on x.float(), w.float() rounded once to ot (a bf16 value is a tf32
     value with lo = 0, and the skinny variant widens it exactly), under every
     activation, and within one bf16 step (f32 out: rtol 1e-5) of the plain
-    twin."""
+    twin.  bf16 x on bf16 w at M > 8 with operands TMA can load runs the
+    wgmma variant, which sums K in another order: there the equality is
+    :func:`_holds_wgmma_bounds` against an f64 product instead."""
     gen = torch.Generator().manual_seed(m * 3 + k + n)
     x = torch.randn(m, k, generator=gen).to(cuda, xt)
     w = torch.randn(k, n, generator=gen).to(cuda, wt)
+    wgmma = operand_plan(x, w).variant == "wgmma"
+    assert wgmma == (xt == wt == torch.bfloat16 and m > 8 and k % 8 == 0 and n % 8 == 0)
     for act in ("none", "relu", "silu", "gelu"):
         before = kernels.launches()
         got = arype_matmul(x, w, activation=act, out_dtype=ot)
@@ -307,11 +331,81 @@ def test_every_dtype_pair_equals_the_f32_kernel_on_upcast_operands(cuda, m, k, n
         assert after["mm_fused"] == before["mm_fused"] + 1
         assert sum(after.values()) == sum(before.values()) + 1
         assert got.dtype == ot
-        assert torch.equal(got, arype_matmul(x.float(), w.float(), activation=act).to(ot)), act
+        if wgmma:
+            assert _holds_wgmma_bounds(got, x, w, act, ot), act
+        else:
+            assert torch.equal(got, arype_matmul(x.float(), w.float(), activation=act).to(ot)), act
         ref = mm_fused(x, w, activation=act, out_dtype=ot).float()
         top = ref.abs().max()
         tol = _step(ref) if ot == torch.bfloat16 else 1e-5 * ref.abs()
         assert ((got.float() - ref).abs() <= tol + 1e-5 * top).all(), act
+
+
+# the wgmma variant (bf16 x, bf16 w, M > 8, TMA-loadable): ragged M (9, 65,
+# 129, 1200 against the 64- and 128-row tiles), K off the 64-deep tile (72,
+# 6144 + 8), N off the 64- and 128-column tiles (264) and on them (1024), a
+# 49152-wide head slice
+WGMMA_SHAPES = [(9, 72, 264), (65, 6152, 1024), (129, 72, 1024), (1200, 6152, 264),
+                (1200, 72, 1024), (9, 6144, 49152), (129, 6144, 264)]
+
+
+@pytest.mark.parametrize("m,k,n", WGMMA_SHAPES)
+def test_wgmma_variant_holds_its_bounds_at_ragged_edges(cuda, m, k, n):
+    """One launch of the wgmma variant under every activation into bf16 and
+    f32, within its bounds of the f64 product and one bf16 step (f32 out:
+    rtol 1e-5) of the plain twin, and the same bits when called again."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen).to(cuda, torch.bfloat16)
+    w = torch.randn(k, n, generator=gen).to(cuda, torch.bfloat16)
+    assert operand_plan(x, w).variant == "wgmma"
+    for ot in OUTS.values():
+        for act in ("none", "relu", "silu", "gelu"):
+            kernels.reset_launches()
+            got = arype_matmul(x, w, activation=act, out_dtype=ot)
+            assert kernels.launches()["mm_fused"] == 1
+            assert kernels.mm_fused_variants()["wgmma"] == 1
+            assert torch.equal(got, arype_matmul(x, w, activation=act, out_dtype=ot)), act
+            assert _holds_wgmma_bounds(got, x, w, act, ot), (act, ot)
+            ref = mm_fused(x, w, activation=act, out_dtype=ot).float()
+            tol = _step(ref) if ot == torch.bfloat16 else 1e-5 * ref.abs()
+            assert ((got.float() - ref).abs() <= tol + 1e-5 * ref.abs().max()).all(), act
+
+
+@pytest.mark.parametrize("k,n", [(6144, 512), (1024, 1024), (72, 264)])
+def test_wgmma_rows_do_not_depend_on_m_or_the_tile(cuda, k, n):
+    """Rows of a 1032-row call equal those of 33-, 65- and 200-row calls on
+    them, across the 64- and 128-row tiles and the column tiles the plan
+    picks for each M: the K order is the kernel's constant."""
+    gen = torch.Generator().manual_seed(k + n)
+    w = torch.randn(k, n, generator=gen).to(cuda, torch.bfloat16)
+    x = torch.randn(1032, k, generator=gen).to(cuda, torch.bfloat16)
+    out = arype_matmul(x, w)
+    assert {operand_plan(x[:rows], w).bm for rows in (33, 65, 200, 1032)} == {64, 128}
+    for rows in (33, 65, 200):
+        assert torch.equal(arype_matmul(x[:rows], w), out[:rows]), rows
+
+
+def test_wgmma_tiles_refuse_what_tma_cannot_load(cuda):
+    """The entry point refuses a wgmma tile, launching nothing, for f32 or
+    mixed operands, M <= 8, K or N off a multiple of 8, an unaligned base."""
+    x = torch.randn(64, 80, device=cuda).bfloat16()
+    w = torch.randn(80, 64, device=cuda).bfloat16()
+    out = torch.empty(64, 64, device=cuda)
+    tile = operand_plan(x, w).tile
+    bf16, f32 = DTYPES[torch.bfloat16], DTYPES[torch.float32]
+    cases = [(x, w, 64, 80, 64, f32, bf16), (x, w, 64, 80, 64, bf16, f32),
+             (x, w, 8, 80, 64, bf16, bf16), (x, w, 64, 76, 64, bf16, bf16),
+             (x, w, 64, 80, 60, bf16, bf16), (x.view(-1)[1:], w, 64, 80, 64, bf16, bf16),
+             (x, w.view(-1)[4:], 64, 80, 64, bf16, bf16)]
+    before = kernels.launches()
+    for a, b, m, k, n, xd, wd in cases:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            MM_FUSED(x.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, 0, tile, 1,
+                     xd, wd, f32, stream_of(x))
+    assert kernels.launches() == before
+    MM_FUSED(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), 64, 80, 64, 0, tile, 1, bf16,
+             bf16, f32, stream_of(x))
+    assert torch.equal(out, arype_matmul(x, w, out_dtype=torch.float32))
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 1024, 2048), (1, 6144, 512), (7, 16, 8), (1024, 6, 12),
@@ -377,16 +471,24 @@ def test_bf16_weights_take_unaligned_views(cuda, m, k, n, offset):
     """w a bf16 view 1, 2 or 8 elements or one row into its storage: a base
     not 16-byte aligned takes the synchronous loads (tf32x3) or the scalar
     ones (skinny), and the result still equals the f32 kernel on w.float()
-    bit for bit."""
+    bit for bit.  A view whose base is 16-byte aligned under a bf16 x of
+    K and N multiples of 8 at M > 8 runs the wgmma variant, held to
+    :func:`_holds_wgmma_bounds` instead."""
     gen = torch.Generator().manual_seed(m + k * n)
     start = n if offset == "row" else offset
     w = torch.randn((k + 1) * n + 8, generator=gen).to(cuda, torch.bfloat16)
     w = w[start:start + k * n].view(k, n)
     for xt in (torch.float32, torch.bfloat16):
         x = torch.randn(m, k, generator=gen).to(cuda, xt)
+        wgmma = operand_plan(x, w).variant == "wgmma"
+        assert not wgmma or (offset in (8, "row") and xt == torch.bfloat16)
         for out in OUTS.values():
-            assert torch.equal(arype_matmul(x, w, activation="silu", out_dtype=out),
-                               arype_matmul(x.float(), w.float(), activation="silu").to(out))
+            got = arype_matmul(x, w, activation="silu", out_dtype=out)
+            if wgmma:
+                assert _holds_wgmma_bounds(got, x, w, "silu", out)
+            else:
+                assert torch.equal(got, arype_matmul(x.float(), w.float(),
+                                                     activation="silu").to(out))
 
 
 @pytest.mark.parametrize("engine,plain", [(vpe_matmul_q, vpe_mm_q), (arype_matmul_q, mm_fused_q)])
